@@ -91,3 +91,8 @@ def pytest_sessionfinish(session, exitstatus):
         _sentinel().unlink()
     except OSError:
         pass
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skips without one")
