@@ -22,10 +22,21 @@ Phases (any failure exits nonzero and prints no result line):
      launches over the whole grid) equal ``calibrate_fleet`` through the
      plain version on the card, from the same seed;
   6. reopen the session on the same cache: table HIT and placement HIT;
-  7. each kernel at the main path's shapes against its plain version on the
-     card (exact equality), timed with CUDA events (median of 30 launches,
-     L2 flushed before each) beside its bound and a library yardstick;
-  8. print the ``kernels`` JSON line and, last, the device JSON line.
+  7. the unplaced engine path at full width, through the serving entry
+     point: ``--pud-gemv --calib-cache <the same cache> --no-placement
+     --engine`` with 8 prompts on 4 engine slots, every packed projection in
+     the unplaced GEMM/GEMV kernels and none in the placed ones; then one
+     batch-1 request on the unplaced packs (unplaced GEMV decode) and a
+     profile of one batch-4 unplaced decode step;
+  8. a ragged engine run (12 requests, prompts of 8 to 128 tokens, budgets
+     of 4 to 32) through the kernels and again through the plain versions
+     with the same schedule: tokens equal, logits bit for bit;
+  9. each kernel at the main path's shapes against its plain version on the
+     card (exact equality, both modes), timed with CUDA events (median of 30
+     launches, L2 flushed before each) beside its bound and a library
+     yardstick (``torch._int_mm`` on the unpacked signed weights, with x
+     zero-padded to 32 rows where it has fewer);
+ 10. print the ``kernels`` JSON line and, last, the device JSON line.
 
 It needs the port's sources beside it (``src/repro_torch``) and a GPU.
 """
@@ -48,6 +59,9 @@ F32_OPS_S = 67e12            # float32 outside the tensor cores
 ARCH = "qwen3-1.7b"
 GRID = dict(n_channels=1, n_banks=1, n_subarrays=16, n_cols=65536)
 BATCH, PROMPT, GEN, SEED = 4, 32, 16, 0
+ENGINE_BATCH, ENGINE_SLOTS = 8, 4
+RAGGED = dict(n=12, prompt=(8, 128), budget=(4, 32))
+LIB_ROWS = 32                # torch._int_mm takes more than 16 rows
 
 
 class PhaseError(RuntimeError):
@@ -114,6 +128,32 @@ def restamp(tree, backend: str):
     return tree
 
 
+def library_weights(pt):
+    """[K, N] int8 signed weights of a pack (placed: its logical columns),
+    the operand of the library yardstick."""
+    from repro_torch.kernels.placed_gemm import window_cols
+    from repro_torch.kernels.ref import signed_weights, unpack_plane_words
+    dense = unpack_plane_words(pt.planes, pt.logical_k)
+    if pt.col_ids is not None:
+        dense = dense[:, :, window_cols(pt.col_ids, pt.planes.shape[-1],
+                                        pt.window_block)]
+    return signed_weights(dense).to(dense.dtype).contiguous()   # int8
+
+
+def ragged_requests(torch, vocab: int):
+    """RAGGED["n"] requests with prompt lengths and budgets drawn from the
+    seed, so buckets differ and slots are admitted mid-run."""
+    from repro_torch.core.rng import generator
+    from repro_torch.runtime.engine import Request
+    g = generator(SEED, "ragged")
+    (p0, p1), (b0, b1) = RAGGED["prompt"], RAGGED["budget"]
+    lens = torch.randint(p0, p1 + 1, (RAGGED["n"],), generator=g).tolist()
+    budgets = torch.randint(b0, b1 + 1, (RAGGED["n"],), generator=g).tolist()
+    return [Request(i, torch.randint(0, vocab, (n,), generator=g,
+                                     dtype=torch.int32), m)
+            for i, (n, m) in enumerate(zip(lens, budgets))]
+
+
 def profile_step(torch, model, params, tokens, max_len, sync) -> None:
     """Host wall time of one decode step and, from ``torch.profiler``, the
     device time it launched, by kernel."""
@@ -166,11 +206,11 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
     from repro_torch.core.fleet import (FleetConfig, calibrate_fleet,
                                         ladder_tables, manufacture_fleet)
     from repro_torch.core.rng import generator
-    from repro_torch.kernels import build, calib_iter, placed_gemm
-    from repro_torch.kernels.ref import unpack_plane_words
+    from repro_torch.kernels import build, calib_iter, placed_gemm, plane_gemm
     from repro_torch.launch import serve
     from repro_torch.pud.gemv import FFN_PACKABLE, PUDGemvConfig
     from repro_torch.pud.physics import PhysicsParams
+    from repro_torch.runtime.engine import ServingEngine
     from repro_torch.runtime.session import PUDSession
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -183,7 +223,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
 
     kernels = {"calib_iter": calib_iter.calib_iter,
                "gemm_placed": placed_gemm.gemm_placed,
-               "gemv_placed": placed_gemm.gemv_placed}
+               "gemv_placed": placed_gemm.gemv_placed,
+               "gemm": plane_gemm.gemm, "gemv": plane_gemm.gemv}
 
     if on_card:
         phase("build")
@@ -217,6 +258,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
          f"placement {session.placement_status}: {session.placement_error}")
     need(counts["gemm_placed"] > 0 or not on_card,
          "decode never launched gemm_placed")
+    need(counts["gemm"] == counts["gemv"] == 0,
+         "the placed path launched an unplaced kernel")
     logits, toks = res["logits"], res["toks"]
     vocab = res["model"].cfg.vocab
     need(tuple(logits.shape) == (BATCH, GEN + 1, vocab)
@@ -284,7 +327,86 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
          "reopened packs differ")
     print(f"  table HIT in {st.wall_s:.2f}s, placement HIT "
           f"[{again.placement_name}]")
-    del again, packed2, res
+    del again, packed2
+
+    phase("unplaced engine path: --no-placement --engine, unplaced kernels")
+    argv_u = ["--arch", ARCH, "--preset", preset, "--pud-gemv",
+              "--calib-cache", cache.name, "--no-placement", "--engine",
+              "--fleet-subarrays", str(grid["n_subarrays"]),
+              "--fleet-cols", str(grid["n_cols"]),
+              "--batch", str(ENGINE_BATCH), "--batch-size",
+              str(ENGINE_SLOTS), "--prompt-len", str(PROMPT),
+              "--gen", str(GEN), "--seed", str(SEED), "--device", str(dev)]
+    reset_counts(kernels)
+    ures = serve.run(serve.parse_args(argv_u))
+    sync()
+    ucounts = read_counts(kernels)
+    usession, upacked, model = ures["session"], ures["packed"], ures["model"]
+    print(f"  launches: {ucounts}")
+    need(usession.calibration.cache_hit, "unplaced run missed the table")
+    need(usession.placement_status is None and not upacked.placed,
+         f"--no-placement placed the packs ({usession.placement_status})")
+    need(ucounts["gemm"] > 0 or not on_card,
+         "the unplaced engine path never launched gemm")
+    need(ucounts["gemm_placed"] == ucounts["gemv_placed"] == 0,
+         "the unplaced path launched a placed kernel")
+    comps = ures["completions"]
+    need(len(comps) == ENGINE_BATCH
+         and all(len(c.tokens) == GEN for c in comps),
+         "the engine did not complete every request with its budget")
+    need(all(0 <= t < vocab for c in comps for t in c.tokens), "bad tokens")
+    sched = ures["sched"]
+    print(f"  engine: {sched['steps']} steps on {sched['batch_size']} slots, "
+          f"slot occupancy {sched['slot_occupancy']:.4f}, decode wall "
+          f"{sched['wall_tok_s']:.1f} tok/s; batched vs lockstep "
+          f"{ures['engine_agreement']:.4f} of requests bit-identical")
+
+    phase("unplaced: one batch-1 request (unplaced GEMV decode)")
+    reset_counts(kernels)
+    one_u, _ = serve.greedy_generate(model, upacked.params,
+                                     ures["tokens"][:1], GEN,
+                                     ures["max_len"])
+    sync()
+    ucounts1 = read_counts(kernels)
+    print(f"  launches: {ucounts1}")
+    need(ucounts1["gemv"] > 0 or not on_card,
+         "B=1 decode never launched gemv")
+    need(ucounts1["gemm_placed"] == ucounts1["gemv_placed"] == 0,
+         "the unplaced path launched a placed kernel")
+    need(tuple(one_u.shape) == (1, GEN), "bad batch-1 tokens")
+    for k in ("gemm", "gemv"):
+        launches[k] = ucounts[k] + ucounts1[k]
+
+    phase("profile: one batch-4 unplaced decode step")
+    profile_step(torch, model, upacked.params, ures["tokens"][:BATCH],
+                 ures["max_len"], sync)
+
+    phase("ragged engine run: kernels vs plain versions, same schedule")
+    reqs = ragged_requests(torch, vocab)
+    r_len = RAGGED["prompt"][1] + RAGGED["budget"][1]
+    eng = usession.serving_engine(model, max_len=r_len,
+                                  batch_size=ENGINE_SLOTS,
+                                  collect_logits=True)
+    eng_ref = ServingEngine(model, restamp(upacked.params, "reference"),
+                            session=usession, max_len=r_len,
+                            batch_size=ENGINE_SLOTS, collect_logits=True)
+    got_c, want_c = eng.run(reqs), eng_ref.run(reqs)
+    sync()
+    for g_, w_ in zip(got_c, want_c):
+        need(g_.tokens == w_.tokens and torch.equal(g_.logits, w_.logits)
+             and (g_.slot, g_.admitted_step) == (w_.slot, w_.admitted_step),
+             f"request {g_.request_id}: kernels differ from plain versions")
+    rsched = eng.scheduler_report()
+    need(len(got_c) == RAGGED["n"] and rsched["prefill_traces"] > 1
+         and max(c.admitted_step for c in got_c) > 0,
+         "the ragged run did not exercise buckets and mid-run admission")
+    print(f"  {len(got_c)} requests, {rsched['generated_tokens']} tokens in "
+          f"{rsched['steps']} steps, {rsched['prefill_traces']} prefill "
+          f"buckets, occupancy {rsched['slot_occupancy']:.4f}: tokens and "
+          "logits through the kernels == plain versions, bit for bit")
+    del eng, eng_ref, got_c, want_c
+
+    del res, ures
     cache.cleanup()
 
     phase("kernels vs plain versions at the main path's shapes")
@@ -329,75 +451,96 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
         bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
         bound_by_ops_ms=nops / F32_OPS_S * 1e3, library_ms=None))
 
-    # placed GEMM / GEMV on the main path's packs.
+    # bit-plane GEMM / GEMV on the main path's packs (placed and unplaced).
     gen_x = generator(SEED, "chip-smoke-x", device=dev)
 
-    def gemm_row(name, fn, plain, pt, b, library):
+    def gemm_row(fn, plain, pt, b):
         x = torch.randint(-127, 128, (b, pt.k), generator=gen_x, device=dev,
                           dtype=torch.int8)
-        kw = dict(layout=pt.layout, logical_k=pt.logical_k,
-                  window_block=pt.window_block)
-        got = fn(x, pt.planes, pt.col_ids, "folded", **kw)
-        want = plain(x, pt.planes, pt.col_ids, "folded", **kw)
-        got_planes = fn(x, pt.planes, pt.col_ids, "planes", **kw)
-        sync()
-        need(torch.equal(got, want) and torch.equal(got_planes, want),
-             f"{name} differs from its plain version at x {tuple(x.shape)}")
+        kw = dict(layout=pt.layout, logical_k=pt.logical_k)
+        operands = (pt.planes,)
+        if pt.col_ids is not None:
+            operands += (pt.col_ids,)
+            kw["window_block"] = pt.window_block
+        want = plain(x, *operands, "folded", **kw)
+        for mode in ("folded", "planes"):
+            got = fn(x, *operands, mode, **kw)
+            sync()
+            need(torch.equal(got, want), f"{fn.__name__} ({mode}) differs "
+                 f"from its plain version at x {tuple(x.shape)}")
         wb, kw_words, _ = pt.planes.shape
         n = pt.n
-        nbytes = b * pt.k + wb * kw_words * n + n * 4 + b * n * 4
+        nbytes = (b * pt.k + wb * kw_words * n + b * n * 4
+                  + (n * 4 if pt.col_ids is not None else 0))
         nops = 2 * b * n * pt.k
         lib_ms = None
-        if library and on_card:
-            cols = placed_gemm.window_cols(pt.col_ids, pt.planes.shape[-1],
-                                           pt.window_block)
-            dense = unpack_plane_words(pt.planes, pt.logical_k)[:, :, cols]
-            w = torch.zeros(dense.shape[1:], dtype=torch.int32, device=dev)
-            for bit in range(wb):
-                w += dense[bit].to(torch.int32) << bit
-            w8 = (w - (1 << (wb - 1))).to(torch.int8).contiguous()
-            need(torch.equal(torch._int_mm(x, w8), want),
+        if on_card:
+            w8 = library_weights(pt)
+            xl = x
+            if b < LIB_ROWS:
+                xl = torch.zeros((LIB_ROWS, pt.k), dtype=torch.int8,
+                                 device=dev)
+                xl[:b] = x
+            need(torch.equal(torch._int_mm(xl, w8)[:b], want),
                  "library yardstick disagrees")
-            lib_ms = time_ms(torch, lambda: torch._int_mm(x, w8), flush)
+            lib_ms = time_ms(torch, lambda: torch._int_mm(xl, w8), flush)
+            del w8
         return dict(
-            shape=f"x [{b},{pt.k}] x window {list(pt.planes.shape)}, "
-                  f"N {n}",
+            shape=f"x [{b},{pt.k}] x words {list(pt.planes.shape)}, N {n}",
             max_abs_err=float((got - want).abs().max()),
-            ms=time_ms(torch, lambda: fn(x, pt.planes, pt.col_ids,
-                                         "folded", **kw), flush),
-            plain_ms=time_ms(torch, lambda: plain(x, pt.planes, pt.col_ids,
-                                                  "folded", **kw), flush,
-                             reps=10),
+            ms=time_ms(torch, lambda: fn(x, *operands, "folded", **kw),
+                       flush),
+            plain_ms=time_ms(torch, lambda: plain(x, *operands, "folded",
+                                                  **kw), flush, reps=10),
             bytes=nbytes, ops=nops,
             bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
             bound_by_ops_ms=nops / INT8_OPS_S * 1e3, library_ms=lib_ms)
 
-    wi = packed.tensor("layers_0_dense/mixer/wi").layer(0)
-    wo = packed.tensor("layers_0_dense/mixer/wo").layer(0)
-    un = packed.tensor("unembed/w")
-    gemm_prefill = gemm_row("gemm_placed", placed_gemm.gemm_placed,
-                            placed_gemm.gemm_placed_plain, wi,
-                            BATCH * PROMPT, True)
-    gemm_decode = gemm_row("gemm_placed", placed_gemm.gemm_placed,
-                           placed_gemm.gemm_placed_plain, wo, BATCH, False)
-    gemv = gemm_row("gemv_placed", placed_gemm.gemv_placed,
-                    placed_gemm.gemv_placed_plain, un, 1, False)
-    src = "src/repro_torch/csrc/placed_gemm.cu"
-    rows.append(dict(name="gemm_placed", route="cuda", source=src,
-                     replaces="src/repro/kernels/bitplane_gemm.py:166",
-                     launches=launches["gemm_placed"], **gemm_prefill,
-                     extra_shapes=[gemm_decode]))
-    rows.append(dict(name="gemv_placed", route="cuda", source=src,
-                     replaces="src/repro/kernels/bitplane_gemv.py:377",
-                     launches=launches["gemv_placed"], **gemv))
+    def layer0(pm, name):
+        return pm.tensor(f"layers_0_dense/mixer/{name}").layer(0)
 
-    for r in [rows[0], rows[1], rows[1]["extra_shapes"][0], rows[2]]:
+    wi, wo, un = layer0(packed, "wi"), layer0(packed, "wo"), \
+        packed.tensor("unembed/w")
+    src = "src/repro_torch/csrc/placed_gemm.cu"
+    rows.append(dict(
+        name="gemm_placed", route="cuda", source=src,
+        replaces="src/repro/kernels/bitplane_gemm.py:166",
+        launches=launches["gemm_placed"],
+        **gemm_row(placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain,
+                   wi, BATCH * PROMPT),
+        extra_shapes=[gemm_row(placed_gemm.gemm_placed,
+                               placed_gemm.gemm_placed_plain, wo, BATCH)]))
+    rows.append(dict(
+        name="gemv_placed", route="cuda", source=src,
+        replaces="src/repro/kernels/bitplane_gemv.py:377",
+        launches=launches["gemv_placed"],
+        **gemm_row(placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain,
+                   un, 1)))
+
+    uwi, uwo, uun = layer0(upacked, "wi"), layer0(upacked, "wo"), \
+        upacked.tensor("unembed/w")
+    src = "src/repro_torch/csrc/plane_gemm.cu"
+    rows.append(dict(
+        name="gemm", route="cuda", source=src,
+        replaces="src/repro/kernels/bitplane_gemm.py:105",
+        launches=launches["gemm"],
+        **gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain, uwi,
+                   BATCH * PROMPT),
+        extra_shapes=[gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain, pt,
+                               ENGINE_SLOTS) for pt in (uwo, uun)]))
+    rows.append(dict(
+        name="gemv", route="cuda", source=src,
+        replaces="src/repro/kernels/bitplane_gemv.py:316",
+        launches=launches["gemv"],
+        **gemm_row(plane_gemm.gemv, plane_gemm.gemv_plain, uun, 1)))
+
+    for r in [e for row in rows for e in [row] + row.get("extra_shapes", [])]:
         bb, bo = r["bound_by_bytes_ms"], r["bound_by_ops_ms"]
         r["bound_ms"] = max(bb, bo)
         r["bound_by"] = "bytes" if bb >= bo else "operations"
         lib = (f"{r['library_ms']:.4f}" if r["library_ms"] is not None
                else "n/a")
-        print(f"  {r.get('name', 'gemm_placed'):<12s} {r['shape']}: "
+        print(f"  {r.get('name', '  (extra)'):<12s} {r['shape']}: "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max |err| {r['max_abs_err']}")

@@ -2,10 +2,10 @@
 ``repro/kernels/backends.py``).
 
   * ``reference`` — the plain PyTorch versions (kernels/ref.py), any device.
-  * ``cuda``      — the hand-written placed kernels (kernels/placed_gemm.py).
-    A CUDA tensor launches the kernel or raises; a CPU tensor runs the plain
-    version.  The unplaced kernels are not ported yet: the ``cuda`` backend
-    raises for an unplaced pack on the GPU.
+  * ``cuda``      — the hand-written kernels: unplaced packs in
+    kernels/plane_gemm.py, placed ones in kernels/placed_gemm.py.  A CUDA
+    tensor launches the kernel or raises; a CPU tensor runs the plain
+    version.
 
 Every entry takes ``x [B, K] int8`` and planes/words and returns ``[B, N]``
 int32; all backends give identical integers.
@@ -17,7 +17,7 @@ from typing import Callable
 
 import torch
 
-from . import placed_gemm, ref
+from . import placed_gemm, plane_gemm
 
 DEFAULT_BACKEND = "cuda"
 
@@ -35,29 +35,14 @@ class Backend:
     gemm_placed: Callable[..., torch.Tensor]
 
 
-def _ref_unplaced(x, planes, mode="folded", *, layout="dense",
-                  logical_k=None):
-    x, planes = ref.densify(x, planes, layout, logical_k)
-    return ref.bitplane_gemv_ref(x, planes)
-
-
-def _cuda_unplaced(x, planes, mode="folded", *, layout="dense",
-                   logical_k=None):
-    if x.is_cuda:
-        raise NotImplementedError(
-            "the unplaced bit-plane GEMM/GEMV kernels are not ported to CUDA "
-            "yet; pack with a placement or use backend='reference'")
-    return _ref_unplaced(x, planes, mode, layout=layout, logical_k=logical_k)
-
-
 _REGISTRY: dict[str, Backend] = {
-    "reference": Backend("reference", gemv=_ref_unplaced,
-                         gemv_placed=placed_gemm.placed_plain,
-                         gemm=_ref_unplaced,
-                         gemm_placed=placed_gemm.placed_plain),
-    "cuda": Backend("cuda", gemv=_cuda_unplaced,
+    "reference": Backend("reference", gemv=plane_gemm.gemv_plain,
+                         gemv_placed=placed_gemm.gemv_placed_plain,
+                         gemm=plane_gemm.gemm_plain,
+                         gemm_placed=placed_gemm.gemm_placed_plain),
+    "cuda": Backend("cuda", gemv=plane_gemm.gemv,
                     gemv_placed=placed_gemm.gemv_placed,
-                    gemm=_cuda_unplaced,
+                    gemm=plane_gemm.gemm,
                     gemm_placed=placed_gemm.gemm_placed),
 }
 

@@ -39,7 +39,7 @@ def _fn(name: str, argtypes):
     return fn
 
 
-def _check_mode(mode: str, layout: str) -> None:
+def check_mode(mode: str, layout: str) -> None:
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     if layout not in LAYOUTS:
@@ -76,7 +76,7 @@ def placed_plain(x: torch.Tensor, planes: torch.Tensor,
     window columns are gathered with the kernel's addressing and run
     through the plain bit-plane GeMV.
     """
-    _check_mode(mode, layout)
+    check_mode(mode, layout)
     x, planes = densify(x, planes, layout, logical_k)
     cols = window_cols(col_ids, planes.shape[-1], window_block)
     return bitplane_gemv_ref(x, planes.index_select(2, cols))
@@ -115,7 +115,7 @@ def _geometry(x, words, col_ids, logical_k, window_block, entry):
 
 
 def _launch(entry, x, words, col_ids, mode, layout, logical_k, window_block):
-    _check_mode(mode, layout)
+    check_mode(mode, layout)
     if layout != "bitpack8":
         raise NotImplementedError(
             f"{entry}: the CUDA kernel takes bit-packed words only; the "

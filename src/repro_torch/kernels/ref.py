@@ -58,7 +58,7 @@ def calib_iter_ref(
     return new_levels.to(torch.int32), bias
 
 
-def _signed_weights(planes: torch.Tensor) -> torch.Tensor:
+def signed_weights(planes: torch.Tensor) -> torch.Tensor:
     """[WB, K, N] {0,1} planes -> [K, N] int32 offset-binary weights."""
     wb = planes.shape[0]
     weights = torch.zeros(planes.shape[1:], dtype=torch.int32,
@@ -70,7 +70,7 @@ def _signed_weights(planes: torch.Tensor) -> torch.Tensor:
 
 def bitplane_gemv_ref(x: torch.Tensor, planes: torch.Tensor) -> torch.Tensor:
     """[B, K] int8 x [WB, K, N] bit-planes -> [B, N] int32 signed GeMV."""
-    w = _signed_weights(planes)
+    w = signed_weights(planes)
     return torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(
         torch.int32)
 

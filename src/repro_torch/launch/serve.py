@@ -1,21 +1,28 @@
 """Batched serving driver: prefill + greedy decode, optional PUD GEMM path
-(port of ``repro/launch/serve.py``: the ``--pud-gemv --calib-cache`` path).
+and continuous-batching engine (port of ``repro/launch/serve.py``: the
+``--pud-gemv --calib-cache [--no-placement] [--engine]`` paths).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --preset full --pud-gemv --calib-cache DIR \
-        --fleet-subarrays 16 --fleet-cols 65536
+        --fleet-subarrays 16 --fleet-cols 65536 [--no-placement] [--engine]
 
 The driver decodes the batch once through the bf16 weights, then, with
 ``--pud-gemv``, opens a ``PUDSession``: calibration (a cached table, or
 Algorithm 1 through the ``calib_iter`` kernel plus ECR masks, persisted),
-column placement onto error-free columns, placed bit-plane packs of the FFN
-and unembed projections, and greedy decode with every packed projection
-going through the placed GEMM/GEMV kernels.  It prints the placement
-status, token agreement with the bf16 path and wall times.
+column placement onto error-free columns (unless ``--no-placement``, or
+when the model does not fit the grid), 4-bit bit-plane packs of the FFN and
+unembed projections, and lockstep greedy decode with every packed
+projection in the bit-plane GEMM/GEMV kernels: the placed ones for placed
+packs, the unplaced ones otherwise.  It prints the placement status, token
+agreement with the bf16 path, the DDR4-PUD rate models and wall times.
+``--engine`` then serves one request per batch row through the
+continuous-batching ``ServingEngine`` and prints the share of requests
+whose tokens equal the lockstep decode's.
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions instead.
-The engine, drift monitor, mesh and tuning paths, attention packing, other
-weight widths and unplaced serving are not ported yet.
+The drift monitor, mesh and tuning paths, the engine's chunked prefill,
+prefix cache and SLO admission, attention packing and other weight widths
+are not ported yet.
 """
 from __future__ import annotations
 
@@ -74,7 +81,19 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--pud-gemv", action="store_true",
                     help="serve the FFN and unembed projections as 4-bit "
-                         "placed bit-plane packs")
+                         "bit-plane packs")
+    ap.add_argument("--engine", action="store_true",
+                    help="also serve through the continuous-batching "
+                         "ServingEngine (one request per batch row); with "
+                         "--pud-gemv it serves the packs, alone the bf16 "
+                         "tree")
+    ap.add_argument("--batch-size", type=int, default=None,
+                    help="engine decode slots; default = the session's "
+                         "occupancy-derived optimal batch")
+    ap.add_argument("--no-placement", dest="placement",
+                    action="store_false", default=True,
+                    help="with --calib-cache: skip column placement and "
+                         "pack onto logical columns (faulty ones included)")
     ap.add_argument("--calib-cache", default=None, metavar="DIR",
                     help="persistent calibration-table cache")
     ap.add_argument("--device-id", default="dimm0")
@@ -91,11 +110,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def run(args: argparse.Namespace) -> dict:
     """Serve one batch as the CLI does; returns what it printed, as data
-    (tokens, logits, the session and timings)."""
-    from repro_torch.core.calibrate import CalibrationConfig
-    from repro_torch.core.fleet import FleetConfig
-    from repro_torch.runtime.session import PUDSession
-
+    (tokens, logits, the session, the engine and timings)."""
     device = resolve_device(args.device)
     spec = get(args.arch)
     model = spec.make_smoke() if args.preset == "smoke" else spec.make_model()
@@ -118,9 +133,27 @@ def run(args: argparse.Namespace) -> dict:
            "max_len": max_len, "ref_toks": ref_toks,
            "ref_logits": ref_logits, "wall_s": {"init": t_init,
                                                 "bf16": t_ref}}
-    if not args.pud_gemv:
-        return res
+    session = None
+    serve_params, lock_toks = params, ref_toks
+    if args.pud_gemv:
+        session = _pud_path(args, spec, model, params, tokens, max_len,
+                            ref_toks, ref_logits, res)
+        serve_params, lock_toks = res["packed"].params, res["toks"]
+    if args.engine:
+        _engine_path(args, spec, model, serve_params, session, tokens,
+                     max_len, lock_toks, res)
+    return res
 
+
+def _pud_path(args, spec, model, params, tokens, max_len, ref_toks,
+              ref_logits, res):
+    """Calibrate, place, pack and decode in lockstep through the packs;
+    returns the session and fills ``res``."""
+    from repro_torch.core.calibrate import CalibrationConfig
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.runtime.session import PUDSession
+
+    device = tokens.device
     cfg = PUDGemvConfig(weight_bits=4, packable=FFN_PACKABLE)
     session = PUDSession.open(
         args.arch,
@@ -129,7 +162,7 @@ def run(args: argparse.Namespace) -> dict:
                          n_cols=args.fleet_cols),
         cache_dir=args.calib_cache, device_id=args.device_id,
         calib=CalibrationConfig(n_iterations=12, n_samples=256),
-        seed=args.seed + 2, device=device)
+        seed=args.seed + 2, placement=args.placement, device=device)
     res["session"] = session
     if args.calib_cache:
         st = session.calibrate()
@@ -178,7 +211,58 @@ def run(args: argparse.Namespace) -> dict:
     res.update(toks=toks, logits=logits, agreement=agree, extras=extras,
                max_logit_delta=delta)
     res["wall_s"]["pud"] = t_pud
-    return res
+
+    # DRAM-side throughput model: what the paper's system sustains.
+    perf = session.perf_report(2 * spec.n_active_params)
+    print(f"    DDR4-PUD serving model ({args.arch} full config, "
+          f"{cfg.weight_bits}-bit): "
+          f"baseline {perf['baseline_tok_s']:.2f} tok/s"
+          f" -> PUDTune {perf['tuned_tok_s']:.2f}"
+          f" tok/s ({perf['gain']:.2f}x, Eq. 1)")
+    if session.placement is not None:
+        print("    placement-derived rate (occupied-subarray waves): "
+              f"{perf['placed_tok_s']:.2f} "
+              f"tok/s at {session.placement.occupancy:.1%} occupancy")
+    return session
+
+
+def _engine_path(args, spec, model, serve_params, session, tokens, max_len,
+                 lock_toks, res):
+    """Serve one request per batch row through the ServingEngine and hold
+    its tokens against the lockstep decode's; fills ``res``."""
+    from repro_torch.runtime.engine import Request, ServingEngine
+
+    engine = ServingEngine(model, serve_params, session=session,
+                           max_len=max_len, batch_size=args.batch_size)
+    requests = [Request(request_id=i, tokens=tokens[i],
+                        max_new_tokens=args.gen)
+                for i in range(args.batch)]
+    completions, t_eng = _timed(tokens.device, engine.run, requests)
+    sched = engine.scheduler_report()
+    print(f"  engine: {sched['completed']} requests, "
+          f"{sched['generated_tokens']} tokens in {sched['steps']} steps "
+          f"({sched['batch_size']} slots, "
+          f"occupancy {sched['slot_occupancy']:.1%}, "
+          f"{sched['wall_tok_s']:.1f} tok/s decode wall, "
+          f"{sched['prefill_traces']} prefill buckets; {t_eng:.2f}s wall)")
+    # continuous batching must not change any request's tokens
+    same = [c.tokens == lock_toks[i].tolist()
+            for i, c in enumerate(completions)]
+    agree = sum(same) / len(same)
+    print("    batched vs lockstep decode: "
+          f"{100 * agree:.1f}% of requests bit-identical")
+    res.update(engine=engine, completions=completions, sched=sched,
+               engine_agreement=agree)
+    res["wall_s"]["engine"] = t_eng
+    if session is not None:
+        perf = session.perf_report(2 * spec.n_active_params,
+                                   batch_size=engine.batch_size)
+        if "batched_tok_s" in perf:
+            print("    DDR4-PUD batched rate: "
+                  f"{perf['batched_tok_s']:.2f} aggregate tok/s at "
+                  f"batch {perf['batch_size']} "
+                  f"({perf['batch_speedup']:.2f}x over batch-1; "
+                  f"occupancy-derived optimum {perf['optimal_batch']})")
 
 
 def main(argv=None) -> int:

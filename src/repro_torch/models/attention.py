@@ -1,6 +1,7 @@
 """GQA attention: full-sequence (chunked softmax) and one-token decode
-against a KV cache (port of the GQA half of ``repro/models/attention.py``;
-MLA and chunked prefill are not ported yet).
+against a KV cache, at one position for all rows or at a position per row
+(port of the GQA half of ``repro/models/attention.py``; MLA and chunked
+prefill are not ported yet).
 
 Layouts are the reference's: q/k/v [B, S, H, Dh], caches [B, Smax, KV, Dh],
 weights wq/wk/wv [D, H, Dh] and wo [H, Dh, D].  Score and PV products
@@ -131,33 +132,60 @@ def gqa_attention(p, cfg: AttnConfig, x: torch.Tensor,
 
 
 def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
-               cache_v: torch.Tensor, cur_len: int) -> torch.Tensor:
+               cache_v: torch.Tensor,
+               cur_len: "int | torch.Tensor") -> torch.Tensor:
     """One-token decode. x: [B, 1, D]; cache_k/v: [B, Smax, KV, Dh].
 
-    All rows sit at position ``cur_len``; the new key/value row is written
-    into the caches in place.  Returns out [B, 1, D].
+    ``cur_len`` is the cache fill: an int (all rows at that position) or a
+    [B] integer tensor of per-row lengths (continuous batching: each slot at
+    its own position, with a per-row RoPE, cache write and causal mask).
+    Rows are independent either way.  The new key/value row is written into
+    the caches in place; a row whose length is already ``Smax`` writes
+    nothing (the reference drops that write).  Returns out [B, 1, D].
     """
     b, smax = cache_k.shape[0], cache_k.shape[1]
+    per_slot = isinstance(cur_len, torch.Tensor) and cur_len.dim() == 1
+    if per_slot:
+        lens = cur_len.to(device=x.device, dtype=torch.int64)
+    else:
+        cur_len = int(cur_len)
     q = head_proj(p, "wq", x, cfg.n_heads, cfg.head_dim)
     k_new = head_proj(p, "wk", x, cfg.n_kv_heads, cfg.head_dim)
     v_new = head_proj(p, "wv", x, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = rmsnorm(p["q_norm"], q)
         k_new = rmsnorm(p["k_norm"], k_new)
-    pos = torch.full((b, 1), cur_len, dtype=torch.int64, device=x.device)
+    pos = (lens[:, None] if per_slot else
+           torch.full((b, 1), cur_len, dtype=torch.int64, device=x.device))
     q = rope(q, pos, cfg.rope_theta)
     k_new = rope(k_new, pos, cfg.rope_theta)
-    cache_k[:, cur_len:cur_len + 1] = k_new.to(cache_k.dtype)
-    cache_v[:, cur_len:cur_len + 1] = v_new.to(cache_v.dtype)
+    if per_slot:
+        # Rows at Smax keep their last cache row: it is rewritten with its
+        # own value, which matches the reference's dropped write.
+        rows = torch.arange(b, device=x.device)
+        at = torch.clamp(lens, max=smax - 1)
+        keep = (lens >= smax)[:, None, None]
+        cache_k[rows, at] = torch.where(keep, cache_k[rows, at],
+                                        k_new[:, 0].to(cache_k.dtype))
+        cache_v[rows, at] = torch.where(keep, cache_v[rows, at],
+                                        v_new[:, 0].to(cache_v.dtype))
+        valid = lens + 1
+    else:
+        cache_k[:, cur_len:cur_len + 1] = k_new.to(cache_k.dtype)
+        cache_v[:, cur_len:cur_len + 1] = v_new.to(cache_v.dtype)
     h, kvh, d = q.shape[2], cache_k.shape[2], q.shape[3]
     g = h // kvh
     qr = q.reshape(b, kvh, g, d).to(torch.float32)
     scale = torch.tensor(d ** -0.5, dtype=torch.float32, device=x.device)
     s = torch.einsum("bkgd,bpkd->bkgp", qr,
                      cache_k.to(torch.float32)) * scale
-    mask = torch.arange(smax, device=x.device) < cur_len + 1
-    s = torch.where(mask[None, None, None, :], s,
-                    torch.tensor(float("-inf"), device=x.device))
+    if per_slot:
+        mask = (torch.arange(smax, device=x.device)[None, :]
+                < valid[:, None])[:, None, None, :]
+    else:
+        mask = (torch.arange(smax, device=x.device)
+                < cur_len + 1)[None, None, None, :]
+    s = torch.where(mask, s, torch.tensor(float("-inf"), device=x.device))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgp,bpkd->bkgd",
                      w.to(cache_v.dtype).to(torch.float32),

@@ -8,9 +8,10 @@ of) their float weights.  The forward walks the layers in a Python loop,
 slicing layer ``i`` out of every stacked leaf.
 
 Entry points: ``param_defs()``, ``cache_defs(batch, max_len)``,
-``prefill(params, tokens, max_len)`` -> (last logits [B, V], cache) and
-``decode_step(params, cache, tokens, cur_len)`` -> (logits [B, V], cache).
-The decode step updates the cache in place.
+``prefill(params, tokens, max_len, last_idx)`` -> (logits [B, V] of the last
+or the ``last_idx`` row, cache) and ``decode_step(params, cache, tokens,
+cur_len)`` -> (logits [B, V], cache), with ``cur_len`` an int or a [B]
+tensor of per-row lengths.  The decode step updates the cache in place.
 """
 from __future__ import annotations
 
@@ -122,10 +123,20 @@ class TransformerLM:
                                  device=h.device)
         return h
 
+    @property
+    def supports_chunked_prefill(self) -> bool:
+        """Whether bucketed (pow2-padded) prefill is exact for this config:
+        True for the dense family (only MoE routing is sequence-global)."""
+        return True
+
     def prefill(self, params, tokens: torch.Tensor,
-                max_len: int | None = None):
-        """Process a full prompt; returns (last logits [B, V] float32,
-        cache {group: {"k", "v": [L, B, max_len, KV, Dh]}})."""
+                max_len: int | None = None, last_idx: int | None = None):
+        """Process a full prompt; returns (logits [B, V] float32, cache
+        {group: {"k", "v": [L, B, max_len, KV, Dh]}}).
+
+        ``last_idx`` is the row whose logits are returned (the true last
+        prompt position of a prompt zero-padded to a length bucket); by
+        default the final row."""
         cfg = self.cfg
         b, s = tokens.shape
         max_len = max_len or s
@@ -149,10 +160,12 @@ class TransformerLM:
                             cfg.activation)
             cache[name] = {"k": ck, "v": cv}
         h = self._norm(params["final_norm"], h)
-        return logits_last(params["unembed"], h[:, -1]), cache
+        h_last = h[:, -1] if last_idx is None else h[:, int(last_idx)]
+        return logits_last(params["unembed"], h_last), cache
 
-    def decode_step(self, params, cache, tokens: torch.Tensor, cur_len: int):
-        """tokens: [B, 1] at position ``cur_len`` -> (logits [B, V], cache)."""
+    def decode_step(self, params, cache, tokens: torch.Tensor, cur_len):
+        """tokens: [B, 1] at position ``cur_len`` (an int, or a [B] tensor
+        of per-row positions) -> (logits [B, V], cache)."""
         cfg = self.cfg
         h = self._embed_tokens(params, tokens)
         for gi, (kind, count) in enumerate(cfg.groups()):
@@ -161,7 +174,7 @@ class TransformerLM:
                 lp = layer_slice(params[name], i)
                 a = attn_mod.gqa_decode(
                     lp["attn"], cfg.attn_config(), self._norm(lp["ln1"], h),
-                    cache[name]["k"][i], cache[name]["v"][i], int(cur_len))
+                    cache[name]["k"][i], cache[name]["v"][i], cur_len)
                 h = h + a
                 h = h + ffn(lp["mixer"], self._norm(lp["ln2"], h),
                             cfg.activation)

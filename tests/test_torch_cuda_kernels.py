@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.fleet import FleetConfig, ladder_tables  # noqa: E402
-from repro_torch.kernels import calib_iter, placed_gemm, ref  # noqa: E402
+from repro_torch.kernels import calib_iter, placed_gemm, plane_gemm, ref  # noqa: E402,E501
 from repro_torch.kernels.ops import pud_matmul  # noqa: E402
 from repro_torch.pud.physics import PhysicsParams  # noqa: E402
 
@@ -98,6 +98,40 @@ def test_placed_gemm_equals_plain(gen, b, k, blocked):
             placed_gemm.gemv_placed(x, words, cols, **kw)
 
 
+@pytest.mark.parametrize("n", [77, 200, 2048])
+@pytest.mark.parametrize("k", [64, 100, 2048, 6144])
+@pytest.mark.parametrize("b", [1, 3, 8, 17, 128])
+def test_plane_gemm_equals_plain(gen, b, k, n):
+    w = torch.randint(-8, 8, (2, k, n), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    # two stacked layers: layer 1 starts at an offset that is not 4-byte
+    # aligned when N is odd, which takes the kernel's byte-load path
+    words = torch.stack([ref.pack_plane_words(ref.pack_bitplanes(w[i], 4))
+                         for i in range(2)])
+    x = torch.randint(-127, 128, (b, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    for layer in range(2):
+        want = (x.double() @ w[layer].double()).to(torch.int32)
+        wl = words[layer]
+        assert torch.equal(plane_gemm.plane_plain(
+            x, wl, layout="bitpack8", logical_k=k), want)
+        for mode in ("planes", "folded"):
+            n0 = plane_gemm.gemm.launches
+            assert torch.equal(plane_gemm.gemm(x, wl, mode, logical_k=k),
+                               want)
+            assert plane_gemm.gemm.launches == n0 + 1
+            if b == 1:
+                v0 = plane_gemm.gemv.launches
+                assert torch.equal(plane_gemm.gemv(x, wl, mode, logical_k=k),
+                                   want)
+                assert plane_gemm.gemv.launches == v0 + 1
+    with pytest.raises(NotImplementedError):
+        plane_gemm.gemm(x, ref.pack_bitplanes(w[0], 4), layout="dense")
+    if b > 1:
+        with pytest.raises(ValueError):
+            plane_gemm.gemv(x, words[0], logical_k=k)
+
+
 @pytest.mark.parametrize("b", [1, 4])
 def test_pud_matmul_cuda_equals_reference_backend(gen, b):
     _, _, words, cols, pwb = _window(gen, 100, 256, True)
@@ -107,4 +141,9 @@ def test_pud_matmul_cuda_equals_reference_backend(gen, b):
               window_block=pwb)
     got = pud_matmul(x, words, scale, backend="cuda", **kw)
     want = pud_matmul(x, words, scale, backend="reference", **kw)
+    assert torch.equal(got, want)
+    kw.update(col_ids=None, window_block=None)     # the unplaced kernels
+    logical = words[:, :, :200].contiguous()
+    got = pud_matmul(x, logical, scale[:200], backend="cuda", **kw)
+    want = pud_matmul(x, logical, scale[:200], backend="reference", **kw)
     assert torch.equal(got, want)

@@ -206,12 +206,15 @@ def test_chip_smoke_rehearses_on_cpu(capsys):
                  grid=dict(n_channels=1, n_banks=1, n_subarrays=8,
                            n_cols=512))
     names = [r["name"] for r in out["rows"]]
-    assert names == ["calib_iter", "gemm_placed", "gemv_placed"]
+    assert names == ["calib_iter", "gemm_placed", "gemv_placed", "gemm",
+                     "gemv"]
     for r in out["rows"]:
-        assert r["max_abs_err"] == 0 and r["bound_ms"] > 0
-        assert r["bound_by"] in ("bytes", "operations")
+        for e in [r] + r.get("extra_shapes", []):
+            assert e["max_abs_err"] == 0 and e["bound_ms"] > 0
+            assert e["bound_by"] in ("bytes", "operations")
     text = capsys.readouterr().out
     assert "placement HIT" in text and "bit for bit" in text
+    assert "unplaced engine path" in text and "100.0% of requests" in text
 
 
 def test_chip_smoke_fails_without_gpu_or_sources(tmp_path):
