@@ -31,24 +31,39 @@ Phases (any failure exits nonzero and prints no result line):
   8. a ragged engine run (12 requests, prompts of 8 to 128 tokens, budgets
      of 4 to 32) through the kernels and again through the plain versions
      with the same schedule: tokens equal, logits bit for bit;
-  9. each kernel at the main path's shapes against its plain version on the
+  9. the paper's Table I at its own scales: ``evaluate_method`` for B300
+     and T210 (Algorithm 1 on a 65,536-column subarray, 8,192 MAJ5 trials,
+     ADD8 / MUL8 graph ECR on 4,096 columns at 512 / 128 trials), each
+     number beside the paper's and each stage's wall time; then the
+     quickstart's ``PUDSession.baseline_ecr()`` and ``calibrate()``;
+ 10. the command-level simulator at paper width: 256 MAJ5 events on one
+     65,536-column subarray built from ``write_row`` / ``frac`` / ``simra``
+     commands (one ``majx_sense`` launch each), whose ECR must agree with
+     ``measure_ecr_maj5`` on the same offsets within a binomial tolerance;
+ 11. the dense plane layout (the reference's default) through the ``ops``
+     entries at the reference kernel benchmark's shapes (B 8 and B 1,
+     K = N = 2048, 4-bit): every GEMM/GEMV entry launches its kernel;
+ 12. each kernel at the main path's shapes against its plain version on the
      card (exact equality, both modes), timed with CUDA events (median of 30
      launches, L2 flushed before each) beside its bound and a library
      yardstick (``torch._int_mm`` on the unpacked signed weights, with x
-     zero-padded to 32 rows where it has fewer);
- 10. print the ``kernels`` JSON line and, last, the device JSON line.
+     zero-padded to 32 rows where it has fewer; none for the sensing
+     kernel); the dense layout as extra shapes of the GEMM rows;
+ 13. print the ``kernels`` JSON line and, last, the device JSON line.
 
 It needs the port's sources beside it (``src/repro_torch``) and a GPU.
 """
 from __future__ import annotations
 
 import json
+import math
 import pathlib
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
@@ -62,6 +77,20 @@ BATCH, PROMPT, GEN, SEED = 4, 32, 16, 0
 ENGINE_BATCH, ENGINE_SLOTS = 8, 4
 RAGGED = dict(n=12, prompt=(8, 128), budget=(4, 32))
 LIB_ROWS = 32                # torch._int_mm takes more than 16 rows
+# benchmarks/table1.py's scales (the reference's evaluate_method defaults)
+TABLE1 = dict(n_cols=65536, n_trials_maj5=8192, n_cols_arith=4096,
+              n_trials_arith=512)
+PAPER = {"B300": dict(ecr=0.466, maj5=0.89e12, add=50.2e9, mul=5.8e9),
+         "T210": dict(ecr=0.033, maj5=1.62e12, add=94.6e9, mul=11.0e9),
+         "gain": dict(maj5=1.81, add=1.88, mul=1.89)}
+QUICKSTART = dict(n_channels=1, n_banks=1, n_subarrays=2, n_cols=4096)
+SIMRA = dict(n_cols=65536, events=256)
+DENSE = dict(b=8, k=2048, n=2048, wb=4)   # benchmarks/kernel_bench.py
+# majx_sense rows (T, R, C, n_fracs): the simulator's own event, one ECR
+# chunk of a DDR4 row, kernel_bench.py's shape, and a ragged one
+SENSE_SHAPES = [(1, 8, SIMRA["n_cols"], 3), (256, 8, 65536, 3),
+                (256, 8, 65536, 0), (16, 8, 4096, 0), (16, 8, 4096, 3),
+                (13, 8, 65000, 3)]
 
 
 class PhaseError(RuntimeError):
@@ -133,11 +162,197 @@ def library_weights(pt):
     the operand of the library yardstick."""
     from repro_torch.kernels.placed_gemm import window_cols
     from repro_torch.kernels.ref import signed_weights, unpack_plane_words
-    dense = unpack_plane_words(pt.planes, pt.logical_k)
+    dense = pt.planes
+    if pt.layout == "bitpack8":
+        dense = unpack_plane_words(pt.planes, pt.logical_k)
     if pt.col_ids is not None:
         dense = dense[:, :, window_cols(pt.col_ids, pt.planes.shape[-1],
                                         pt.window_block)]
     return signed_weights(dense).to(dense.dtype).contiguous()   # int8
+
+
+def dense_pack(pt):
+    """The same pack in the dense layout (one int8 byte per bit), built
+    here as a test operand: the wrappers never repack."""
+    from repro_torch.kernels.ref import unpack_plane_words
+    return types.SimpleNamespace(
+        k=pt.k, n=pt.n, layout="dense", logical_k=None,
+        planes=unpack_plane_words(pt.planes, pt.logical_k).contiguous(),
+        col_ids=pt.col_ids, window_block=pt.window_block)
+
+
+def finite(*xs) -> bool:
+    return all(math.isfinite(x) for x in xs)
+
+
+def table1_phase(torch, dev, scale: dict, calib=None) -> dict:
+    """Paper Table I through ``evaluate_method`` at ``scale``: every number
+    beside the paper's, with each stage's wall time."""
+    from repro_torch.core.calibrate import CalibrationConfig
+    from repro_torch.core.throughput import evaluate_method
+    phase("Table I: evaluate_method B300 and T210 at the paper's scales")
+    print(f"  {scale}, {calib or CalibrationConfig()}")
+    res = {}
+    for name in ("B300", "T210"):
+        t0 = time.perf_counter()
+        r = evaluate_method(SEED, name, device=dev,
+                            calib_config=calib or CalibrationConfig(),
+                            **scale)
+        wall = time.perf_counter() - t0
+        ref = PAPER[name]
+        print(f"  {name}: ECR {r.ecr:.4f} (paper {ref['ecr']}), ADD8 ECR "
+              f"{r.ecr_add:.4f}, MUL8 ECR {r.ecr_mul:.4f}; MAJ5 "
+              f"{r.maj5_tops / 1e12:.4f} TOPS (paper {ref['maj5'] / 1e12}), "
+              f"ADD8 {r.add8_gops / 1e9:.3f} GOPS (paper "
+              f"{ref['add'] / 1e9}), MUL8 {r.mul8_gops / 1e9:.3f} GOPS "
+              f"(paper {ref['mul'] / 1e9})")
+        print("    wall: " + ", ".join(f"{k} {v:.3f}s"
+                                       for k, v in r.stage_s.items())
+              + f"; evaluate_method {wall:.3f}s")
+        need(finite(r.ecr, r.ecr_add, r.ecr_mul, r.maj5_tops, r.add8_gops,
+                    r.mul8_gops), f"{name}: a Table-I number is not finite")
+        res[name] = dict(ecr=r.ecr, ecr_add=r.ecr_add, ecr_mul=r.ecr_mul,
+                         maj5_tops=r.maj5_tops, add8_gops=r.add8_gops,
+                         mul8_gops=r.mul8_gops, stage_s=r.stage_s, wall_s=wall)
+    b, t = res["B300"], res["T210"]
+    gains = dict(maj5=t["maj5_tops"] / b["maj5_tops"],
+                 add=t["add8_gops"] / b["add8_gops"],
+                 mul=t["mul8_gops"] / b["mul8_gops"])
+    print("  gains T210/B300: " + ", ".join(
+        f"{k.upper()} {v:.3f}x (paper {PAPER['gain'][k]}x)"
+        for k, v in gains.items()))
+    need(t["ecr"] < b["ecr"], "T210's ECR is not below B300's")
+    need(finite(*gains.values()), "a Table-I gain is not finite")
+    res["gains"] = gains
+    return res
+
+
+def quickstart_phase(torch, dev, grid: dict) -> dict:
+    """examples/quickstart.py's session: B300 baseline, then Algorithm 1."""
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.runtime.session import PUDSession
+    phase("quickstart: PUDSession.open(grid).baseline_ecr(), calibrate()")
+    t0 = time.perf_counter()
+    session = PUDSession.open(FleetConfig(**grid), seed=SEED, device=dev)
+    base = session.baseline_ecr()
+    tuned = session.calibrate().mean_ecr
+    print(f"  grid {grid}: ECR baseline {base:.4f} (paper 0.466), PUDTune "
+          f"{tuned:.4f} (paper 0.033), {time.perf_counter() - t0:.3f}s")
+    need(finite(base, tuned) and tuned < base,
+         "the quickstart's calibration did not lower the ECR")
+    return dict(baseline=base, tuned=tuned)
+
+
+def simra_phase(torch, dev, cfg: dict, counter) -> dict:
+    """MAJ5 through the command-level simulator: per event, five operand
+    rows, the B_{3,0,0} rows built with commands (a 1 row Frac'd three
+    times, a 0 row, a 1 row) and one ``simra`` over the eight rows.  Its
+    ECR must agree with ``measure_ecr_maj5`` on the same offsets: both are
+    means over the columns of independent per-column error events, so they
+    may differ by 4 sigma of a binomial share, 4 sqrt(2 e (1 - e) / C)."""
+    from repro_torch.core.ecr import measure_ecr_maj5
+    from repro_torch.core.offsets import baseline_charges
+    from repro_torch.core.rng import generator
+    from repro_torch.pud import device as pud
+    from repro_torch.pud.physics import PhysicsParams
+    n, events = cfg["n_cols"], cfg["events"]
+    phase(f"command-level MAJ5: {events} SiMRA events on one {n}-column "
+          "subarray")
+    p = PhysicsParams()
+    pud.set_params(p)
+    gen = generator(SEED, "simra", device=dev)
+    state = pud.make_subarray(gen, 8, n, p, device=dev)
+    ones = torch.ones(n, device=dev)
+    any_err = torch.zeros(n, dtype=torch.bool, device=dev)
+    counter.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(events):
+        bits = torch.randint(0, 2, (5, n), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        for r in range(5):
+            state = pud.write_row(state, r, bits[r])
+        state = pud.write_row(state, 5, ones)
+        for _ in range(3):
+            state = pud.frac(state, 5)
+        state = pud.write_row(state, 6, torch.zeros_like(ones))
+        state = pud.write_row(state, 7, ones)
+        state, out = pud.simra(state, range(8), gen, 3)
+        any_err |= out != (bits.sum(dim=0) > 2).to(torch.float32)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    need(launches == events or dev.type != "cuda",
+         f"{events} SiMRA events launched majx_sense {launches} times")
+    cmd = float(any_err.float().mean())
+    fast, _ = measure_ecr_maj5(generator(SEED, "simra-ecr", device=dev),
+                               state.sense_offset,
+                               baseline_charges(3, n, p, device=dev), p, 3,
+                               n_trials=events)
+    e = (cmd + fast) / 2
+    tol = 4 * math.sqrt(2 * e * (1 - e) / n)
+    print(f"  ECR over {events} trials: command level {cmd:.4f}, "
+          f"measure_ecr_maj5 {fast:.4f}, |diff| {abs(cmd - fast):.4f} "
+          f"(tolerance {tol:.4f}); {launches} majx_sense launches, "
+          f"{wall:.3f}s")
+    need(abs(cmd - fast) <= tol, "command-level ECR disagrees with "
+         "measure_ecr_maj5")
+    return dict(ecr_cmd=cmd, ecr_fast=fast, tol=tol, launches=launches)
+
+
+def dense_phase(torch, dev, cfg: dict, kernels) -> dict:
+    """The dense plane layout through the ``ops`` entries at the reference
+    kernel benchmark's shapes: GEMM entries at B rows, GEMV entries at one,
+    both modes, each equal to the integer product."""
+    from repro_torch.core.rng import generator
+    from repro_torch.kernels import ops, ref
+    b, k, n, wb = cfg["b"], cfg["k"], cfg["n"], cfg["wb"]
+    phase(f"dense layout through ops: x [{b} | 1, {k}] x planes "
+          f"[{wb}, {k}, {n}] int8")
+    g = generator(SEED, "dense", device=dev)
+    w = torch.randint(-(1 << (wb - 1)), 1 << (wb - 1), (k, n), generator=g,
+                      device=dev, dtype=torch.int32)
+    planes = ref.pack_bitplanes(w, wb)
+    # a placed window: blocks of 256 logical columns among 288 window columns
+    bc, pwb = 256, 288
+    cols = torch.cat([j * pwb + torch.randperm(pwb, generator=g,
+                                               device=dev)[:bc]
+                      for j in range(n // bc)]).to(torch.int32)
+    window = torch.zeros((wb, k, (n // bc) * pwb), dtype=torch.int8,
+                         device=dev)
+    window[:, :, cols.long()] = planes
+    x = torch.randint(-127, 128, (b, k), generator=g, device=dev,
+                      dtype=torch.int8)
+    reset_counts(kernels)
+    for mode in ("planes", "folded"):
+        for xb, entries in ((x[:1].contiguous(), ("gemv", "gemv_placed")),
+                            (x, ("gemm", "gemm_placed"))):
+            want = (xb.double() @ w.double()).to(torch.int32)
+            unplaced = getattr(ops, f"bitplane_{entries[0]}")(xb, planes,
+                                                              mode)
+            placed = getattr(ops, f"bitplane_{entries[1]}")(
+                xb, window, cols, mode, window_block=pwb)
+            need(torch.equal(unplaced, want) and torch.equal(placed, want),
+                 f"dense {entries} ({mode}) differ from x @ W")
+    xf = torch.randn((b, k), generator=g, device=dev)
+    scale = torch.rand(n, generator=g, device=dev) + 0.01
+    for xi in (xf, xf[0]):
+        got = ops.pud_gemv(xi, planes, scale)
+        want = ops.pud_gemv(xi, planes, scale, backend="reference")
+        need(torch.equal(got, want), "dense pud_gemv differs from the "
+             "reference backend")
+    counts = {e: kernels[e].launches
+              for e in ("gemm", "gemv", "gemm_placed", "gemv_placed")}
+    print(f"  launches: {counts}; every entry == x @ W")
+    need(all(v > 0 for v in counts.values()) or dev.type != "cuda",
+         "a dense entry never launched its kernel")
+    pack = types.SimpleNamespace(k=k, n=n, layout="dense", logical_k=None,
+                                 planes=planes, col_ids=None,
+                                 window_block=None)
+    placed_pack = types.SimpleNamespace(k=k, n=n, layout="dense",
+                                        logical_k=None, planes=window,
+                                        col_ids=cols, window_block=pwb)
+    return dict(launches=counts, pack=pack, placed_pack=placed_pack)
 
 
 def ragged_requests(torch, vocab: int):
@@ -197,16 +412,20 @@ def profile_step(torch, model, params, tokens, max_len, sync) -> None:
         print(f"    {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:70]}")
 
 
-def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
+def run(torch, dev, preset: str = "full", grid: dict = GRID,
+        table1: dict = TABLE1, table1_calib=None,
+        quickstart: dict = QUICKSTART, simra: dict = SIMRA,
+        dense_cfg: dict = DENSE, sense_shapes=SENSE_SHAPES) -> dict:
     """All phases on ``dev``.  ``main`` runs them on the GPU at full
-    width; a CPU rehearsal (``dev`` cpu, smoke preset, small grid) runs the
-    same control flow through the plain versions, without the launch-count
-    checks and the library yardstick."""
+    width; a CPU rehearsal (``dev`` cpu, smoke preset, small grid and
+    Table-I scales) runs the same control flow through the plain versions,
+    without the launch-count checks and the library yardstick."""
     from repro_torch.core.calibrate import CalibrationConfig
     from repro_torch.core.fleet import (FleetConfig, calibrate_fleet,
                                         ladder_tables, manufacture_fleet)
     from repro_torch.core.rng import generator
-    from repro_torch.kernels import build, calib_iter, placed_gemm, plane_gemm
+    from repro_torch.kernels import (build, calib_iter, placed_gemm,
+                                     plane_gemm, sense)
     from repro_torch.launch import serve
     from repro_torch.pud.gemv import FFN_PACKABLE, PUDGemvConfig
     from repro_torch.pud.physics import PhysicsParams
@@ -224,7 +443,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
     kernels = {"calib_iter": calib_iter.calib_iter,
                "gemm_placed": placed_gemm.gemm_placed,
                "gemv_placed": placed_gemm.gemv_placed,
-               "gemm": plane_gemm.gemm, "gemv": plane_gemm.gemv}
+               "gemm": plane_gemm.gemm, "gemv": plane_gemm.gemv,
+               "majx_sense": sense.majx_sense}
 
     if on_card:
         phase("build")
@@ -409,6 +629,12 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
     del res, ures
     cache.cleanup()
 
+    t1 = table1_phase(torch, dev, table1, table1_calib)
+    qs = quickstart_phase(torch, dev, quickstart)
+    sim = simra_phase(torch, dev, simra, sense.majx_sense)
+    launches["majx_sense"] = sim["launches"]
+    dense = dense_phase(torch, dev, dense_cfg, kernels)
+
     phase("kernels vs plain versions at the main path's shapes")
     flush = torch.empty((256 if on_card else 1) * 2**20, dtype=torch.uint8,
                         device=dev)
@@ -454,6 +680,29 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
     # bit-plane GEMM / GEMV on the main path's packs (placed and unplaced).
     gen_x = generator(SEED, "chip-smoke-x", device=dev)
 
+    def sense_row(t, r, c, n_fracs):
+        charge = torch.rand((t, r, c), generator=gen_x, device=dev)
+        offs = 0.033 * torch.randn(c, generator=gen_x, device=dev)
+        noise = torch.randn((t, c), generator=gen_x, device=dev)
+        args = (charge, offs, noise, p, n_fracs)
+        got = sense.majx_sense(*args)
+        want = sense.majx_sense_plain(*args)
+        sync()
+        need(torch.equal(got, want), f"majx_sense differs from its plain "
+             f"version at charge [{t}, {r}, {c}], n_fracs {n_fracs}")
+        need(0 < float(want.mean()) < 1, "majx_sense sensed one value")
+        nbytes = (t * r * c + 2 * t * c + c) * 4
+        nops = t * c * (5 * r + 9)
+        return dict(
+            shape=f"charge [{t},{r},{c}], n_fracs {n_fracs}",
+            max_abs_err=float((got - want).abs().max()),
+            ms=time_ms(torch, lambda: sense.majx_sense(*args), flush),
+            plain_ms=time_ms(torch, lambda: sense.majx_sense_plain(*args),
+                             flush, reps=10),
+            bytes=nbytes, ops=nops,
+            bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
+            bound_by_ops_ms=nops / F32_OPS_S * 1e3, library_ms=None)
+
     def gemm_row(fn, plain, pt, b):
         x = torch.randint(-127, 128, (b, pt.k), generator=gen_x, device=dev,
                           dtype=torch.int8)
@@ -486,7 +735,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
             lib_ms = time_ms(torch, lambda: torch._int_mm(xl, w8), flush)
             del w8
         return dict(
-            shape=f"x [{b},{pt.k}] x words {list(pt.planes.shape)}, N {n}",
+            shape=f"x [{b},{pt.k}] x {pt.layout} {list(pt.planes.shape)}, "
+                  f"N {n}", layout=pt.layout,
             max_abs_err=float((got - want).abs().max()),
             ms=time_ms(torch, lambda: fn(x, *operands, "folded", **kw),
                        flush),
@@ -499,8 +749,18 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
     def layer0(pm, name):
         return pm.tensor(f"layers_0_dense/mixer/{name}").layer(0)
 
+    def dense_rows(entry, fn, plain, b, big):
+        """The dense layout on one entry: the ops phase's benchmark pack
+        (its launches are that phase's) and a main-path pack ``big``."""
+        kb = dense["placed_pack" if "placed" in entry else "pack"]
+        return [dict(gemm_row(fn, plain, kb, dense_cfg["b"] if b > 1 else 1),
+                     launches=dense["launches"][entry]),
+                dict(gemm_row(fn, plain, big, b),
+                     launches=dense["launches"][entry])]
+
     wi, wo, un = layer0(packed, "wi"), layer0(packed, "wo"), \
         packed.tensor("unembed/w")
+    dun = dense_pack(un)
     src = "src/repro_torch/csrc/placed_gemm.cu"
     rows.append(dict(
         name="gemm_placed", route="cuda", source=src,
@@ -509,16 +769,22 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
         **gemm_row(placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain,
                    wi, BATCH * PROMPT),
         extra_shapes=[gemm_row(placed_gemm.gemm_placed,
-                               placed_gemm.gemm_placed_plain, wo, BATCH)]))
+                               placed_gemm.gemm_placed_plain, wo, BATCH)]
+        + dense_rows("gemm_placed", placed_gemm.gemm_placed,
+                     placed_gemm.gemm_placed_plain, BATCH, dun)))
     rows.append(dict(
         name="gemv_placed", route="cuda", source=src,
         replaces="src/repro/kernels/bitplane_gemv.py:377",
         launches=launches["gemv_placed"],
         **gemm_row(placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain,
-                   un, 1)))
+                   un, 1),
+        extra_shapes=dense_rows("gemv_placed", placed_gemm.gemv_placed,
+                                placed_gemm.gemv_placed_plain, 1, dun)))
+    del dun
 
     uwi, uwo, uun = layer0(upacked, "wi"), layer0(upacked, "wo"), \
         upacked.tensor("unembed/w")
+    duun = dense_pack(uun)
     src = "src/repro_torch/csrc/plane_gemm.cu"
     rows.append(dict(
         name="gemm", route="cuda", source=src,
@@ -527,12 +793,25 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
         **gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain, uwi,
                    BATCH * PROMPT),
         extra_shapes=[gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain, pt,
-                               ENGINE_SLOTS) for pt in (uwo, uun)]))
+                               ENGINE_SLOTS) for pt in (uwo, uun)]
+        + dense_rows("gemm", plane_gemm.gemm, plane_gemm.gemm_plain,
+                     BATCH, duun)))
     rows.append(dict(
         name="gemv", route="cuda", source=src,
         replaces="src/repro/kernels/bitplane_gemv.py:316",
         launches=launches["gemv"],
-        **gemm_row(plane_gemm.gemv, plane_gemm.gemv_plain, uun, 1)))
+        **gemm_row(plane_gemm.gemv, plane_gemm.gemv_plain, uun, 1),
+        extra_shapes=dense_rows("gemv", plane_gemm.gemv,
+                                plane_gemm.gemv_plain, 1, duun)))
+    del duun
+
+    (t0_, r0_, c0_, f0_), *rest = sense_shapes
+    rows.append(dict(
+        name="majx_sense", route="cuda",
+        source="src/repro_torch/csrc/simra_sense.cu",
+        replaces="src/repro/kernels/majx.py:197",
+        launches=launches["majx_sense"], **sense_row(t0_, r0_, c0_, f0_),
+        extra_shapes=[sense_row(*sh) for sh in rest]))
 
     for r in [e for row in rows for e in [row] + row.get("extra_shapes", [])]:
         bb, bo = r["bound_by_bytes_ms"], r["bound_by_ops_ms"]
@@ -544,7 +823,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID) -> dict:
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max |err| {r['max_abs_err']}")
-    return {"rows": rows, "mean_ecr": mean_ecr, "occupancy": occupancy}
+    return {"rows": rows, "mean_ecr": mean_ecr, "occupancy": occupancy,
+            "table1": t1, "quickstart": qs, "simra": sim}
 
 
 def main() -> int:
@@ -572,7 +852,8 @@ def main() -> int:
          "shape": r["shape"],
          **({"extra_shapes": [{k: e[k] for k in (
              "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms")} for e in r["extra_shapes"]]}
+             "bound_by", "library_ms", "layout", "launches") if k in e}
+             for e in r["extra_shapes"]]}
             if "extra_shapes" in r else {})}
         for r in out["rows"]]}
     print(f"  total wall {time.perf_counter() - t0:.1f}s")

@@ -1,6 +1,6 @@
 """Fleet-scale calibration engine: Algorithm 1 across a whole device grid
-(port of ``repro/core/fleet.py``, single device; the mesh path and the
-``per_subarray`` method are not ported yet).
+(port of ``repro/core/fleet.py``, single device; the mesh path is not
+ported yet).
 
   * ``manufacture_fleet``  — per-subarray sense offsets [G, C], each row from
     its own generator, so a subarray's offsets do not depend on the grid.
@@ -8,7 +8,10 @@
     bits and noise and runs one Algorithm-1 step on all G x C columns:
       - ``fused``:     the CUDA kernel (kernels/calib_iter.py) on a GPU
         tensor, its plain version on a CPU tensor;
-      - ``reference``: the plain PyTorch version on any device.
+      - ``reference``: the plain PyTorch version on any device;
+      - ``per_subarray``: ``identify_calibration`` on each subarray with
+        its own generator, the single-subarray Algorithm 1 (the oracle: it
+        draws per subarray, so its levels do not follow the fleet draws).
   * ``fleet_calib_charges`` — levels -> per-subarray calibration-row charges.
   * ``load_or_calibrate``  — cache glue: a persisted table, or identify,
     measure ECR + masks, and persist.
@@ -24,12 +27,12 @@ from repro_torch.kernels.calib_iter import calib_iter
 from repro_torch.kernels.ref import calib_iter_ref
 from repro_torch.pud.physics import NEUTRAL, PhysicsParams
 
-from .calibrate import CalibrationConfig
+from .calibrate import CalibrationConfig, identify_calibration_fn
 from .ecr import measure_ecr_fleet
 from .offsets import OffsetLadder, make_ladder, neutral_level
 from .rng import derive_seed, generator
 
-METHODS = ("fused", "reference")
+METHODS = ("fused", "reference", "per_subarray")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +66,7 @@ class FleetCalibration:
     """Result of one fleet calibration run."""
 
     levels: torch.Tensor                 # [G, C] int32 ladder level
-    mean_abs_bias: torch.Tensor          # [n_iterations]
+    mean_abs_bias: torch.Tensor | None   # [n_iterations] (None: per_subarray)
     config: FleetConfig
     method: str
 
@@ -106,6 +109,13 @@ def calibrate_fleet(seed: int, sense_offsets: torch.Tensor, cfg: FleetConfig,
     device = sense_offsets.device
     g, c = sense_offsets.shape
     ladder = cfg.ladder(params)
+    if method == "per_subarray":
+        levels = torch.stack([
+            identify_calibration_fn(
+                generator(seed, "calibrate", i, device=device),
+                sense_offsets[i].to(torch.float32), ladder, params, config)
+            for i in range(g)])
+        return FleetCalibration(levels, None, cfg, method)
     qsum, swing = ladder_tables(ladder, params)
     step = calib_iter if method == "fused" else calib_iter_ref
     gen = generator(seed, "calibrate", device=device)

@@ -1,4 +1,5 @@
-// Placed bit-plane GEMM/GEMV over bit-packed weight words, for Hopper (sm_90a).
+// Placed bit-plane GEMM/GEMV over bit-packed weight words or dense
+// bit-planes, for Hopper (sm_90a).
 //
 // Replaces: repro/kernels/bitplane_gemm.py `bitplane_gemm_placed`
 // (pallas_call at bitplane_gemm.py:166) and repro/kernels/bitplane_gemv.py
@@ -11,7 +12,12 @@
 // logical column n lives in window block n / block_cols of the physical
 // window, at the in-block residue of its placed column id.  int8 activations
 // x [B, K], uint8 words [WB, ceil(K/8), W] (eight K rows per byte, LSB
-// first), int32 col_ids [N], int32 out [B, N].
+// first), int32 col_ids [N], int32 out [B, N].  The dense layout, a window
+// [WB, K, W] of one byte per bit (int8 0/1), is a template parameter of the
+// load path only: a lane gathers the eight K rows of its column's word from
+// the dense window, masks each byte to its low bit and shifts it into place,
+// so every operation after the load is the packed path's (nothing is
+// repacked on the host or in a pass of its own).
 //
 // Bound on the H100: bytes at decode batch sizes (each weight word is used by
 // B rows; at B <= 16 that is far below the card's ops-per-byte balance), and
@@ -49,7 +55,25 @@ __device__ __forceinline__ uint32_t spread4(uint32_t nibble) {
   return (nibble * 0x00204081u) & 0x01010101u;
 }
 
-template <int BT>
+// K word kw of window column wcol of one plane: rows 8 kw .. 8 kw + 7, LSB
+// first.  Packed: the stored byte.  Dense: eight 0/1 bytes, rows at or past
+// K read as zero.
+template <bool Dense>
+__device__ __forceinline__ uint32_t load_word(const uint8_t* plane, int kw,
+                                              int K, int64_t W,
+                                              int64_t wcol) {
+  if (!Dense) return __ldg(plane + (int64_t)kw * W + wcol);
+  uint32_t w = 0;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int k = kw * 8 + jj;
+    if (k < K) w |= ((uint32_t)__ldg(plane + (int64_t)k * W + wcol) & 1u)
+                    << jj;
+  }
+  return w;
+}
+
+template <int BT, bool Dense>
 __global__ void __launch_bounds__(kLanes * kWarps)
 placed_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ words,
               const int32_t* __restrict__ col_ids, int32_t* __restrict__ out,
@@ -69,7 +93,7 @@ placed_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ words,
     const int blk = n / block_cols;
     wcol = (int64_t)blk * window_block + (col_ids[n] % window_block);
   }
-  const int64_t plane_stride = (int64_t)Kw * W;
+  const int64_t plane_stride = (int64_t)(Dense ? K : Kw) * W;
   const uint32_t off4 = (1u << (WB - 1)) * 0x01010101u;
 
   int acc[BT];
@@ -88,10 +112,10 @@ placed_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ words,
     const int n_words = min(kChunkWords, Kw - kw0);
     if (live) {
       for (int j = warp; j < n_words; j += kWarps) {
-        const uint8_t* wp = words + (int64_t)(kw0 + j) * W + wcol;
         uint32_t lo = 0, hi = 0;
         for (int p = 0; p < WB; ++p) {
-          const uint32_t byte = __ldg(wp + p * plane_stride);
+          const uint32_t byte = load_word<Dense>(words + p * plane_stride,
+                                                 kw0 + j, K, W, wcol);
           lo |= spread4(byte & 0xFu) << p;
           hi |= spread4(byte >> 4) << p;
         }
@@ -128,39 +152,47 @@ placed_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ words,
 template <int BT>
 int launch(const void* x, const void* words, const void* col_ids, void* out,
            int B, int K, int Kw, int W, int N, int WB, int window_block,
-           int block_cols, void* stream) {
-  if (WB < 1 || WB > 8 || window_block < 1 || block_cols < 1)
+           int block_cols, int dense, void* stream) {
+  if (WB < 1 || WB > 8 || window_block < 1 || block_cols < 1 ||
+      K > Kw * 8 || (dense && K <= (Kw - 1) * 8))
     return (int)cudaErrorInvalidValue;
   dim3 grid((N + kLanes - 1) / kLanes, (B + BT - 1) / BT);
-  placed_kernel<BT><<<grid, kLanes * kWarps, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)x, (const uint8_t*)words, (const int32_t*)col_ids,
-      (int32_t*)out, B, K, Kw, W, N, WB, window_block, block_cols);
+  auto s = (cudaStream_t)stream;
+  if (dense)
+    placed_kernel<BT, true><<<grid, kLanes * kWarps, 0, s>>>(
+        (const int8_t*)x, (const uint8_t*)words, (const int32_t*)col_ids,
+        (int32_t*)out, B, K, Kw, W, N, WB, window_block, block_cols);
+  else
+    placed_kernel<BT, false><<<grid, kLanes * kWarps, 0, s>>>(
+        (const int8_t*)x, (const uint8_t*)words, (const int32_t*)col_ids,
+        (int32_t*)out, B, K, Kw, W, N, WB, window_block, block_cols);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Batch-tiled entry (prefill rows and batched decode): 4-row tiles for
-// small batches, 16-row tiles otherwise.
+// small batches, 16-row tiles otherwise.  dense != 0: words are a dense
+// window [WB, K, W] (Kw = ceil(K / 8) still counts the K words).
 extern "C" int placed_gemm_launch(const void* x, const void* words,
                                   const void* col_ids, void* out, int B, int K,
                                   int Kw, int W, int N, int WB,
-                                  int window_block, int block_cols,
+                                  int window_block, int block_cols, int dense,
                                   void* stream) {
   if (B <= 4)
     return launch<4>(x, words, col_ids, out, B, K, Kw, W, N, WB, window_block,
-                     block_cols, stream);
+                     block_cols, dense, stream);
   return launch<16>(x, words, col_ids, out, B, K, Kw, W, N, WB, window_block,
-                    block_cols, stream);
+                    block_cols, dense, stream);
 }
 
 // Single-row entry (B = 1 decode): one row, the whole block on the split-K.
 extern "C" int placed_gemv_launch(const void* x, const void* words,
                                   const void* col_ids, void* out, int B, int K,
                                   int Kw, int W, int N, int WB,
-                                  int window_block, int block_cols,
+                                  int window_block, int block_cols, int dense,
                                   void* stream) {
   if (B != 1) return (int)cudaErrorInvalidValue;
   return launch<1>(x, words, col_ids, out, 1, K, Kw, W, N, WB, window_block,
-                   block_cols, stream);
+                   block_cols, dense, stream);
 }

@@ -1,5 +1,5 @@
-// Unplaced bit-plane GEMM/GEMV over bit-packed weight words, for Hopper
-// (sm_90a).
+// Unplaced bit-plane GEMM/GEMV over bit-packed weight words or dense
+// bit-planes, for Hopper (sm_90a).
 //
 // Replaces: repro/kernels/bitplane_gemm.py `bitplane_gemm` (pallas_call at
 // bitplane_gemm.py:105) and repro/kernels/bitplane_gemv.py `bitplane_gemv`
@@ -11,7 +11,13 @@
 //                              - 2^(WB-1))
 // int8 activations x [B, K], uint8 words [WB, ceil(K/8), N] (eight K rows
 // per byte, LSB first), int32 out [B, N].  Columns are the logical ones, in
-// order: no gather map.
+// order: no gather map.  The dense layout, planes [WB, K, N] of one byte per
+// bit (int8 0/1, the reference's default), is a template parameter of the
+// load path only: a lane reads the eight K rows of a word from the dense
+// planes, masks each byte to its low bit and shifts it into the bit the
+// packed word would hold it in, so every operation after the load is the
+// one the packed path runs (nothing is repacked on the host or in a pass of
+// its own).  Dense planes are 8x the bytes of words.
 //
 // Bound on the H100: bytes at decode batch sizes (every weight byte feeds B
 // rows; at B <= 16 that is far below the card's ops-per-byte balance), and
@@ -54,9 +60,40 @@ __device__ __forceinline__ uint32_t spread4(uint32_t nibble) {
   return (nibble * 0x00204081u) & 0x01010101u;
 }
 
+// Four adjacent bytes at p; byte by byte (masked at `left` columns) unless
+// Vec, where they load as one aligned uint32.
+template <bool Vec>
+__device__ __forceinline__ uint32_t ld4(const uint8_t* p, int left) {
+  if (Vec) return __ldg(reinterpret_cast<const uint32_t*>(p));
+  uint32_t v = 0;
+#pragma unroll
+  for (int c = 0; c < kColsPerLane; ++c)
+    if (c < left) v |= (uint32_t)__ldg(p + c) << (8 * c);
+  return v;
+}
+
+// K word kw of four adjacent columns n0.. of one plane: byte c holds rows
+// 8 kw .. 8 kw + 7 of column n0 + c, LSB first.  Packed: the stored word.
+// Dense: eight rows of 0/1 bytes, rows at or past K read as zero.
+template <bool Vec, bool Dense>
+__device__ __forceinline__ uint32_t load_word4(const uint8_t* plane, int kw,
+                                               int K, int N, int n0) {
+  if (!Dense) return ld4<Vec>(plane + (int64_t)kw * N + n0, N - n0);
+  uint32_t w = 0;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int k = kw * 8 + jj;
+    if (k < K)
+      w |= (ld4<Vec>(plane + (int64_t)k * N + n0, N - n0) & 0x01010101u)
+           << jj;
+  }
+  return w;
+}
+
 // Vec: the four words of a lane load as one aligned uint32 (N % 4 == 0 and
-// an aligned base); otherwise byte by byte, masked at N.
-template <int BT, bool Vec>
+// an aligned base); otherwise byte by byte, masked at N.  Dense: the planes
+// are [WB, K, N] bytes instead of [WB, Kw, N] words.
+template <int BT, bool Vec, bool Dense>
 __global__ void __launch_bounds__(kLanes * kWarps)
 plane_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ words,
              int32_t* __restrict__ out, int B, int K, int Kw, int N, int WB,
@@ -70,7 +107,7 @@ plane_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ words,
   const int b0 = blockIdx.y * BT;
   const int kw_begin = blockIdx.z * split_words;
   const int kw_end = min(Kw, kw_begin + split_words);
-  const int64_t plane_stride = (int64_t)Kw * N;
+  const int64_t plane_stride = (int64_t)(Dense ? K : Kw) * N;
   const uint32_t off4 = (1u << (WB - 1)) * 0x01010101u;
 
   int acc[BT][kColsPerLane];
@@ -91,24 +128,12 @@ plane_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ words,
     const int n_words = min(kChunkWords, kw_end - kw0);
     if (n0 < N) {
       for (int j = warp; j < n_words; j += kWarps) {
-        const uint8_t* wp = words + (int64_t)(kw0 + j) * N + n0;
         uint32_t raw[8];
 #pragma unroll
-        for (int p = 0; p < 8; ++p) {
-          raw[p] = 0;
-          if (p < WB) {
-            if (Vec) {
-              raw[p] = __ldg(reinterpret_cast<const uint32_t*>(
-                  wp + p * plane_stride));
-            } else {
-#pragma unroll
-              for (int c = 0; c < kColsPerLane; ++c)
-                if (n0 + c < N)
-                  raw[p] |= (uint32_t)__ldg(wp + p * plane_stride + c)
-                            << (8 * c);
-            }
-          }
-        }
+        for (int p = 0; p < 8; ++p)
+          raw[p] = p < WB ? load_word4<Vec, Dense>(words + p * plane_stride,
+                                                   kw0 + j, K, N, n0)
+                          : 0u;
         int w_lo[kColsPerLane], w_hi[kColsPerLane];
 #pragma unroll
         for (int c = 0; c < kColsPerLane; ++c) {
@@ -166,11 +191,20 @@ int sm_count() {
   return count;
 }
 
+template <int BT, bool Vec, bool Dense>
+void start(dim3 grid, cudaStream_t s, const void* x, const void* words,
+           void* out, int B, int K, int Kw, int N, int WB, int split_words) {
+  plane_kernel<BT, Vec, Dense><<<grid, kLanes * kWarps, 0, s>>>(
+      (const int8_t*)x, (const uint8_t*)words, (int32_t*)out, B, K, Kw, N,
+      WB, split_words);
+}
+
 // out must be zeroed: every block adds its partial sums into it.
 template <int BT>
 int launch(const void* x, const void* words, void* out, int B, int K, int Kw,
-           int N, int WB, void* stream) {
-  if (WB < 1 || WB > 8 || B < 1 || N < 1 || Kw < 1 || K > Kw * 8)
+           int N, int WB, int dense, void* stream) {
+  if (WB < 1 || WB > 8 || B < 1 || N < 1 || Kw < 1 || K > Kw * 8 ||
+      (dense && K <= (Kw - 1) * 8))
     return (int)cudaErrorInvalidValue;
   const int tiles_n = (N + kTileCols - 1) / kTileCols;
   const int tiles_b = (B + BT - 1) / BT;
@@ -184,32 +218,36 @@ int launch(const void* x, const void* words, void* out, int B, int K, int Kw,
   dim3 grid(tiles_n, tiles_b, n_split);
   const bool vec = (N % 4 == 0) && ((uintptr_t)words % 4 == 0);
   auto s = (cudaStream_t)stream;
-  if (vec)
-    plane_kernel<BT, true><<<grid, kLanes * kWarps, 0, s>>>(
-        (const int8_t*)x, (const uint8_t*)words, (int32_t*)out, B, K, Kw, N,
-        WB, split_words);
-  else
-    plane_kernel<BT, false><<<grid, kLanes * kWarps, 0, s>>>(
-        (const int8_t*)x, (const uint8_t*)words, (int32_t*)out, B, K, Kw, N,
-        WB, split_words);
+  if (dense) {
+    if (vec) start<BT, true, true>(grid, s, x, words, out, B, K, Kw, N, WB,
+                                   split_words);
+    else start<BT, false, true>(grid, s, x, words, out, B, K, Kw, N, WB,
+                                split_words);
+  } else {
+    if (vec) start<BT, true, false>(grid, s, x, words, out, B, K, Kw, N, WB,
+                                    split_words);
+    else start<BT, false, false>(grid, s, x, words, out, B, K, Kw, N, WB,
+                                 split_words);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Batch-tiled entry (prefill rows and batched decode): 4-row tiles for
-// small batches, 16-row tiles otherwise.  out must be zeroed.
+// small batches, 16-row tiles otherwise.  dense != 0: words are dense planes
+// [WB, K, N] (Kw = ceil(K / 8) still sets the K split).  out must be zeroed.
 extern "C" int plane_gemm_launch(const void* x, const void* words, void* out,
                                  int B, int K, int Kw, int N, int WB,
-                                 void* stream) {
-  if (B <= 4) return launch<4>(x, words, out, B, K, Kw, N, WB, stream);
-  return launch<16>(x, words, out, B, K, Kw, N, WB, stream);
+                                 int dense, void* stream) {
+  if (B <= 4) return launch<4>(x, words, out, B, K, Kw, N, WB, dense, stream);
+  return launch<16>(x, words, out, B, K, Kw, N, WB, dense, stream);
 }
 
 // Single-row entry (B = 1 decode).  out must be zeroed.
 extern "C" int plane_gemv_launch(const void* x, const void* words, void* out,
                                  int B, int K, int Kw, int N, int WB,
-                                 void* stream) {
+                                 int dense, void* stream) {
   if (B != 1) return (int)cudaErrorInvalidValue;
-  return launch<1>(x, words, out, 1, K, Kw, N, WB, stream);
+  return launch<1>(x, words, out, 1, K, Kw, N, WB, dense, stream);
 }

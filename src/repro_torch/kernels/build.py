@@ -29,7 +29,7 @@ NVCC_FLAGS = ("-O3", "-std=c++17", "-gencode", "arch=compute_90a,code=sm_90a",
               "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler",
               "-fPIC", "-lineinfo")
 
-SOURCES = ("calib_iter", "placed_gemm", "plane_gemm")
+SOURCES = ("calib_iter", "placed_gemm", "plane_gemm", "simra_sense")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,29 @@
-"""Public entry points of the bit-plane path (port of ``repro/kernels/ops.py``):
-activation quantization and the quantize -> GEMM -> dequantize dispatch."""
+"""Public entry points of the kernels (port of ``repro/kernels/ops.py``):
+the six kernel entries under the reference's names and signatures (minus
+``interpret``), activation quantization and the quantize -> GEMM ->
+dequantize dispatch.
+
+Every entry goes through the backend registry (kernels/backends.py): on the
+default ``cuda`` backend a CUDA tensor launches the hand-written kernel and a
+CPU tensor runs its plain version.  The GEMM entries keep the reference's
+tile keywords (``b_block``, ``n_block``, ``k_block``): they name TPU tiles,
+so they are accepted and ignored, as the reference's own oracle backend
+ignores them; every tile gives the same integers.
+"""
 from __future__ import annotations
 
 import torch
 
+from repro_torch.pud.physics import PhysicsParams
+
 from .backends import DEFAULT_BACKEND, get_backend
+
+__all__ = [
+    "majx_sense", "calib_iter_fused", "bitplane_gemv",
+    "bitplane_gemv_placed", "bitplane_gemm", "bitplane_gemm_placed",
+    "pud_matmul", "pud_gemv", "quantize_activations", "N_BLOCK",
+    "largest_divisor",
+]
 
 #: Logical columns per N tile of the reference kernels; placement blocks
 #: its windows on the same width (pud/placement.py ``PLACE_BLOCK``).
@@ -61,3 +80,92 @@ def pud_matmul(
         entry = be.gemm if batched else be.gemv
         acc = entry(xq, planes, mode, **kw)
     return acc.to(torch.float32) * x_scale * w_scale
+
+
+def majx_sense(charge: torch.Tensor, sense_offset: torch.Tensor,
+               noise: torch.Tensor, params: PhysicsParams = PhysicsParams(),
+               n_fracs: int = 0) -> torch.Tensor:
+    """Sensed bits [T, C] float32 of T SiMRA events: charge [T, R, C],
+    sense_offset [C], noise [T, C] standard normal, all float32."""
+    return get_backend(DEFAULT_BACKEND).majx_sense(charge, sense_offset,
+                                                   noise, params, n_fracs)
+
+
+def calib_iter_fused(inputs: torch.Tensor, noise: torch.Tensor,
+                     levels: torch.Tensor, sense_offset: torch.Tensor,
+                     params: PhysicsParams, n_fracs: int,
+                     level_qsum: tuple[float, ...],
+                     level_swing: tuple[float, ...], threshold: float,
+                     maj_inputs: int = 5, const_charge_sum: float = 0.0,
+                     const_swing_sq: float = 0.0
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One fused Algorithm-1 iteration; returns (new levels [C] int32, bias
+    [C] float32).  ``inputs`` [S, M, C] are operand bits: uint8, or float
+    as the reference passes them (cast to uint8 first, exact for 0/1)."""
+    if inputs.is_floating_point():
+        inputs = inputs.to(torch.uint8)
+    return get_backend(DEFAULT_BACKEND).calib_iter(
+        inputs, noise, levels, sense_offset, params, n_fracs, level_qsum,
+        level_swing, threshold, maj_inputs, const_charge_sum, const_swing_sq)
+
+
+def bitplane_gemv(x: torch.Tensor, planes: torch.Tensor,
+                  mode: str = "planes", layout: str = "dense",
+                  logical_k: int | None = None, n_block: int | None = None,
+                  k_block: int | None = None) -> torch.Tensor:
+    """[B, K] int8 x planes -> [B, N] int32.  B = 1 runs the GEMV kernel;
+    a larger block of rows, which the reference's GEMV also takes, runs
+    the batch-tiled kernel (the same integers)."""
+    be = get_backend(DEFAULT_BACKEND)
+    entry = be.gemv if x.shape[0] == 1 else be.gemm
+    return entry(x, planes, mode, layout=layout, logical_k=logical_k)
+
+
+def bitplane_gemv_placed(x: torch.Tensor, planes: torch.Tensor,
+                         col_ids: torch.Tensor, mode: str = "planes",
+                         layout: str = "dense", logical_k: int | None = None,
+                         window_block: int | None = None,
+                         n_block: int | None = None,
+                         k_block: int | None = None) -> torch.Tensor:
+    """Placed GEMV over the physical window; rows as ``bitplane_gemv``."""
+    be = get_backend(DEFAULT_BACKEND)
+    entry = be.gemv_placed if x.shape[0] == 1 else be.gemm_placed
+    return entry(x, planes, col_ids, mode, layout=layout,
+                 logical_k=logical_k, window_block=window_block)
+
+
+def bitplane_gemm(x: torch.Tensor, planes: torch.Tensor,
+                  mode: str = "planes", layout: str = "dense",
+                  logical_k: int | None = None, b_block: int | None = None,
+                  n_block: int | None = None,
+                  k_block: int | None = None) -> torch.Tensor:
+    """Batch-tiled GEMM: [B, K] int8 x planes -> [B, N] int32."""
+    return get_backend(DEFAULT_BACKEND).gemm(x, planes, mode, layout=layout,
+                                             logical_k=logical_k)
+
+
+def bitplane_gemm_placed(x: torch.Tensor, planes: torch.Tensor,
+                         col_ids: torch.Tensor, mode: str = "planes",
+                         layout: str = "dense", logical_k: int | None = None,
+                         window_block: int | None = None,
+                         b_block: int | None = None,
+                         n_block: int | None = None,
+                         k_block: int | None = None) -> torch.Tensor:
+    """Batch-tiled placed GEMM over the physical window."""
+    return get_backend(DEFAULT_BACKEND).gemm_placed(
+        x, planes, col_ids, mode, layout=layout, logical_k=logical_k,
+        window_block=window_block)
+
+
+def pud_gemv(x: torch.Tensor, planes: torch.Tensor, w_scale: torch.Tensor,
+             mode: str = "folded", col_ids: torch.Tensor | None = None,
+             backend: str | None = None, layout: str = "dense",
+             logical_k: int | None = None,
+             window_block: int | None = None) -> torch.Tensor:
+    """Rank-dispatching shim over ``pud_matmul``: ``x`` [K] returns [N],
+    ``x`` [B, K] behaves exactly like ``pud_matmul``."""
+    kw = dict(mode=mode, col_ids=col_ids, backend=backend, layout=layout,
+              logical_k=logical_k, window_block=window_block)
+    if x.dim() == 1:
+        return pud_matmul(x[None, :], planes, w_scale, **kw)[0]
+    return pud_matmul(x, planes, w_scale, **kw)

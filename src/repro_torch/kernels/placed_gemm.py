@@ -5,11 +5,12 @@ bitplane_gemm_placed`` (batch-tiled, ``gemm_placed`` here) and
 ``repro/kernels/bitplane_gemv.py: bitplane_gemv_placed`` (B = 1,
 ``gemv_placed`` here).  Both launch ``csrc/placed_gemm.cu``.
 
-A CUDA tensor launches the kernel, which takes the bit-packed layout
-(``layout="bitpack8"``) only and raises on the dense one; a CPU tensor runs
-the plain version, which takes both layouts.  ``mode`` ("planes" or
-"folded") selects an execution schedule in the reference; both give the same
-integers, so it is validated and otherwise ignored.
+A CUDA tensor launches the kernel in either layout: bit-packed words
+(``layout="bitpack8"``, [WB, ceil(K/8), W] uint8) or dense 0/1 planes
+(``layout="dense"``, [WB, K, W] int8), which the kernel reads itself with
+nothing repacked first; a CPU tensor runs the plain version.  ``mode``
+("planes" or "folded") selects an execution schedule in the reference; both
+give the same integers, so it is validated and otherwise ignored.
 
 Window addressing follows the reference kernel exactly: logical column n
 sits in window block ``n // block_cols`` and reads window column
@@ -86,48 +87,71 @@ gemm_placed_plain = placed_plain
 gemv_placed_plain = placed_plain
 
 
-def _geometry(x, words, col_ids, logical_k, window_block, entry):
-    """Validate a CUDA launch; returns (B, K, Kw, W, N, WB, pwb, bc)."""
+def check_operands(entry: str, x: torch.Tensor, words: torch.Tensor,
+                   layout: str, logical_k: int | None) -> int:
+    """Validate x [B, K] int8 and the planes of a CUDA launch in either
+    layout; returns Kw = ceil(K / 8), the K words the kernel walks."""
     def need(cond, msg):
         if not cond:
             raise ValueError(f"{entry}: {msg}")
 
+    dense = layout == "dense"
     need(x.dtype == torch.int8 and x.dim() == 2,
          f"x must be [B, K] int8, got {x.dtype} {tuple(x.shape)}")
-    need(words.dtype == torch.uint8 and words.dim() == 3,
-         f"words must be [WB, Kw, W] uint8, got {words.dtype} "
-         f"{tuple(words.shape)}")
-    need(col_ids.dtype == torch.int32 and col_ids.dim() == 1,
-         f"col_ids must be [N] int32, got {col_ids.dtype}")
-    for t in (words, col_ids):
-        need(t.device == x.device, "all tensors on one device")
-    for t in (x, words, col_ids):
-        need(t.is_contiguous(), "tensors must be contiguous")
+    if dense:
+        need(words.dtype in (torch.int8, torch.uint8) and words.dim() == 3,
+             f"dense planes must be [WB, K, N] int8, got {words.dtype} "
+             f"{tuple(words.shape)}")
+    else:
+        need(words.dtype == torch.uint8 and words.dim() == 3,
+             f"words must be [WB, Kw, N] uint8, got {words.dtype} "
+             f"{tuple(words.shape)}")
+    need(words.device == x.device, "all tensors on one device")
+    need(x.is_contiguous() and words.is_contiguous(),
+         "tensors must be contiguous")
     b, k = x.shape
-    wb, kw, w_len = words.shape
-    (n,) = col_ids.shape
-    need(b > 0 and n > 0, "empty operand")
+    wb, rows, n = words.shape
+    need(b > 0 and n > 0 and k > 0, "empty operand")
     need(1 <= wb <= 8, f"{wb} bit-planes; the kernel takes 1..8")
-    need((logical_k or kw * 8) == k and k <= kw * 8,
-         f"x K={k} inconsistent with words Kw={kw} (logical_k={logical_k})")
+    if dense:
+        need(rows == k and (logical_k or k) == k,
+             f"x K={k} inconsistent with dense planes K={rows} "
+             f"(logical_k={logical_k})")
+        return -(-k // 8)
+    need((logical_k or rows * 8) == k and rows * 8 - 8 < k <= rows * 8,
+         f"x K={k} inconsistent with words Kw={rows} "
+         f"(logical_k={logical_k})")
+    return rows
+
+
+def _geometry(x, words, col_ids, layout, logical_k, window_block, entry):
+    """Validate a CUDA launch; returns (B, K, Kw, W, N, WB, pwb, bc)."""
+    kw = check_operands(entry, x, words, layout, logical_k)
+    if not (col_ids.dtype == torch.int32 and col_ids.dim() == 1):
+        raise ValueError(f"{entry}: col_ids must be [N] int32, got "
+                         f"{col_ids.dtype}")
+    if col_ids.device != x.device or not col_ids.is_contiguous():
+        raise ValueError(f"{entry}: col_ids must be contiguous on the "
+                         "device of x")
+    b, k = x.shape
+    wb, _, w_len = words.shape
+    (n,) = col_ids.shape
+    if n == 0:
+        raise ValueError(f"{entry}: empty operand")
     pwb, bc = window_tiling(n, w_len, window_block, entry)
     return b, k, kw, w_len, n, wb, pwb, bc
 
 
 def _launch(entry, x, words, col_ids, mode, layout, logical_k, window_block):
     check_mode(mode, layout)
-    if layout != "bitpack8":
-        raise NotImplementedError(
-            f"{entry}: the CUDA kernel takes bit-packed words only; the "
-            "dense layout has no GPU kernel yet")
     b, k, kw, w_len, n, wb, pwb, bc = _geometry(
-        x, words, col_ids, logical_k, window_block, entry)
+        x, words, col_ids, layout, logical_k, window_block, entry)
     out = torch.empty((b, n), dtype=torch.int32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = _fn(f"placed_{entry.split('_')[0]}_launch",
-             [_P] * 4 + [_I] * 8 + [_P])(
+             [_P] * 4 + [_I] * 9 + [_P])(
         x.data_ptr(), words.data_ptr(), col_ids.data_ptr(), out.data_ptr(),
-        b, k, kw, w_len, n, wb, pwb, bc, stream)
+        b, k, kw, w_len, n, wb, pwb, bc, int(layout == "dense"), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     return out

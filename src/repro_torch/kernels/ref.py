@@ -15,6 +15,44 @@ import torch
 from repro_torch.pud.physics import NEUTRAL, PhysicsParams, f32
 
 
+def row_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over dim 1 of [T, R, C], row by row in row order (a library
+    reduction may reassociate; the kernel and the reference do not)."""
+    acc = t[:, 0]
+    for r in range(1, t.shape[1]):
+        acc = acc + t[:, r]
+    return acc
+
+
+def majx_sense_ref(
+    charge: torch.Tensor,        # [T, R, C] float32 cell charges (V_DD)
+    sense_offset: torch.Tensor,  # [C] float32
+    noise: torch.Tensor,         # [T, C] float32 standard normal
+    params: PhysicsParams = PhysicsParams(),
+    n_fracs: int = 0,
+) -> torch.Tensor:
+    """Sensed bits [T, C] float32 of T SiMRA events over C columns.
+
+    The reference's operations one for one, each rounded to float32: the
+    constant ``sd^2 + sf^2 * n_fracs`` is a Python double rounded once, as
+    the reference's weakly typed scalar arithmetic gives it.
+    """
+    n_rows = charge.shape[1]
+    half = f32(NEUTRAL, charge)
+    two = f32(2.0, charge)
+    v = ((row_sum(charge) * f32(params.c_cell_ff, charge)
+          + f32(NEUTRAL * params.c_bitline_ff, charge))
+         / f32(n_rows * params.c_cell_ff + params.c_bitline_ff, charge))
+    d = two * (charge - half)
+    swing_sq = row_sum(d * d)
+    var = (f32(params.sigma_dynamic ** 2
+               + params.sigma_frac ** 2 * float(n_fracs), charge)
+           + f32(params.sigma_transfer ** 2, charge) * swing_sq)
+    sigma = torch.sqrt(var)
+    return ((v + sigma * noise) > half + sense_offset[None, :]).to(
+        torch.float32)
+
+
 def calib_iter_ref(
     inputs: torch.Tensor,        # [..., S, M, C] operand bits (uint8 or float)
     noise: torch.Tensor,         # [..., S, C] standard normal, float32

@@ -24,7 +24,11 @@ import time
 import torch
 
 from repro_torch.core.calibrate import CalibrationConfig
-from repro_torch.core.fleet import FleetConfig, load_or_calibrate
+from repro_torch.core.ecr import measure_ecr_fleet
+from repro_torch.core.fleet import (FleetConfig, load_or_calibrate,
+                                    manufacture_fleet)
+from repro_torch.core.offsets import baseline_charges
+from repro_torch.core.rng import derive_seed
 from repro_torch.devices import resolve_device
 from repro_torch.kernels.backends import DEFAULT_BACKEND, backend_names
 from repro_torch.pud.gemv import (ECR_BASELINE_B300, ECR_PUDTUNE_T210,
@@ -148,6 +152,10 @@ class PUDSession:
     def n_fracs(self) -> int:
         return sum(self.fleet_cfg.frac_counts)
 
+    @property
+    def ladder(self):
+        return self.fleet_cfg.ladder(self.physics)
+
     def calibrate(self, force: bool = False) -> CalibrationState:
         """Load the device's persisted table, or identify + persist it."""
         if self._state is not None and not force:
@@ -166,6 +174,19 @@ class PUDSession:
             levels=levels, ecr=ecr, masks=masks,
             cache_hit=bool(hit), wall_s=time.time() - t0)
         return self._state
+
+    def baseline_ecr(self, n_trials: int | None = None) -> float:
+        """Mean fleet ECR of the uncalibrated B_{3,0,0} baseline on this
+        device's manufactured offsets (the before-picture of Table I)."""
+        cfg = self.fleet_cfg
+        offsets = manufacture_fleet(self.seed, cfg, self.physics, self.device)
+        base = baseline_charges(3, cfg.n_cols, self.physics,
+                                device=self.device)
+        ecr, _ = measure_ecr_fleet(
+            derive_seed(self.seed, 0x0ECB), offsets,
+            base[None].expand(cfg.n_subarrays_total, 3, cfg.n_cols),
+            self.physics, 3, n_trials=n_trials or self.n_trials_ecr)
+        return float(ecr.mean())
 
     # -- placement + packing ------------------------------------------------
 

@@ -8,15 +8,17 @@ with a GPU and no JAX, run them without the repository's conftest:
         tests/test_torch_cuda_kernels.py
 
 Every comparison is exact: the kernels compute integers (GEMM) or follow
-the plain version's float operations one by one (calibration).
+the plain version's float operations one by one (calibration, sensing).
 """
 import pytest
 
 torch = pytest.importorskip("torch")
 
 from repro_torch.core.fleet import FleetConfig, ladder_tables  # noqa: E402
-from repro_torch.kernels import calib_iter, placed_gemm, plane_gemm, ref  # noqa: E402,E501
+from repro_torch.kernels import (calib_iter, ops, placed_gemm,  # noqa: E402
+                                  plane_gemm, ref, sense)
 from repro_torch.kernels.ops import pud_matmul  # noqa: E402
+from repro_torch.pud import device  # noqa: E402
 from repro_torch.pud.physics import PhysicsParams  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -90,9 +92,15 @@ def test_placed_gemm_equals_plain(gen, b, k, blocked):
         if b == 1:
             assert torch.equal(
                 placed_gemm.gemv_placed(x, words, cols, mode, **kw), want)
-    with pytest.raises(NotImplementedError):
-        placed_gemm.gemm_placed(x, window, cols, layout="dense",
-                                window_block=pwb)
+        # the dense window, read by the kernel itself
+        dkw = dict(layout="dense", window_block=pwb)
+        n0 = placed_gemm.gemm_placed.launches
+        assert torch.equal(
+            placed_gemm.gemm_placed(x, window, cols, mode, **dkw), want)
+        assert placed_gemm.gemm_placed.launches == n0 + 1
+        if b == 1:
+            assert torch.equal(
+                placed_gemm.gemv_placed(x, window, cols, mode, **dkw), want)
     if b > 1:
         with pytest.raises(ValueError):
             placed_gemm.gemv_placed(x, words, cols, **kw)
@@ -125,8 +133,18 @@ def test_plane_gemm_equals_plain(gen, b, k, n):
                 assert torch.equal(plane_gemm.gemv(x, wl, mode, logical_k=k),
                                    want)
                 assert plane_gemm.gemv.launches == v0 + 1
-    with pytest.raises(NotImplementedError):
-        plane_gemm.gemm(x, ref.pack_bitplanes(w[0], 4), layout="dense")
+    # dense planes; layer 1 of the stack starts unaligned when N is odd
+    dense = torch.stack([ref.pack_bitplanes(w[i], 4) for i in range(2)])
+    for layer in range(2):
+        want = (x.double() @ w[layer].double()).to(torch.int32)
+        for mode in ("planes", "folded"):
+            n0 = plane_gemm.gemm.launches
+            assert torch.equal(plane_gemm.gemm(x, dense[layer], mode,
+                                               layout="dense"), want)
+            assert plane_gemm.gemm.launches == n0 + 1
+            if b == 1:
+                assert torch.equal(plane_gemm.gemv(
+                    x, dense[layer], mode, layout="dense"), want)
     if b > 1:
         with pytest.raises(ValueError):
             plane_gemm.gemv(x, words[0], logical_k=k)
@@ -147,3 +165,59 @@ def test_pud_matmul_cuda_equals_reference_backend(gen, b):
     got = pud_matmul(x, logical, scale[:200], backend="cuda", **kw)
     want = pud_matmul(x, logical, scale[:200], backend="reference", **kw)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n_fracs", [0, 3])
+@pytest.mark.parametrize("shape", [(256, 8, 65536), (16, 8, 4096),
+                                   (3, 5, 1000), (1, 8, 77)])
+def test_majx_sense_equals_plain(gen, shape, n_fracs):
+    t, r, c = shape
+    charge = torch.rand(shape, generator=gen, device="cuda")
+    offs = 0.03 * torch.randn(c, generator=gen, device="cuda")
+    noise = torch.randn((t, c), generator=gen, device="cuda")
+    p = PhysicsParams()
+    before = sense.majx_sense.launches
+    got = sense.majx_sense(charge, offs, noise, p, n_fracs)
+    want = sense.majx_sense_plain(charge, offs, noise, p, n_fracs)
+    assert sense.majx_sense.launches == before + 1
+    assert torch.equal(got, want)
+    assert 0 < float(got.mean()) < 1
+    with pytest.raises(ValueError):                  # float64 is not taken
+        sense.majx_sense(charge.double(), offs, noise, p, n_fracs)
+
+
+def test_simra_launches_the_sensing_kernel(gen):
+    p = PhysicsParams()
+    device.set_params(p)
+    state = device.make_subarray(gen, 8, 4096, p, device="cuda")
+    for r in range(5):
+        state = device.write_row(state, r, torch.randint(
+            0, 2, (4096,), generator=gen, device="cuda"))
+    before = sense.majx_sense.launches
+    new, bits = device.simra(state, range(8), gen, 3)
+    assert sense.majx_sense.launches == before + 1
+    assert bits.shape == (4096,) and torch.equal(new.charge[0], bits)
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_ops_dense_entries_launch_the_kernels(gen, b):
+    """The reference's default layout through ``ops``: every entry
+    launches its kernel on the dense planes and equals the integer
+    product."""
+    w, window, _, cols, pwb = _window(gen, 2048, 2048, True)
+    planes = ref.pack_bitplanes(w, 4)
+    x = torch.randint(-127, 128, (b, 2048), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    want = (x.double() @ w.double()).to(torch.int32)
+    counts = [plane_gemm.gemm, plane_gemm.gemv, placed_gemm.gemm_placed,
+              placed_gemm.gemv_placed]
+    before = [f.launches for f in counts]
+    for mode in ("planes", "folded"):
+        assert torch.equal(ops.bitplane_gemv(x, planes, mode), want)
+        assert torch.equal(ops.bitplane_gemm(x, planes, mode), want)
+        assert torch.equal(ops.bitplane_gemv_placed(
+            x, window, cols, mode, window_block=pwb), want)
+        assert torch.equal(ops.bitplane_gemm_placed(
+            x, window, cols, mode, window_block=pwb), want)
+    after = [f.launches - n for f, n in zip(counts, before)]
+    assert after == ([2, 2, 2, 2] if b == 1 else [4, 0, 4, 0])

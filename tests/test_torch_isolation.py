@@ -33,6 +33,26 @@ def test_sources_exist():
     assert len(files) > 20 and all(f.exists() for f in files)
 
 
+#: The modules of the Table-I slice and the SiMRA sensing kernel: each is
+#: among the scanned sources (its CUDA source among the built ones).
+SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
+                 "pud/bitserial.py", "core/calibrate.py", "core/fleet.py",
+                 "core/ecr.py", "core/throughput.py", "runtime/session.py")
+
+
+@pytest.mark.parametrize("module", SLICE_MODULES)
+def test_slice_modules_are_scanned(module):
+    assert ROOT / "src" / "repro_torch" / module in _sources()
+
+
+def test_every_cuda_source_is_built():
+    from repro_torch.kernels import build
+    on_disk = sorted(p.stem for p in
+                     (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))
+    assert on_disk == sorted(build.SOURCES)
+    assert "simra_sense" in build.SOURCES
+
+
 @pytest.mark.parametrize("path", _sources(),
                          ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_forbidden_imports(path):

@@ -151,11 +151,16 @@ def test_pud_matmul_bit_equal_for_float32(backend, b):
 
 
 def test_cuda_entries_refuse_the_dense_layout_on_gpu_tensors():
-    """The dense layout has no kernel: a CUDA tensor raises, never falls
-    back (checked without a GPU through the wrapper's layout gate)."""
+    """The kernel now takes dense planes; what it refuses is a dense window
+    it cannot read: K that disagrees with x, a wider element type, or a
+    ``logical_k`` that names another K.  The launch gate raises before any
+    build, never falls back (checked without a GPU)."""
     from repro_torch.kernels.placed_gemm import _launch
     x = torch.zeros((1, 8), dtype=torch.int8)
-    with pytest.raises(NotImplementedError):
-        _launch("gemm_placed", x, torch.zeros((4, 8, 8), dtype=torch.int8),
-                torch.zeros(8, dtype=torch.int32), "folded", "dense", None,
-                None)
+    cols = torch.zeros(8, dtype=torch.int32)
+    for planes, logical_k in ((torch.zeros((4, 16, 8), dtype=torch.int8), None),
+                              (torch.zeros((4, 8, 8), dtype=torch.int32), None),
+                              (torch.zeros((4, 8, 8), dtype=torch.int8), 16)):
+        with pytest.raises(ValueError):
+            _launch("gemm_placed", x, planes, cols, "folded", "dense",
+                    logical_k, None)

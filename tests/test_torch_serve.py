@@ -177,8 +177,21 @@ def _load_or_calibrate():
                              n_trials_ecr=8)[0].device
 
 
+def _evaluate_method():
+    from repro_torch.core.throughput import evaluate_method
+    return evaluate_method(0, "B300", n_cols=256, n_trials_maj5=8,
+                           with_arith=False).error_free_mask.device
+
+
+def _make_subarray():
+    from repro_torch.pud.device import make_subarray
+    return make_subarray(torch.Generator(), 8, 256,
+                         PhysicsParams()).charge.device
+
+
 @pytest.mark.parametrize("entry", [_open_session, _manufacture,
-                                   _load_or_calibrate])
+                                   _load_or_calibrate, _evaluate_method,
+                                   _make_subarray])
 def test_session_without_device_needs_a_gpu(entry):
     """Every entry point defaults to the GPU and raises without one."""
     if torch.cuda.is_available():
@@ -201,19 +214,38 @@ def _chip_smoke():
 def test_chip_smoke_rehearses_on_cpu(capsys):
     """The chip script's phases, on the CPU at smoke size through the plain
     versions: every check passes and every kernel row is complete."""
+    from repro_torch.core.calibrate import CalibrationConfig
     cs = _chip_smoke()
     out = cs.run(torch, torch.device("cpu"), preset="smoke",
                  grid=dict(n_channels=1, n_banks=1, n_subarrays=8,
-                           n_cols=512))
+                           n_cols=512),
+                 table1=dict(n_cols=1024, n_trials_maj5=256,
+                             n_cols_arith=64, n_trials_arith=64),
+                 table1_calib=CalibrationConfig(n_iterations=8,
+                                                n_samples=128),
+                 quickstart=dict(n_channels=1, n_banks=1, n_subarrays=2,
+                                 n_cols=512),
+                 simra=dict(n_cols=2048, events=64),
+                 dense_cfg=dict(b=4, k=256, n=512, wb=4),
+                 sense_shapes=[(1, 8, 2048, 3), (16, 8, 512, 0),
+                               (3, 5, 100, 3)])
     names = [r["name"] for r in out["rows"]]
     assert names == ["calib_iter", "gemm_placed", "gemv_placed", "gemm",
-                     "gemv"]
+                     "gemv", "majx_sense"]
+    t1 = out["table1"]
+    assert t1["T210"]["ecr"] < t1["B300"]["ecr"]
+    assert out["quickstart"]["tuned"] < out["quickstart"]["baseline"]
+    assert abs(out["simra"]["ecr_cmd"] - out["simra"]["ecr_fast"]) \
+        <= out["simra"]["tol"]
+    for r in out["rows"][1:5]:           # the dense layout on every entry
+        assert [e["layout"] for e in r["extra_shapes"]][-2:] == ["dense"] * 2
     for r in out["rows"]:
         for e in [r] + r.get("extra_shapes", []):
             assert e["max_abs_err"] == 0 and e["bound_ms"] > 0
             assert e["bound_by"] in ("bytes", "operations")
     text = capsys.readouterr().out
     assert "placement HIT" in text and "bit for bit" in text
+    assert "gains T210/B300" in text and "command level" in text
     assert "unplaced engine path" in text and "100.0% of requests" in text
 
 
