@@ -15,7 +15,8 @@ Phases (any failure exits nonzero and prints no result line):
      greedy decode of 4 prompts of 32 tokens for 16 tokens with every FFN and
      unembed projection in the placed GEMM kernels; then one batch-1 request
      (placed GEMV kernel in decode); launch counters are zeroed before and
-     read after each drive;
+     read after each drive; profiles of one batch-4 and one batch-1 placed
+     decode step print the placed GEMM kernels' device time per step;
   4. the whole-model check: prefill logits through the kernels equal, bit
      for bit, the same packs run through the plain versions on the card;
   5. the calibration check: the main run's calibrated levels (12 kernel
@@ -45,10 +46,13 @@ Phases (any failure exits nonzero and prints no result line):
      K = N = 2048, 4-bit): every GEMM/GEMV entry launches its kernel;
  12. each kernel at the main path's shapes against its plain version on the
      card (exact equality, both modes), timed with CUDA events (median of 30
-     launches, L2 flushed before each) beside its bound and a library
+     launches, L2 flushed before each, the host's launch time hidden behind
+     a spin on the card) beside its bound and a library
      yardstick (``torch._int_mm`` on the unpacked signed weights, with x
      zero-padded to 32 rows where it has fewer; none for the sensing
-     kernel); the dense layout as extra shapes of the GEMM rows;
+     kernel); the dense layout as extra shapes of the GEMM rows; each
+     placed shape prints its launch plan (dp4a or tensor cores, grid, K
+     split, stage, shared memory);
  13. print the ``kernels`` JSON line and, last, the device JSON line.
 
 It needs the port's sources beside it (``src/repro_torch``) and a GPU.
@@ -117,13 +121,17 @@ def card_line() -> str:
 
 def time_ms(torch, fn, flush, reps: int = 30) -> float:
     """Median device time of one call in ms, L2 flushed before each launch
-    (CUDA events); on a CPU rehearsal, the host clock."""
+    (CUDA events); on a CPU rehearsal, the host clock.  A spin of about
+    0.3 ms queued after the flush keeps the card busy while the host runs
+    the wrapper, so the host's time to launch does not count as the
+    kernel's."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
         if flush.is_cuda:
+            torch.cuda._sleep(500_000)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -179,6 +187,39 @@ def dense_pack(pt):
         k=pt.k, n=pt.n, layout="dense", logical_k=None,
         planes=unpack_plane_words(pt.planes, pt.logical_k).contiguous(),
         col_ids=pt.col_ids, window_block=pt.window_block)
+
+
+def kernel_name(mangled: str) -> str:
+    """A readable name of a mangled kernel: its name (the identifier after
+    its length) and its template arguments (``dp4a_kernel<4, false>``)."""
+    import re
+    for m in re.finditer(r"\d+", mangled):
+        lengths = {int(m.group()[i:]) for i in range(len(m.group()))}
+        name = next((mangled[m.end():m.end() + n] for n in sorted(lengths)
+                     if mangled[m.end():m.end() + n].endswith("kernel")),
+                    "")
+        if name:
+            rest = mangled[m.end() + len(name):]
+            args = [v if k == "i" else ("true" if v == "1" else "false")
+                    for k, v in re.findall(r"L([bi])(\d+)E",
+                                           rest.split("EEv")[0])]
+            return name + (f"<{', '.join(args)}>" if args else "")
+    return mangled
+
+
+def placed_plan(pt, b: int) -> str:
+    """The launch plan of a placed pack at B rows, as the wrapper makes it."""
+    from repro_torch.kernels.placed_gemm import plan_launch, window_tiling
+    wb, _, w_len = pt.planes.shape
+    pwb, bc = window_tiling(pt.n, w_len, pt.window_block, "chip_smoke")
+    p = plan_launch(b, -(-pt.k // 8), pt.n, wb, pwb, bc,
+                    pt.layout == "dense")
+    path = "tensor cores" if p.tensor_cores else "dp4a"
+    return (f"{path}, {p.rows} rows x {p.tile_cols} columns per block, "
+            f"grid {p.grid}, K split {p.n_split} x {p.split_words} words, "
+            f"{p.stage_words} words per stage, "
+            f"{'staged' if p.staged else 'unstaged'}, "
+            f"{p.smem_bytes} B shared")
 
 
 def finite(*xs) -> bool:
@@ -369,9 +410,11 @@ def ragged_requests(torch, vocab: int):
             for i, (n, m) in enumerate(zip(lens, budgets))]
 
 
-def profile_step(torch, model, params, tokens, max_len, sync) -> None:
+def profile_step(torch, model, params, tokens, max_len, sync,
+                 placed_was=None) -> None:
     """Host wall time of one decode step and, from ``torch.profiler``, the
-    device time it launched, by kernel."""
+    device time it launched, by kernel; ``placed_was``: PR 13's placed GEMM
+    device time per step, printed beside the placed kernels' sum."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -410,6 +453,12 @@ def profile_step(torch, model, params, tokens, max_len, sync) -> None:
           "step); by kernel:")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:70]}")
+    if placed_was is not None:
+        gemm = [(d, c) for d, c, k in rows
+                if "dp4a_kernel" in k or "mma_kernel" in k]
+        print(f"  placed GEMM kernels: {sum(d for d, _ in gemm) / 1e3:.3f} "
+              f"ms over {sum(c for _, c in gemm)} launches per step "
+              f"(PR 13's placed_kernel: {placed_was} ms)")
 
 
 def run(torch, dev, preset: str = "full", grid: dict = GRID,
@@ -453,9 +502,12 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         print(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f}s "
               f"under {build.build_dir().relative_to(ROOT)}")
         for name in build.SOURCES:
+            kernel = ""
             for line in build.ptxas_report(name).splitlines():
-                if "Used" in line or "spill" in line:
-                    print(f"  {name}: {line.strip()}")
+                if "Function properties for" in line:
+                    kernel = kernel_name(line.split()[-1])
+                elif "Used" in line or "spill" in line:
+                    print(f"  {name} {kernel}: {line.strip()}")
 
     phase("main path: calibrate -> place -> pack -> placed decode")
     cache = tempfile.TemporaryDirectory(prefix="pud-cache-")
@@ -502,10 +554,10 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
     need(tuple(one.shape) == (1, GEN), "bad batch-1 tokens")
     launches = {k: counts[k] + counts1[k] for k in counts}
 
-    for rows_ in (BATCH, 1):
+    for rows_, was in ((BATCH, 5.6), (1, 3.3)):
         phase(f"profile: one batch-{rows_} placed decode step")
         profile_step(torch, res["model"], packed.params,
-                     res["tokens"][:rows_], res["max_len"], sync)
+                     res["tokens"][:rows_], res["max_len"], sync, was)
 
     phase("whole-model check: kernels vs plain versions on the card")
     with torch.inference_mode():
@@ -734,9 +786,10 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
                  "library yardstick disagrees")
             lib_ms = time_ms(torch, lambda: torch._int_mm(xl, w8), flush)
             del w8
+        plan = placed_plan(pt, b) if pt.col_ids is not None else None
         return dict(
             shape=f"x [{b},{pt.k}] x {pt.layout} {list(pt.planes.shape)}, "
-                  f"N {n}", layout=pt.layout,
+                  f"N {n}", layout=pt.layout, plan=plan,
             max_abs_err=float((got - want).abs().max()),
             ms=time_ms(torch, lambda: fn(x, *operands, "folded", **kw),
                        flush),
@@ -769,7 +822,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         **gemm_row(placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain,
                    wi, BATCH * PROMPT),
         extra_shapes=[gemm_row(placed_gemm.gemm_placed,
-                               placed_gemm.gemm_placed_plain, wo, BATCH)]
+                               placed_gemm.gemm_placed_plain, pt, BATCH)
+                      for pt in (wi, wo)]
         + dense_rows("gemm_placed", placed_gemm.gemm_placed,
                      placed_gemm.gemm_placed_plain, BATCH, dun)))
     rows.append(dict(
@@ -823,6 +877,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max |err| {r['max_abs_err']}")
+        if r.get("plan"):
+            print(f"      plan: {r['plan']}")
     return {"rows": rows, "mean_ecr": mean_ecr, "occupancy": occupancy,
             "table1": t1, "quickstart": qs, "simra": sim}
 
@@ -850,9 +906,11 @@ def main() -> int:
     line = {"kernels": [
         {**{k: r[k] for k in keys},
          "shape": r["shape"],
+         **({"plan": r["plan"]} if r.get("plan") else {}),
          **({"extra_shapes": [{k: e[k] for k in (
              "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-             "bound_by", "library_ms", "layout", "launches") if k in e}
+             "bound_by", "library_ms", "layout", "launches", "plan")
+             if k in e and (k != "plan" or e[k])}
              for e in r["extra_shapes"]]}
             if "extra_shapes" in r else {})}
         for r in out["rows"]]}

@@ -106,6 +106,119 @@ def test_placed_gemm_equals_plain(gen, b, k, blocked):
             placed_gemm.gemv_placed(x, words, cols, **kw)
 
 
+def _odd_window(gen, wb, k, n, blocked):
+    """Layer 1 of two stacked placed windows with an odd window block
+    (``bc + 27``), so neither W nor any span start nor layer 1's base is
+    16-byte aligned; ``blocked=False``: one whole-window block."""
+    w = torch.randint(-(1 << (wb - 1)), 1 << (wb - 1), (k, n), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    if blocked:
+        bc = min(n, 256)
+        pwb = bc + 27
+    else:
+        bc, pwb = n, n + 63
+    nb = n // bc
+    cols = torch.cat([j * pwb + torch.randperm(pwb, generator=gen,
+                                               device="cuda")[:bc]
+                      for j in range(nb)])
+    window = torch.zeros((2, wb, k, nb * pwb), dtype=torch.int8,
+                         device="cuda")
+    window[1][:, :, cols] = ref.pack_bitplanes(w, wb)
+    words = torch.stack([ref.pack_plane_words(window[i]) for i in range(2)])
+    return (w, window[1], words[1], cols.to(torch.int32),
+            pwb if blocked else None)
+
+
+def _check_placed(x, w, window, words, cols, pwb):
+    """Both layouts, both modes, both entries where B = 1: equal to x @ W
+    and to the plain version, one launch counted per call."""
+    k = x.shape[1]
+    want = (x.double() @ w.double()).to(torch.int32)
+    for planes, kw in ((words, dict(layout="bitpack8", logical_k=k)),
+                       (window, dict(layout="dense"))):
+        kw["window_block"] = pwb
+        assert torch.equal(placed_gemm.placed_plain(x, planes, cols, **kw),
+                           want)
+        for mode in ("planes", "folded"):
+            n0 = placed_gemm.gemm_placed.launches
+            assert torch.equal(
+                placed_gemm.gemm_placed(x, planes, cols, mode, **kw), want)
+            assert placed_gemm.gemm_placed.launches == n0 + 1
+            if x.shape[0] == 1:
+                v0 = placed_gemm.gemv_placed.launches
+                assert torch.equal(
+                    placed_gemm.gemv_placed(x, planes, cols, mode, **kw),
+                    want)
+                assert placed_gemm.gemv_placed.launches == v0 + 1
+    return want
+
+
+@pytest.mark.parametrize("b", [1, 3, 4, 5, 16, 17, 32, 128])
+@pytest.mark.parametrize("wb,k,n,blocked", [
+    (1, 64, 512, True), (4, 100, 2048, True), (8, 2048, 512, True),
+    (4, 6144, 2048, True), (4, 2048, 6144, True), (8, 6144, 6144, True),
+    (4, 2048, 6144, False)])
+def test_placed_gemm_geometry_equals_plain(gen, b, wb, k, n, blocked):
+    """WB 1 to 8, the dp4a and tensor-core paths, K splits, odd window
+    blocks on an unaligned base; the whole-window case at N = 6144 is too
+    wide to stage in the dense layout (and at B >= 17 in both), so those
+    lanes read device memory directly."""
+    w, window, words, cols, pwb = _odd_window(gen, wb, k, n, blocked)
+    x = torch.randint(-127, 128, (b, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    _check_placed(x, w, window, words, cols, pwb)
+    if not blocked:
+        plan = placed_gemm.plan_launch(b, -(-k // 8), n, wb,
+                                       window.shape[-1], n, True)
+        assert not plan.staged
+
+
+@pytest.mark.parametrize("b", [1, 4, 128])
+def test_placed_gemm_on_a_planned_placement(gen, b):
+    """Columns placed by ``plan_placement`` around about 4% faulty columns
+    (runs of up to three), as the main path places them."""
+    import numpy as np
+    from repro_torch.pud.placement import PlacementRequest, plan_placement
+    rng = np.random.default_rng(0)
+    masks = rng.random((2, 16384)) < 0.03
+    runs = rng.integers(0, 2 * 16384, 60)
+    flat = masks.reshape(-1)
+    for r in runs:
+        flat[r:r + 3] = True
+    k, n = 2048, 6144
+    pl = plan_placement(masks, [PlacementRequest("w", n)])
+    tp = pl.entries["w"]
+    assert tp.block_cols == 256 and tp.window_block > 256
+    w = torch.randint(-8, 8, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    cols = torch.from_numpy(tp.local_cols).to("cuda")
+    window = torch.zeros((4, k, tp.region_size), dtype=torch.int8,
+                         device="cuda")
+    window[:, :, cols.long()] = ref.pack_bitplanes(w, 4)
+    x = torch.randint(-127, 128, (b, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    _check_placed(x, w, window, ref.pack_plane_words(window), cols,
+                  tp.window_block)
+
+
+@pytest.mark.parametrize("layout", ["bitpack8", "dense"])
+def test_placed_gemm_is_batch_invariant(gen, layout):
+    """Row b of a B-row call equals the one-row call on that row, on both
+    sides of the dp4a / tensor-core threshold."""
+    w, window, words, cols, pwb = _odd_window(gen, 4, 2048, 2048, True)
+    planes = words if layout == "bitpack8" else window
+    kw = dict(layout=layout, window_block=pwb)
+    x = torch.randint(-127, 128, (40, 2048), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    full = placed_gemm.gemm_placed(x, planes, cols, **kw)
+    for rows in (4, 16, 17, 32):
+        assert torch.equal(placed_gemm.gemm_placed(x[:rows], planes, cols,
+                                                   **kw), full[:rows])
+    for i in range(40):
+        one = placed_gemm.gemv_placed(x[i:i + 1], planes, cols, **kw)
+        assert torch.equal(one, full[i:i + 1])
+
+
 @pytest.mark.parametrize("n", [77, 200, 2048])
 @pytest.mark.parametrize("k", [64, 100, 2048, 6144])
 @pytest.mark.parametrize("b", [1, 3, 8, 17, 128])

@@ -21,8 +21,11 @@ from repro.kernels.ops import pud_matmul as j_pud_matmul  # noqa: E402
 from repro.kernels.ops import quantize_activations as j_quant  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.kernels.ops import pud_matmul, quantize_activations  # noqa: E402
-from repro_torch.kernels.placed_gemm import (gemm_placed,  # noqa: E402
-                                             gemv_placed, window_cols)
+from repro_torch.kernels.placed_gemm import (MAX_COPIES, SMEM_MAX,  # noqa: E402
+                                             SMS, THREADS,
+                                             gemm_placed, gemv_placed,
+                                             placed_plain, plan_launch,
+                                             window_cols, window_tiling)
 
 N, WB = 256, 4
 
@@ -150,7 +153,7 @@ def test_pud_matmul_bit_equal_for_float32(backend, b):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_cuda_entries_refuse_the_dense_layout_on_gpu_tensors():
+def test_launch_gate_refuses_unreadable_dense_windows():
     """The kernel now takes dense planes; what it refuses is a dense window
     it cannot read: K that disagrees with x, a wider element type, or a
     ``logical_k`` that names another K.  The launch gate raises before any
@@ -164,3 +167,161 @@ def test_cuda_entries_refuse_the_dense_layout_on_gpu_tensors():
         with pytest.raises(ValueError):
             _launch("gemm_placed", x, planes, cols, "folded", "dense",
                     logical_k, None)
+
+
+# Main-path shapes of qwen3-1.7b (wi/wg, wo, unembed at a calibrated ECR
+# near 3.7%: window blocks a few percent wider than their logical blocks)
+# and the GPU tests' shapes: (B, K, N, WB, window_block, block_cols).
+MAIN_SHAPES = [(b, 2048, 6144, 4, 272, 256) for b in (1, 4, 16, 128)] + \
+    [(b, 6144, 2048, 4, 272, 256) for b in (1, 4, 16, 128)] + \
+    [(b, 2048, 151936, 4, 141, 128) for b in (1, 4)] + \
+    [(b, 2048, 2048, 4, 288, 256) for b in (1, 8)]
+GPU_SHAPES = [(b, k, n, wb, pwb, bc)
+              for b in (1, 3, 4, 5, 16, 17, 32, 128)
+              for wb, k, n in ((1, 64, 512), (4, 100, 2048), (8, 2048, 512),
+                               (4, 6144, 2048), (4, 2048, 6144),
+                               (8, 6144, 6144))
+              for pwb, bc in ((min(n, 256) + 27, min(n, 256)),
+                              (n + 63, n))]
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("shape", MAIN_SHAPES + GPU_SHAPES)
+def test_plan_covers_its_operands(shape, dense):
+    """K splits cover every word once in whole stages; tiles cover every
+    column of a window block; a staged row holds the whole span at any
+    16-byte misalignment; shared memory fits one block."""
+    b, k, n, wb, pwb, bc = shape
+    kw = -(-k // 8)
+    p = plan_launch(b, kw, n, wb, pwb, bc, dense)
+    assert p.tensor_cores == (b >= 17)
+    assert p.split_words % p.stage_words == 0
+    spans = [(z * p.split_words, min(kw, (z + 1) * p.split_words))
+             for z in range(p.n_split)]
+    assert spans[0][0] == 0 and spans[-1][1] == kw
+    assert all(lo < hi for lo, hi in spans)
+    assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
+    assert (p.tiles_per_block - 1) * p.tile_cols < bc <= \
+        p.tiles_per_block * p.tile_cols
+    assert p.grid == ((n // bc) * p.tiles_per_block, -(-b // p.rows),
+                      p.n_split)
+    if p.staged:
+        assert p.row_bytes % 16 == 0 and p.row_bytes >= 15 + pwb
+        assert p.w_stage == wb * (8 if dense else 1) * p.stage_words * \
+            p.row_bytes
+        assert wb * (8 if dense else 1) * p.stage_words * p.row_bytes \
+            <= 16 * MAX_COPIES * THREADS
+        assert p.tab_bytes >= 4 * wb * (8 if dense else 1) * p.stage_words
+        assert p.pk_row >= (pwb + 3 if dense else 0)
+    assert p.x_row % 16 == 0 and p.x_row >= 8 * p.stage_words
+    assert p.stage_bytes == p.w_stage + p.rows * p.x_row + p.tab_bytes
+    assert p.stage_bytes * p.stages <= p.smem_bytes <= SMEM_MAX
+
+
+@pytest.mark.parametrize("shape", MAIN_SHAPES)
+def test_plan_fills_the_card_at_decode(shape):
+    """The main path's packs are staged, and at N = 2048 and 6144 a decode
+    batch reaches at least one block per SM."""
+    b, k, n, wb, pwb, bc = shape
+    p = plan_launch(b, -(-k // 8), n, wb, pwb, bc, False)
+    assert p.staged
+    if b <= 16 and n in (2048, 6144):
+        assert p.grid[0] * p.grid[1] * p.grid[2] >= SMS
+
+
+def _emulate(x, planes, col_ids, layout, logical_k, window_block, base):
+    """The kernel's schedule in plain PyTorch, for planes that start
+    ``base`` bytes past a 16-byte boundary: per window block and K split,
+    each staged row is copied in the 16-byte granules the kernel copies,
+    each column is gathered at its row's misalignment plus its in-span
+    column, and the splits' partial products are summed."""
+    dense = layout == "dense"
+    b, k = x.shape
+    wb, rpp, w_len = planes.shape
+    (n,) = col_ids.shape
+    kw = -(-k // 8)
+    rpw = 8 if dense else 1
+    pwb, bc = window_tiling(n, w_len, window_block, "emulate")
+    p = plan_launch(b, kw, n, wb, pwb, bc, dense)
+    size = planes.numel()
+    mem = torch.cat([torch.full((base,), 0xA5, dtype=torch.uint8),
+                     planes.view(torch.uint8).reshape(-1),
+                     torch.full((32,), 0xA5, dtype=torch.uint8)])
+    xp = torch.nn.functional.pad(x, (0, 8 * kw - k)).double()
+    out = torch.zeros((b, n), dtype=torch.float64)
+    seen = torch.zeros((kw * 8, n), dtype=torch.int32)
+    for blk in range(n // bc):
+        start = blk * pwb
+        res = col_ids[blk * bc:(blk + 1) * bc].long() % pwb
+        for z in range(p.n_split):
+            lo, hi = z * p.split_words, min(kw, (z + 1) * p.split_words)
+            bits = torch.zeros((wb, 8 * kw, bc), dtype=torch.int32)
+            for kw0 in range(lo, hi, p.stage_words):
+                for q in range(rpw * p.stage_words):
+                    grow = kw0 * rpw + q
+                    if grow >= rpp or grow // rpw >= hi:
+                        continue
+                    for pl in range(wb):
+                        addr = base + (pl * rpp + grow) * w_len + start
+                        if p.staged:
+                            mis = addr % 16
+                            ng = -(-(mis + pwb) // 16)
+                            assert 16 * ng <= p.row_bytes
+                            al = addr - mis
+                            assert al < base + size and al + 16 * ng > base
+                            row = mem[al:al + 16 * ng]
+                            assert int((mis + res).max()) < row.numel()
+                            val = row[mis + res].int()
+                        else:
+                            val = mem[addr + res].int()
+                        if dense:
+                            bits[pl, grow] = val & 1
+                        else:
+                            for j in range(8):
+                                bits[pl, 8 * grow + j] = (val >> j) & 1
+            w = sum(bits[i] << i for i in range(wb)) - (1 << (wb - 1))
+            kr = slice(8 * lo, 8 * hi)
+            out[:, blk * bc:(blk + 1) * bc] += xp[:, kr] @ w[kr].double()
+            seen[kr, blk * bc:(blk + 1) * bc] += 1
+    assert bool((seen == 1).all())
+    return out.to(torch.int32)
+
+
+@pytest.mark.parametrize("base", [0, 5])
+@pytest.mark.parametrize("blocked", [True, False])
+@pytest.mark.parametrize("k", [64, 100])
+@pytest.mark.parametrize("b", [1, 4, 17])
+def test_staged_schedule_equals_plain(b, k, blocked, base):
+    """The plan's staging offsets and K splits reproduce the plain version
+    on random placements, ``window_block=None`` included."""
+    w, window, words, col_ids, pwb = _window(b * 7 + k, k, blocked)
+    x = torch.from_numpy(_x(k + 1, b, k))
+    tc = torch.from_numpy(col_ids)
+    for layout, planes, lk in (("bitpack8", torch.from_numpy(words), k),
+                               ("dense", torch.from_numpy(window), None)):
+        want = placed_plain(x, planes, tc, layout=layout, logical_k=lk,
+                            window_block=pwb)
+        np.testing.assert_array_equal(want.numpy(), x.numpy().astype(
+            np.int64) @ w)
+        got = _emulate(x, planes, tc, layout, lk, pwb, base)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("b", [1, 17])
+def test_unstaged_schedule_equals_plain(b):
+    """A whole-window dense pack too wide for a stage: the plan stages
+    nothing and lanes read their bytes directly; still exact."""
+    rng = np.random.default_rng(b)
+    k, n, w_len = 24, 2048, 2100
+    w = rng.integers(-8, 8, (k, n), dtype=np.int32)
+    col_ids = rng.permutation(w_len)[:n].astype(np.int32)
+    window = np.zeros((WB, k, w_len), np.int8)
+    window[:, :, col_ids] = np.asarray(ref.pack_bitplanes(
+        torch.from_numpy(w), WB))
+    assert not plan_launch(b, 3, n, WB, w_len, n, True).staged
+    x = torch.from_numpy(_x(3, b, k))
+    planes, tc = torch.from_numpy(window), torch.from_numpy(col_ids)
+    want = placed_plain(x, planes, tc, layout="dense")
+    np.testing.assert_array_equal(want.numpy(),
+                                  x.numpy().astype(np.int64) @ w)
+    assert torch.equal(_emulate(x, planes, tc, "dense", None, None, 3), want)

@@ -247,6 +247,7 @@ def test_chip_smoke_rehearses_on_cpu(capsys):
     assert "placement HIT" in text and "bit for bit" in text
     assert "gains T210/B300" in text and "command level" in text
     assert "unplaced engine path" in text and "100.0% of requests" in text
+    assert "plan: dp4a" in text and "plan: tensor cores" in text
 
 
 def test_chip_smoke_fails_without_gpu_or_sources(tmp_path):
