@@ -27,8 +27,9 @@ Phases (any failure exits nonzero and prints no result line):
      point: ``--pud-gemv --calib-cache <the same cache> --no-placement
      --engine`` with 8 prompts on 4 engine slots, every packed projection in
      the unplaced GEMM/GEMV kernels and none in the placed ones; then one
-     batch-1 request on the unplaced packs (unplaced GEMV decode) and a
-     profile of one batch-4 unplaced decode step;
+     batch-1 request on the unplaced packs (unplaced GEMV decode), a
+     profile of one batch-4 unplaced decode step and one of the unplaced
+     prefill of 4 prompts (128 rows: the tensor-core GEMM kernel);
   8. a ragged engine run (12 requests, prompts of 8 to 128 tokens, budgets
      of 4 to 32) through the kernels and again through the plain versions
      with the same schedule: tokens equal, logits bit for bit;
@@ -51,8 +52,8 @@ Phases (any failure exits nonzero and prints no result line):
      yardstick (``torch._int_mm`` on the unpacked signed weights, with x
      zero-padded to 32 rows where it has fewer; none for the sensing
      kernel); the dense layout as extra shapes of the GEMM rows; each
-     placed shape prints its launch plan (dp4a or tensor cores, grid, K
-     split, stage, shared memory);
+     GEMM/GEMV shape prints its launch plan (dp4a or tensor cores, grid, K
+     split, stage, shared memory), made for the card's SM count;
  13. print the ``kernels`` JSON line and, last, the device JSON line.
 
 It needs the port's sources beside it (``src/repro_torch``) and a GPU.
@@ -190,21 +191,32 @@ def dense_pack(pt):
 
 
 def kernel_name(mangled: str) -> str:
-    """A readable name of a mangled kernel: its name (the identifier after
-    its length) and its template arguments (``dp4a_kernel<4, false>``)."""
+    """A readable name of a mangled kernel: its name (the shortest
+    identifier after its length that ends in ``kernel``; a longer one can
+    start inside the anonymous namespace's tag) and its template arguments
+    (``dp4a_kernel<4, false>``)."""
     import re
+    found = []
     for m in re.finditer(r"\d+", mangled):
-        lengths = {int(m.group()[i:]) for i in range(len(m.group()))}
-        name = next((mangled[m.end():m.end() + n] for n in sorted(lengths)
-                     if mangled[m.end():m.end() + n].endswith("kernel")),
-                    "")
-        if name:
-            rest = mangled[m.end() + len(name):]
-            args = [v if k == "i" else ("true" if v == "1" else "false")
-                    for k, v in re.findall(r"L([bi])(\d+)E",
-                                           rest.split("EEv")[0])]
-            return name + (f"<{', '.join(args)}>" if args else "")
-    return mangled
+        for i in range(len(m.group())):
+            name = mangled[m.end():m.end() + int(m.group()[i:])]
+            if name.endswith("kernel"):
+                found.append((len(name), name, m.end() + len(name)))
+    if not found:
+        return mangled
+    _, name, end = min(found)
+    args = [v if k == "i" else ("true" if v == "1" else "false")
+            for k, v in re.findall(r"L([bi])(\d+)E",
+                                   mangled[end:].split("EEv")[0])]
+    return name + (f"<{', '.join(args)}>" if args else "")
+
+
+def sms_of(pt) -> int:
+    """The SM count the wrappers plan for: the pack's card's, else the
+    plans' default."""
+    from repro_torch import devices
+    from repro_torch.kernels.placed_gemm import SMS
+    return devices.sm_count(pt.planes.device) if pt.planes.is_cuda else SMS
 
 
 def placed_plan(pt, b: int) -> str:
@@ -213,13 +225,26 @@ def placed_plan(pt, b: int) -> str:
     wb, _, w_len = pt.planes.shape
     pwb, bc = window_tiling(pt.n, w_len, pt.window_block, "chip_smoke")
     p = plan_launch(b, -(-pt.k // 8), pt.n, wb, pwb, bc,
-                    pt.layout == "dense")
+                    pt.layout == "dense", sms_of(pt))
     path = "tensor cores" if p.tensor_cores else "dp4a"
     return (f"{path}, {p.rows} rows x {p.tile_cols} columns per block, "
             f"grid {p.grid}, K split {p.n_split} x {p.split_words} words, "
             f"{p.stage_words} words per stage, "
             f"{'staged' if p.staged else 'unstaged'}, "
             f"{p.smem_bytes} B shared")
+
+
+def unplaced_plan(pt, b: int) -> str:
+    """The launch plan of an unplaced pack at B rows, as the wrapper makes
+    it."""
+    from repro_torch.kernels.plane_gemm import TILE_COLS, plan_launch
+    wb = pt.planes.shape[0]
+    p = plan_launch(b, -(-pt.k // 8), pt.n, wb, pt.layout == "dense",
+                    sms_of(pt))
+    path = "tensor cores" if p.tensor_cores else "dp4a"
+    return (f"{path}, {p.rows} rows x {TILE_COLS} columns per block, "
+            f"grid {p.grid}, K split {p.n_split} x {p.split_words} words, "
+            f"{p.stage_words} words per stage, {p.smem_bytes} B shared")
 
 
 def finite(*xs) -> bool:
@@ -410,11 +435,59 @@ def ragged_requests(torch, vocab: int):
             for i, (n, m) in enumerate(zip(lens, budgets))]
 
 
+GEMM_KERNELS = ("dp4a_kernel", "mma_kernel", "plane_kernel")
+
+
+def device_rows(prof) -> list:
+    """(device us, calls, name) of every profiled op with device time."""
+    rows = []
+    for e in prof.key_averages():
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us, e.count, e.key))
+    return rows
+
+
+def print_gemm_kernels(rows, per: str, was: str = "") -> list:
+    gemm = [(d, c, k) for d, c, k in rows
+            if any(name in k for name in GEMM_KERNELS)]
+    print(f"  GEMM kernels: {sum(d for d, _, _ in gemm) / 1e3:.3f} ms over "
+          f"{sum(c for _, c, _ in gemm)} launches per {per}{was}")
+    return gemm
+
+
+def profile_prefill(torch, model, params, tokens, max_len, sync) -> list:
+    """Device time of one prefill by kernel (``torch.profiler``); returns
+    the GEMM kernels' rows."""
+    from torch.profiler import ProfilerActivity, profile
+    with torch.inference_mode():
+        model.prefill(params, tokens, max_len=max_len)
+        sync()
+        acts = [ProfilerActivity.CPU]
+        if tokens.is_cuda:
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            model.prefill(params, tokens, max_len=max_len)
+            sync()
+    rows = device_rows(prof)
+    if not rows:
+        print("  device time: not measured (the profiler reported none)")
+        return []
+    print(f"  device time {sum(r[0] for r in rows) / 1e3:.3f} ms; GEMM "
+          "kernels by name:")
+    gemm = print_gemm_kernels(rows, "prefill")
+    for dev_us, count, key in sorted(gemm, reverse=True):
+        print(f"    {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    return gemm
+
+
 def profile_step(torch, model, params, tokens, max_len, sync,
                  placed_was=None) -> None:
     """Host wall time of one decode step and, from ``torch.profiler``, the
-    device time it launched, by kernel; ``placed_was``: PR 13's placed GEMM
-    device time per step, printed beside the placed kernels' sum."""
+    device time it launched, by kernel, and the GEMM kernels' sum;
+    ``placed_was``: the placed GEMM's device time per step before its
+    staged redesign (ms), printed beside it."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.inference_mode():
@@ -436,12 +509,7 @@ def profile_step(torch, model, params, tokens, max_len, sync,
         with profile(activities=acts) as prof:
             model.decode_step(params, cache, nxt, pos)
             sync()
-    rows = []
-    for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us, e.count, e.key))
+    rows = device_rows(prof)
     wall = statistics.median(walls)
     busy = sum(r[0] for r in rows) / 1e3
     print(f"  decode step (batch {tokens.shape[0]}): host wall "
@@ -453,12 +521,8 @@ def profile_step(torch, model, params, tokens, max_len, sync,
           "step); by kernel:")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:70]}")
-    if placed_was is not None:
-        gemm = [(d, c) for d, c, k in rows
-                if "dp4a_kernel" in k or "mma_kernel" in k]
-        print(f"  placed GEMM kernels: {sum(d for d, _ in gemm) / 1e3:.3f} "
-              f"ms over {sum(c for _, c in gemm)} launches per step "
-              f"(PR 13's placed_kernel: {placed_was} ms)")
+    print_gemm_kernels(rows, "step", "" if placed_was is None else
+                       f" (before the staged redesign: {placed_was} ms)")
 
 
 def run(torch, dev, preset: str = "full", grid: dict = GRID,
@@ -653,6 +717,12 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
     profile_step(torch, model, upacked.params, ures["tokens"][:BATCH],
                  ures["max_len"], sync)
 
+    phase(f"profile: one unplaced prefill of {BATCH} x {PROMPT} rows")
+    gemm = profile_prefill(torch, model, upacked.params,
+                           ures["tokens"][:BATCH], ures["max_len"], sync)
+    need(not gemm or any("plane_mma_kernel" in k for _, _, k in gemm),
+         "the unplaced prefill did not run the tensor-core GEMM kernel")
+
     phase("ragged engine run: kernels vs plain versions, same schedule")
     reqs = ragged_requests(torch, vocab)
     r_len = RAGGED["prompt"][1] + RAGGED["budget"][1]
@@ -786,7 +856,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
                  "library yardstick disagrees")
             lib_ms = time_ms(torch, lambda: torch._int_mm(xl, w8), flush)
             del w8
-        plan = placed_plan(pt, b) if pt.col_ids is not None else None
+        plan = (placed_plan if pt.col_ids is not None else unplaced_plan)(
+            pt, b)
         return dict(
             shape=f"x [{b},{pt.k}] x {pt.layout} {list(pt.planes.shape)}, "
                   f"N {n}", layout=pt.layout, plan=plan,
@@ -823,7 +894,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
                    wi, BATCH * PROMPT),
         extra_shapes=[gemm_row(placed_gemm.gemm_placed,
                                placed_gemm.gemm_placed_plain, pt, BATCH)
-                      for pt in (wi, wo)]
+                      for pt in (wi, wo, un)]
         + dense_rows("gemm_placed", placed_gemm.gemm_placed,
                      placed_gemm.gemm_placed_plain, BATCH, dun)))
     rows.append(dict(
@@ -848,8 +919,13 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
                    BATCH * PROMPT),
         extra_shapes=[gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain, pt,
                                ENGINE_SLOTS) for pt in (uwo, uun)]
+        + [gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain, uwo,
+                    BATCH * PROMPT)]
         + dense_rows("gemm", plane_gemm.gemm, plane_gemm.gemm_plain,
-                     BATCH, duun)))
+                     BATCH, duun)
+        + [dict(gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain,
+                         dense["pack"], BATCH * PROMPT),
+                launches=dense["launches"]["gemm"])]))
     rows.append(dict(
         name="gemv", route="cuda", source=src,
         replaces="src/repro/kernels/bitplane_gemv.py:316",

@@ -1,5 +1,8 @@
-"""Device resolution shared by every entry point of the port."""
+"""Device resolution shared by every entry point of the port, and what the
+kernel launch plans read of a CUDA device."""
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -18,3 +21,14 @@ def resolve_device(device=None) -> torch.device:
                 "plain PyTorch versions on the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the CUDA device ``device`` (a tensor's
+    device, which names its index), read once per device index."""
+    return _sm_count(torch.device(device).index or 0)

@@ -88,8 +88,10 @@ def calib_iter(inputs: torch.Tensor, noise: torch.Tensor,
     swing = (_F * 8)(*[float(f(w)) for w in level_swing])
     levels_out = torch.empty_like(levels)
     bias = torch.empty(lead + (c,), dtype=torch.float32, device=inputs.device)
-    stream = torch.cuda.current_stream(inputs.device).cuda_stream
-    rc = _lib()(inputs.data_ptr(), noise.data_ptr(), levels.data_ptr(),
+    fn = _lib()
+    with torch.cuda.device(inputs.device):
+        stream = torch.cuda.current_stream(inputs.device).cuda_stream
+        rc = fn(inputs.data_ptr(), noise.data_ptr(), levels.data_ptr(),
                 sense_offset.data_ptr(), levels_out.data_ptr(),
                 bias.data_ptr(), g, s, m, c, qsum, swing, n_levels,
                 float(f(params.c_cell_ff)),

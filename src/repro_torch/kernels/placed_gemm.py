@@ -26,7 +26,8 @@ exact integer atomics; decode rows run ``__dp4a``, prefill rows (B >= 17)
 int8 tensor-core MMA on a tile unpacked once per stage.  ``plan_launch``
 makes every choice of a launch on the host from shapes alone (path, tile,
 stage words, K split, shared memory, grid) and the kernel only checks it,
-so the CPU tests reach the plan.
+so the CPU tests reach the plan.  Every launch runs with its tensors'
+device current, and its plan fills that device's SM count.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ import dataclasses
 import functools
 
 import torch
+
+from repro_torch import devices
 
 from . import build
 from .ref import bitplane_gemv_ref, densify
@@ -45,7 +48,7 @@ LAYOUTS = ("dense", "bitpack8")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
-SMS = 132                 # streaming multiprocessors of an H100 SXM
+SMS = 132                 # default SM count of a plan (an H100 SXM)
 THREADS = 256             # threads per block
 STAGES = 4                # shared-memory ring depth
 TC_MIN_ROWS = 17          # batch rows from which the tensor-core path runs
@@ -222,9 +225,26 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def split_k(kw: int, fit, tiles: int, sms: int) -> tuple[int, int, int]:
+    """(stage words, split_words, n_split) of ``tiles`` blocks over ``kw``
+    K words: K splits, in whole stages, until about ``2 * sms`` blocks are
+    in flight; of the stage sizes ``fit`` (largest first), the largest
+    that still reaches that many blocks wins, else the one that splits
+    most."""
+    def split_of(kc):
+        chunks = _cdiv(kw, kc)
+        split = max(1, min(chunks, _cdiv(2 * sms, tiles)))
+        split_words = _cdiv(chunks, split) * kc
+        return split_words, _cdiv(kw, split_words)
+
+    kc = next((c for c in fit if tiles * split_of(c)[1] >= 2 * sms),
+              max(fit, key=lambda c: (split_of(c)[1], c)))
+    return (kc, *split_of(kc))
+
+
 @functools.lru_cache(maxsize=512)
 def plan_launch(b: int, kw: int, n: int, wb: int, window_block: int,
-                block_cols: int, dense: bool) -> Plan:
+                block_cols: int, dense: bool, sms: int = SMS) -> Plan:
     """The launch plan of one placed GEMM/GEMV call, from shapes alone.
 
     ``b`` batch rows, ``kw`` = ceil(K / 8) K words, ``n`` logical columns,
@@ -233,8 +253,8 @@ def plan_launch(b: int, kw: int, n: int, wb: int, window_block: int,
     A stage holds at most ``MAX_COPIES`` granules per thread, and its ring
     fits ``RING_BUDGET`` (two blocks per SM), else the block's shared
     memory at the smallest of ``STAGE_WORDS``; where nothing fits, the span
-    is not staged.  K splits, in whole stages, until about ``2 * SMS``
-    blocks are in flight; of the stage sizes that fit, the largest that
+    is not staged.  K splits, in whole stages, until about ``2 * sms``
+    blocks are in flight (``sms``: the device's SM count); of the stage sizes that fit, the largest that
     still reaches that many blocks wins.
     """
     tc = b >= TC_MIN_ROWS
@@ -275,16 +295,7 @@ def plan_launch(b: int, kw: int, n: int, wb: int, window_block: int,
 
     tiles_per_block = _cdiv(block_cols, tile)
     tiles = (n // block_cols) * tiles_per_block * _cdiv(b, rows)
-
-    def split_of(kc):
-        chunks = _cdiv(kw, kc)
-        split = max(1, min(chunks, _cdiv(2 * SMS, tiles)))
-        split_words = _cdiv(chunks, split) * kc
-        return split_words, _cdiv(kw, split_words)
-
-    kc = next((c for c in fit if tiles * split_of(c)[1] >= 2 * SMS),
-              max(fit, key=lambda c: (split_of(c)[1], c)))
-    split_words, n_split = split_of(kc)
+    kc, split_words, n_split = split_k(kw, fit, tiles, sms)
     x_row, w_stage, tab, stage, pk_row, total = smem(kc, row_bytes)
     return Plan(tc, rows, tile, tiles_per_block, kc, STAGES, split_words,
                 n_split, row_bytes, x_row, w_stage, tab, stage, pk_row, total,
@@ -303,14 +314,17 @@ def _launch(entry, x, words, col_ids, mode, layout, logical_k, window_block):
     b, k, kw, w_len, n, wb, pwb, bc = _geometry(
         x, words, col_ids, layout, logical_k, window_block, entry)
     dense = layout == "dense"
-    plan, arr = _plan_array(b, kw, n, wb, pwb, bc, dense)
+    plan, arr = _plan_array(b, kw, n, wb, pwb, bc, dense,
+                            devices.sm_count(x.device))
     out = (torch.zeros if plan.n_split > 1 else torch.empty)(
         (b, n), dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _fn(f"placed_{entry.split('_')[0]}_launch",
-             [_P] * 4 + [_I] * 9 + [_P, _I, _P])(
-        x.data_ptr(), words.data_ptr(), col_ids.data_ptr(), out.data_ptr(),
-        b, k, kw, w_len, n, wb, pwb, bc, int(dense), arr, len(arr), stream)
+    fn = _fn(f"placed_{entry.split('_')[0]}_launch",
+             [_P] * 4 + [_I] * 9 + [_P, _I, _P])
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), words.data_ptr(), col_ids.data_ptr(),
+                out.data_ptr(), b, k, kw, w_len, n, wb, pwb, bc, int(dense),
+                arr, len(arr), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     return out

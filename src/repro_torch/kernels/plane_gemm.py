@@ -15,19 +15,43 @@ planes itself; nothing is repacked first); a CPU tensor runs the plain
 version.  ``mode`` ("planes" or "folded") selects an execution schedule in
 the reference; both give the same integers, so it is validated and
 otherwise ignored.
+
+Decode rows (B <= 16) run ``__dp4a`` on CUDA cores; from
+``TC_MIN_ROWS`` = 17 rows (prefill) the int8 tensor cores run, on a weight
+tile staged with 16-byte ``cp.async`` and unpacked once per block.
+``plan_launch`` makes every choice of a launch on the host from the shapes
+and the device's SM count (path, rows per block, stage words, K split,
+shared memory, grid); the kernel only checks it, so the CPU tests reach
+the plan.  Every launch runs with its tensors' device current.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
+from repro_torch import devices
+
 from . import build
-from .placed_gemm import check_mode, check_operands
+from .placed_gemm import (SMS, TC_MIN_ROWS, _cdiv, check_mode,
+                          check_operands, split_k)
 from .ref import bitplane_gemv_ref, densify
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+TILE_COLS = 128           # output columns per block (both paths)
+CHUNK_WORDS = 64          # dp4a: K words of x staged per pass
+DP4A_ROWS = (1, 4, 16)    # batch rows per dp4a block
+TC_ROWS = (64, 128)       # batch rows per tensor-core block
+STAGE_WORDS = (16, 8, 4)  # tensor cores: K words per stage, first choice first
+STAGES = 4                # tensor cores: shared-memory ring depth
+PAD = 16                  # bytes past 8 * stage words in an x row
+WT_STRIDE = TILE_COLS + 8  # 32-bit words per row of the unpacked int8 tile
+RING_BUDGET = 112 * 1024  # shared bytes per block that keep two per SM
+SMEM_MAX = 232_448        # shared bytes one block may use
 
 
 def plane_plain(x: torch.Tensor, planes: torch.Tensor, mode: str = "folded",
@@ -44,10 +68,93 @@ gemm_plain = plane_plain
 gemv_plain = plane_plain
 
 
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one launch of ``csrc/plane_gemm.cu`` covers its operands.
+
+    ``tensor_cores``: the int8 MMA path (prefill rows), else ``__dp4a``.
+    ``rows`` batch rows per block (every block owns ``TILE_COLS`` columns);
+    ``stage_words`` K words per stage (the dp4a path stages x only,
+    ``CHUNK_WORDS`` at a time), ``stages`` in the ring; ``split_words`` K
+    words per block along gridDim.z (``n_split`` splits, partial sums added
+    into a zeroed output when there is more than one); ``x_row`` shared
+    bytes per staged x row; ``w_stage`` and ``stage_bytes`` the weight rows
+    and the whole of one stage; ``smem_bytes`` the block's shared memory.
+    """
+    tensor_cores: bool
+    rows: int
+    stage_words: int
+    stages: int
+    split_words: int
+    n_split: int
+    x_row: int
+    w_stage: int
+    stage_bytes: int
+    smem_bytes: int
+    grid: tuple[int, int, int]
+
+    #: field order of the C ``Plan`` struct (the grid follows)
+    FIELDS = ("tensor_cores", "rows", "stage_words", "stages",
+              "split_words", "n_split", "x_row", "w_stage", "stage_bytes",
+              "smem_bytes")
+
+    def c_array(self):
+        vals = [int(getattr(self, f)) for f in self.FIELDS] + list(self.grid)
+        return (ctypes.c_int * len(vals))(*vals)
+
+
+@functools.lru_cache(maxsize=512)
+def plan_launch(b: int, kw: int, n: int, wb: int, dense: bool,
+                sms: int = SMS) -> Plan:
+    """The launch plan of one unplaced GEMM/GEMV call, from shapes alone.
+
+    ``b`` batch rows, ``kw`` = ceil(K / 8) K words, ``n`` columns, ``wb``
+    planes, ``sms`` the device's SM count.  Below ``TC_MIN_ROWS`` rows the
+    dp4a path takes tiles of 1, 4 or 16 rows and stages x ``CHUNK_WORDS``
+    words at a time; from there the tensor-core path takes 64 or 128 rows.
+    Its ring of ``STAGES`` fits ``RING_BUDGET`` (two blocks per SM) at the
+    first of ``STAGE_WORDS`` that does, else the smallest stage.  K splits,
+    in whole stages, until about ``2 * sms`` blocks are in flight; of the
+    stage sizes that fit, the largest that still reaches that many blocks
+    wins.
+    """
+    tiles_n = _cdiv(n, TILE_COLS)
+    if b < TC_MIN_ROWS:
+        rows = next(r for r in DP4A_ROWS if r >= b)
+        tiles = tiles_n * _cdiv(b, rows)
+        _, split_words, n_split = split_k(kw, [CHUNK_WORDS], tiles, sms)
+        x_row = 8 * CHUNK_WORDS
+        return Plan(False, rows, CHUNK_WORDS, 1, split_words, n_split, x_row,
+                    0, rows * x_row, rows * x_row + 8 * TILE_COLS * 4,
+                    (tiles_n, _cdiv(b, rows), n_split))
+    rows = TC_ROWS[0] if b <= TC_ROWS[0] else TC_ROWS[1]
+    rpw = 8 if dense else 1
+    tiles = tiles_n * _cdiv(b, rows)
+
+    def smem(kc):
+        x_row = 8 * kc + PAD
+        w_stage = wb * rpw * kc * TILE_COLS
+        stage = w_stage + rows * x_row
+        return x_row, w_stage, stage, STAGES * stage + 2 * kc * WT_STRIDE * 4
+
+    fit = [kc for kc in STAGE_WORDS if smem(kc)[-1] <= RING_BUDGET]
+    kc, split_words, n_split = split_k(kw, fit or STAGE_WORDS[-1:], tiles,
+                                       sms)
+    x_row, w_stage, stage, total = smem(kc)
+    return Plan(True, rows, kc, STAGES, split_words, n_split, x_row,
+                w_stage, stage, total, (tiles_n, _cdiv(b, rows), n_split))
+
+
+@functools.lru_cache(maxsize=512)
+def _plan_array(*shape):
+    plan = plan_launch(*shape)
+    return plan, plan.c_array()
+
+
 def _fn(name: str):
     fn = getattr(build.load("plane_gemm"), name)
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 3 + [_I] * 6 + [_P]
+        fn.argtypes = [_P] * 3 + [_I] * 6 + [_P, _I, _P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -57,11 +164,15 @@ def _launch(entry: str, x, words, mode, layout, logical_k) -> torch.Tensor:
     kw = check_operands(entry, x, words, layout, logical_k)
     b, k = x.shape
     wb, _, n = words.shape
-    out = torch.zeros((b, n), dtype=torch.int32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = _fn(f"plane_{entry}_launch")(x.data_ptr(), words.data_ptr(),
-                                      out.data_ptr(), b, k, kw, n, wb,
-                                      int(layout == "dense"), stream)
+    dense = layout == "dense"
+    plan, arr = _plan_array(b, kw, n, wb, dense, devices.sm_count(x.device))
+    out = (torch.zeros if plan.n_split > 1 else torch.empty)(
+        (b, n), dtype=torch.int32, device=x.device)
+    fn = _fn(f"plane_{entry}_launch")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = fn(x.data_ptr(), words.data_ptr(), out.data_ptr(), b, k, kw, n,
+                wb, int(dense), arr, len(arr), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     return out

@@ -63,8 +63,10 @@ def majx_sense(charge: torch.Tensor, sense_offset: torch.Tensor,
         need(x.is_contiguous(), "tensors must be contiguous")
     f = np.float32
     out = torch.empty((t, c), dtype=torch.float32, device=charge.device)
-    stream = torch.cuda.current_stream(charge.device).cuda_stream
-    rc = _lib()(charge.data_ptr(), sense_offset.data_ptr(), noise.data_ptr(),
+    fn = _lib()
+    with torch.cuda.device(charge.device):
+        stream = torch.cuda.current_stream(charge.device).cuda_stream
+        rc = fn(charge.data_ptr(), sense_offset.data_ptr(), noise.data_ptr(),
                 out.data_ptr(), t, r, c,
                 float(f(params.c_cell_ff)),
                 float(f(NEUTRAL * params.c_bitline_ff)),

@@ -221,8 +221,12 @@ def test_placed_gemm_is_batch_invariant(gen, layout):
 
 @pytest.mark.parametrize("n", [77, 200, 2048])
 @pytest.mark.parametrize("k", [64, 100, 2048, 6144])
-@pytest.mark.parametrize("b", [1, 3, 8, 17, 128])
+@pytest.mark.parametrize("b", [1, 3, 8, 16, 17, 63, 64, 65, 128, 129])
 def test_plane_gemm_equals_plain(gen, b, k, n):
+    """Both sides of the dp4a / tensor-core threshold (17 rows) and of
+    the 64-row tensor-core tile, K splits, ragged N and K, both layouts,
+    on an aligned layer 0 and a layer 1 that starts unaligned when N is
+    not a multiple of 16 (the byte-staged path)."""
     w = torch.randint(-8, 8, (2, k, n), generator=gen, device="cuda",
                       dtype=torch.int32)
     # two stacked layers: layer 1 starts at an offset that is not 4-byte
@@ -261,6 +265,31 @@ def test_plane_gemm_equals_plain(gen, b, k, n):
     if b > 1:
         with pytest.raises(ValueError):
             plane_gemm.gemv(x, words[0], logical_k=k)
+
+
+@pytest.mark.parametrize("n", [200, 2048])
+@pytest.mark.parametrize("layout", ["bitpack8", "dense"])
+def test_plane_gemm_is_batch_invariant(gen, layout, n):
+    """The rows of a 128-row call (tensor cores) equal 17-row (tensor
+    cores), 4-row and 1-row calls (dp4a) on the same weights."""
+    k = 2048
+    w = torch.randint(-8, 8, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    planes = ref.pack_bitplanes(w, 4)
+    if layout == "bitpack8":
+        planes = ref.pack_plane_words(planes)
+    kw = dict(layout=layout, logical_k=k if layout == "bitpack8" else None)
+    x = torch.randint(-127, 128, (128, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    full = plane_gemm.gemm(x, planes, **kw)
+    assert torch.equal(full, (x.double() @ w.double()).to(torch.int32))
+    for rows in (17, 4):
+        for i in range(0, 128, rows):
+            assert torch.equal(plane_gemm.gemm(x[i:i + rows], planes, **kw),
+                               full[i:i + rows])
+    for i in range(128):
+        assert torch.equal(plane_gemm.gemv(x[i:i + 1], planes, **kw),
+                           full[i:i + 1])
 
 
 @pytest.mark.parametrize("b", [1, 4])
