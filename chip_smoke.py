@@ -7,7 +7,9 @@ Phases (any failure exits nonzero and prints no result line):
 
   1. print the card (``nvidia-smi --query-gpu=name,power.limit``);
   2. build ``src/repro_torch/csrc/*.cu`` with nvcc (one process per source,
-     in parallel) and print each kernel's register / spill report;
+     in parallel) and print each kernel's register / spill report (every
+     instance, the unplaced decode ones as ``plane_kernel<rows, WB,
+     dense>``, WB 0 taking it at run time);
   3. the main path at full width, through the serving entry point:
      qwen3-1.7b (28 layers, d 2048, d_ff 6144, vocab 151936, random weights
      from a seed) on a 1 x 1 x 16 x 65,536 subarray grid: calibration with
@@ -53,7 +55,9 @@ Phases (any failure exits nonzero and prints no result line):
      zero-padded to 32 rows where it has fewer; none for the sensing
      kernel); the dense layout as extra shapes of the GEMM rows; each
      GEMM/GEMV shape prints its launch plan (dp4a or tensor cores, grid, K
-     split, stage, shared memory), made for the card's SM count;
+     split, stage words, stages, shared memory; an unplaced dp4a row also
+     the WB its kernel instance is compiled for), made for the card's SM
+     count;
  13. print the ``kernels`` JSON line and, last, the device JSON line.
 
 It needs the port's sources beside it (``src/repro_torch``) and a GPU.
@@ -236,15 +240,18 @@ def placed_plan(pt, b: int) -> str:
 
 def unplaced_plan(pt, b: int) -> str:
     """The launch plan of an unplaced pack at B rows, as the wrapper makes
-    it."""
-    from repro_torch.kernels.plane_gemm import TILE_COLS, plan_launch
+    it; the dp4a path names the WB its kernel instance is compiled for."""
+    from repro_torch.kernels.plane_gemm import (TILE_COLS, instance_wb,
+                                                plan_launch)
     wb = pt.planes.shape[0]
     p = plan_launch(b, -(-pt.k // 8), pt.n, wb, pt.layout == "dense",
                     sms_of(pt))
-    path = "tensor cores" if p.tensor_cores else "dp4a"
+    path = "tensor cores" if p.tensor_cores else \
+        f"dp4a, instance WB {instance_wb(wb) or 'run time'}"
     return (f"{path}, {p.rows} rows x {TILE_COLS} columns per block, "
             f"grid {p.grid}, K split {p.n_split} x {p.split_words} words, "
-            f"{p.stage_words} words per stage, {p.smem_bytes} B shared")
+            f"{p.stage_words} words per stage, {p.stages} stages, "
+            f"{p.smem_bytes} B shared")
 
 
 def finite(*xs) -> bool:

@@ -11,53 +11,59 @@
 //                              - 2^(WB-1))
 // int8 activations x [B, K], uint8 words [WB, ceil(K/8), N] (eight K rows
 // per byte, LSB first), int32 out [B, N].  Columns are the logical ones, in
-// order: no gather map.  The dense layout, planes [WB, K, N] of one byte per
-// bit (int8 0/1, the reference's default), is a template parameter of the
-// load path only: the eight K rows of a word are read from the dense planes,
-// each byte masked to its low bit and shifted into the bit the packed word
-// would hold it in, so every operation after the load is the one the packed
-// path runs (nothing is repacked on the host or in a pass of its own).
-// Dense planes are 8x the bytes of words.
+// order: no gather map.  The dense layout, planes [WB, K, N] of one 0/1 byte
+// per bit (int8, the reference's default), is read by the same kernels
+// (nothing is repacked on the host or in a pass of its own).  Dense planes
+// are 8x the bytes of words.
 //
 // Bound on the H100: bytes at decode batch sizes (every weight byte feeds B
 // rows; at B <= 16 that is far below the card's ops-per-byte balance), and
 // the integer work at prefill batches, which the int8 tensor cores take.
 // Both paths share:
-//   * a block owns 128 contiguous output columns, so a warp reads whole
-//     128-byte lines of words (the placed kernel gathers);
-//   * K splits across blocks (gridDim.z) until about two blocks per SM are
-//     in flight; the partial sums meet in the output, which the wrapper
-//     zeroes, through int32 atomicAdd.  Integer addition is associative, so
-//     the result is exact and the same whatever order the blocks finish in.
-//     With one split the block stores its sums and nothing is zeroed;
-//   * the 4-bit offset-binary weights are rebuilt without a per-bit loop:
-//     (nibble * 0x00204081) & 0x01010101 spreads a byte's four bits into
-//     four bytes, the planes OR in at their shift, and one per-byte subtract
-//     of 2^(WB-1) (__vsub4) gives four signed int8 weights of one column and
-//     four consecutive K rows in one register.  The signed form is exact in
-//     int8 for WB <= 8, so the reference's separate `_sign_fix` pass over x
-//     is not needed.
-// Decode rows (B <= 16, `plane_kernel`): a lane owns four adjacent columns,
-// the block's 8 warps split its K words (word j to warp j % 8) and meet in
-// shared memory; x is staged 512 K at a time; __dp4a multiplies four int8
-// pairs per instruction.
-// Prefill rows (B >= 17, `plane_mma_kernel`): a block owns 64 or 128 x rows
-// and stages [WB, KC words, 128 columns] of weights and [rows, 8 KC] of x
-// per stage into a ring of kStages in shared memory with 16-byte cp.async;
-// each stage is unpacked once into a signed int8 tile (K-quad rows of 136
-// words: one column's four K values per 32-bit word, the K-contiguous
-// layout the `.col` B fragment reads, conflict-free for the 16-byte
-// unpack stores and the fragment loads) and multiplied with all of the
-// block's x rows by mma.sync.m16n8k32 s8 x s8 -> s32; the 8 warps sit as
-// 2 (rows) x 4 (columns).  So each weight is read and unpacked once per
+//   * a block owns 128 contiguous output columns and stages, per step of
+//     KC K words, [WB, rpw * KC, 128 columns] of weight rows (rpw = 8 dense
+//     rows per word, else 1) and [rows, 8 KC] of x into a ring of kStages
+//     in shared memory with 16-byte cp.async (issue_stage), so that three
+//     stages are in flight while one is computed;
+//   * K splits across blocks (gridDim.z), in whole stages, until about two
+//     blocks per SM are in flight; the partial sums meet in the output,
+//     which the wrapper zeroes, through int32 atomicAdd.  Integer addition
+//     is associative, so the result is exact and the same whatever order
+//     the blocks finish in.  With one split the block stores its sums and
+//     nothing is zeroed;
+//   * the offset-binary weights are rebuilt four K rows of one column to a
+//     32-bit word of signed int8, the layout __dp4a and the K-contiguous
+//     `.col` B fragment read.  The signed form is exact in int8 for
+//     WB <= 8, so the reference's separate `_sign_fix` pass over x is not
+//     needed.
+// Decode rows (B <= 16, `plane_kernel`): a lane owns four adjacent columns
+// and the block's 8 warps take a stage's units of work in turn (a K word,
+// or four dense K rows); their sums meet in shared memory at the end, and
+// __dp4a multiplies four int8 pairs per instruction.  The plane count is a
+// template parameter (instances for WB 4, every main-path pack, and 8; one
+// takes WB at run time), so only real planes are read and the offset folds
+// to a constant.  Rebuild, with no per-bit loop: the dense rows of four
+// columns add up over the planes at their shift (0/1 bytes, no carry) and
+// a 4 x 4 byte transpose (__byte_perm) gives each column its four K rows;
+// bit-packed words gather per column into an 8 x 8 bit matrix by the same
+// byte transpose and three delta swaps transpose it.  to_signed then takes
+// 2^(WB-1) off every byte in two instructions.
+// Prefill rows (B >= 17, `plane_mma_kernel`): a block owns 64 or 128 x rows;
+// each stage is unpacked once into a signed int8 tile (the nibble spread
+// (nibble * 0x00204081) & 0x01010101 per plane, a per-byte __vsub4; K-quad
+// rows of 136 words: one column's four K values per 32-bit word, the
+// K-contiguous layout the `.col` B fragment reads, conflict-free for the
+// 16-byte unpack stores and the fragment loads) and multiplied with all of
+// the block's x rows by mma.sync.m16n8k32 s8 x s8 -> s32; the 8 warps sit
+// as 2 (rows) x 4 (columns).  So each weight is read and unpacked once per
 // block, not once per 16 rows.
 // Both mask a ragged batch, a K that is not a multiple of 8 and a ragged N
 // inside the kernel (zero-filled x rows and weight columns); nothing is
-// padded on the host.  Alignment rule of the prefill path: weight rows load
-// as 16-byte cp.async when N % 16 == 0 and the words start 16-byte aligned
-// (then every 16-column granule is wholly inside or wholly past N), and x
-// rows when K % 16 == 0 and x is 16-byte aligned; otherwise that operand is
-// staged byte by byte (masked, synchronous) in the same kernel.
+// padded on the host.  Alignment rule: weight rows load as 16-byte cp.async
+// when N % 16 == 0 and the words start 16-byte aligned (then every
+// 16-column granule is wholly inside or wholly past N), and x rows when
+// K % 16 == 0 and x is 16-byte aligned; otherwise that operand is staged
+// byte by byte (masked, synchronous) in the same kernel.
 // The plan (path, rows, stage words, K split, shared memory, grid) is made
 // on the host by kernels/plane_gemm.py `plan_launch` from the shapes and
 // the device's SM count, and passed in; this file only checks it.  mode
@@ -72,9 +78,8 @@ constexpr int kThreads = 256;
 constexpr int kLanes = 32;
 constexpr int kColsPerLane = 4;
 constexpr int kTileCols = kLanes * kColsPerLane;   // output columns per block
-constexpr int kWarps = kThreads / kLanes;          // K-split ways (dp4a)
-constexpr int kChunkWords = 64;                    // dp4a: K words per pass
-constexpr int kStages = 4;                         // tensor cores: ring depth
+constexpr int kWarps = kThreads / kLanes;          // dp4a: ways a stage splits
+constexpr int kStages = 4;                         // ring depth (both paths)
 constexpr int kPad = 16;          // bytes past 8 * stage words in an x row
 constexpr int kWtStride = kTileCols + 8;   // 32-bit words per int8-tile row
 constexpr int kMaxSmem = 232448;
@@ -121,116 +126,68 @@ __device__ __forceinline__ void put(int32_t* out, int64_t i, int v,
   else out[i] = v;
 }
 
-// ---------------------------------------------------------------- decode --
-
-// Four adjacent bytes at p; byte by byte (masked at `left` columns) unless
-// Vec, where they load as one aligned uint32.
-template <bool Vec>
-__device__ __forceinline__ uint32_t ld4(const uint8_t* p, int left) {
-  if (Vec) return __ldg(reinterpret_cast<const uint32_t*>(p));
-  uint32_t v = 0;
-#pragma unroll
-  for (int c = 0; c < kColsPerLane; ++c)
-    if (c < left) v |= (uint32_t)__ldg(p + c) << (8 * c);
-  return v;
+// Offset-binary bytes v (each below 2^WB) to signed int8 bytes
+// v - 2^(WB-1): adding 128 - 2^(WB-1) keeps every byte below 256 (no
+// carry into the next), and the XOR with 0x80 takes 128 back off in two's
+// complement.
+__device__ __forceinline__ uint32_t to_signed(uint32_t v, int wb) {
+  return (v + (128u - (1u << (wb - 1))) * 0x01010101u) ^ 0x80808080u;
 }
 
-// K word kw of four adjacent columns n0.. of one plane: byte c holds rows
-// 8 kw .. 8 kw + 7 of column n0 + c, LSB first.  Packed: the stored word.
-// Dense: eight rows of 0/1 bytes, rows at or past K read as zero.
-template <bool Vec, bool Dense>
-__device__ __forceinline__ uint32_t load_word4(const uint8_t* plane, int kw,
-                                               int K, int N, int n0) {
-  if (!Dense) return ld4<Vec>(plane + (int64_t)kw * N + n0, N - n0);
-  uint32_t w = 0;
-#pragma unroll
-  for (int jj = 0; jj < 8; ++jj) {
-    const int k = kw * 8 + jj;
-    if (k < K)
-      w |= (ld4<Vec>(plane + (int64_t)k * N + n0, N - n0) & 0x01010101u)
-           << jj;
-  }
-  return w;
+// 4 x 4 byte transpose: byte i of the new r[c] is byte c of the old r[i]
+// (rows of four columns in, columns of four rows out).
+__device__ __forceinline__ void transpose4(uint32_t (&r)[4]) {
+  const uint32_t t0 = __byte_perm(r[0], r[1], 0x5140);
+  const uint32_t t1 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t t2 = __byte_perm(r[2], r[3], 0x5140);
+  const uint32_t t3 = __byte_perm(r[2], r[3], 0x7362);
+  r[0] = __byte_perm(t0, t2, 0x5410);
+  r[1] = __byte_perm(t0, t2, 0x7632);
+  r[2] = __byte_perm(t1, t3, 0x5410);
+  r[3] = __byte_perm(t1, t3, 0x7632);
 }
 
-// Vec: the four words of a lane load as one aligned uint32 (N % 4 == 0 and
-// an aligned base); otherwise byte by byte, masked at N.  Dense: the planes
-// are [WB, K, N] bytes instead of [WB, Kw, N] words.
-template <int BT, bool Vec, bool Dense>
-__global__ void __launch_bounds__(kThreads)
-plane_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ words,
-             int32_t* __restrict__ out, int B, int K, int Kw, int N, int WB,
-             int split_words, bool atomic) {
-  __shared__ __align__(16) int8_t xs[BT][kChunkWords * 8];
-  __shared__ __align__(16) int32_t red[kWarps][kTileCols];
 
-  const int lane = threadIdx.x % kLanes;
-  const int warp = threadIdx.x / kLanes;
-  const int n0 = blockIdx.x * kTileCols + lane * kColsPerLane;
-  const int b0 = blockIdx.y * BT;
-  const int kw_begin = blockIdx.z * split_words;
-  const int kw_end = min(Kw, kw_begin + split_words);
-  const int64_t plane_stride = (int64_t)(Dense ? K : Kw) * N;
+// Delta swap: exchanges the bits of x under m with those k places up.
+__device__ __forceinline__ uint32_t swap_bits(uint32_t x, int k, uint32_t m) {
+  const uint32_t t = (x ^ (x >> k)) & m;
+  return x ^ t ^ (t << k);
+}
 
-  int acc[BT][kColsPerLane];
+// The bit-packed decode rebuild: raw[p] holds word kw of plane p for four
+// adjacent columns (byte c: column c, bit i: K row 8 kw + i).  A byte
+// transpose gathers each column's plane bytes into an 8 x 8 bit matrix
+// (byte p: plane p, in l for planes 0-3 and h for 4-7); three delta swaps
+// transpose it (Hacker's Delight 7-3), which puts K row i in byte i with
+// plane p at bit p: the offset-binary weight, made signed by to_signed.
+// lo[c]: rows 8 kw .. 8 kw + 3 of column c, hi[c]: rows + 4 .. + 7.  kP
+// planes are read (planes past WB are zero); with kP <= 4 the upper half
+// is zero and its swaps fold away.
+template <int kP>
+__device__ __forceinline__ void rebuild_t(const uint32_t (&raw)[8], int WB,
+                                          uint32_t (&lo)[kColsPerLane],
+                                          uint32_t (&hi)[kColsPerLane]) {
+  uint32_t l[4] = {raw[0], raw[1], raw[2], raw[3]};
+  uint32_t h[4] = {0u, 0u, 0u, 0u};
+  transpose4(l);
+  if (kP > 4) {
 #pragma unroll
-  for (int r = 0; r < BT; ++r)
-#pragma unroll
-    for (int c = 0; c < kColsPerLane; ++c) acc[r][c] = 0;
-
-  for (int kw0 = kw_begin; kw0 < kw_end; kw0 += kChunkWords) {
-    for (int i = threadIdx.x; i < BT * kChunkWords * 8; i += blockDim.x) {
-      const int r = i / (kChunkWords * 8);
-      const int kk = i - r * (kChunkWords * 8);
-      const int b = b0 + r;
-      const int k = kw0 * 8 + kk;
-      xs[r][kk] = (b < B && k < K) ? x[(int64_t)b * K + k] : (int8_t)0;
-    }
-    __syncthreads();
-    const int n_words = min(kChunkWords, kw_end - kw0);
-    if (n0 < N) {
-      for (int j = warp; j < n_words; j += kWarps) {
-        uint32_t raw[8];
-#pragma unroll
-        for (int p = 0; p < 8; ++p)
-          raw[p] = p < WB ? load_word4<Vec, Dense>(words + p * plane_stride,
-                                                   kw0 + j, K, N, n0)
-                          : 0u;
-        uint32_t w_lo[kColsPerLane], w_hi[kColsPerLane];
-        rebuild4(raw, WB, w_lo, w_hi);
-#pragma unroll
-        for (int r = 0; r < BT; ++r) {
-          const int2 xv = *reinterpret_cast<const int2*>(&xs[r][j * 8]);
-#pragma unroll
-          for (int c = 0; c < kColsPerLane; ++c) {
-            acc[r][c] = __dp4a(xv.x, (int)w_lo[c], acc[r][c]);
-            acc[r][c] = __dp4a(xv.y, (int)w_hi[c], acc[r][c]);
-          }
-        }
-      }
-    }
-    __syncthreads();
+    for (int p = 0; p < 4; ++p) h[p] = raw[4 + p];
+    transpose4(h);
   }
-
-  // One batch row at a time through shared memory (all BT rows at once
-  // would need 64 KB at BT = 16).
-  const int n = blockIdx.x * kTileCols + threadIdx.x;
 #pragma unroll
-  for (int r = 0; r < BT; ++r) {
-    *reinterpret_cast<int4*>(&red[warp][lane * kColsPerLane]) =
-        make_int4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-    __syncthreads();
-    if (threadIdx.x < kTileCols && n < N && b0 + r < B) {
-      int sum = 0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) sum += red[w][threadIdx.x];
-      put(out, (int64_t)(b0 + r) * N + n, sum, atomic);
-    }
-    __syncthreads();
+  for (int c = 0; c < kColsPerLane; ++c) {
+    uint32_t a = swap_bits(swap_bits(l[c], 7, 0x00AA00AAu), 14, 0x0000CCCCu);
+    uint32_t b = 0;
+    if (kP > 4)
+      b = swap_bits(swap_bits(h[c], 7, 0x00AA00AAu), 14, 0x0000CCCCu);
+    const uint32_t t = (a ^ (b << 4)) & 0xF0F0F0F0u;
+    lo[c] = to_signed(a ^ t, WB);
+    hi[c] = to_signed(b ^ (t >> 4), WB);
   }
 }
 
-// --------------------------------------------------------------- prefill --
+// --------------------------------------------------------------- staging --
 
 __device__ __forceinline__ void cp16(void* smem, const void* gmem,
                                      int src_bytes) {
@@ -244,15 +201,6 @@ __device__ __forceinline__ void cp_commit() {
 template <int N>
 __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One ring stage: weight rows [WB][rpw * KC][128 columns] (rpw = 8 dense
@@ -320,6 +268,143 @@ __device__ __forceinline__ void issue_stage(const Geom& G, const Plan& P,
           (b < G.B && k < G.K) ? x[(int64_t)b * G.K + k] : (int8_t)0;
     }
   }
+}
+
+// ---------------------------------------------------------------- decode --
+
+// The uint32 at column quad `lane` (four adjacent columns) of staged row q.
+__device__ __forceinline__ uint32_t lds4(const uint8_t* slot, int q,
+                                         int lane) {
+  return *reinterpret_cast<const uint32_t*>(slot + q * kTileCols + 4 * lane);
+}
+
+// BT x rows by 128 columns (four adjacent ones a lane) over one K split;
+// weight rows and x rows run through the ring of kStages stages that the
+// prefill path uses (issue_stage).  A stage's units of work, a K word of
+// the bit-packed layout or four K rows of the dense one, go to the 8 warps
+// in turn; the warps' partial sums meet in shared memory at the end.
+// WBc: the plane count compiled in, 0 for WB at run time.
+template <int BT, int WBc, bool Dense>
+__global__ void __launch_bounds__(kThreads)
+plane_kernel(const int8_t* __restrict__ x, const uint8_t* __restrict__ words,
+             int32_t* __restrict__ out, Geom G, Plan P) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int kP = WBc ? WBc : 8;   // planes unrolled
+  const int WB = WBc ? WBc : G.WB;
+  const int KC = P.stage_words;
+  const int n0 = blockIdx.x * kTileCols;
+  const int b0 = blockIdx.y * BT;
+  const int kw_begin = blockIdx.z * P.split_words;
+  const int kw_end = min(G.Kw, kw_begin + P.split_words);
+  const int n_stages = (kw_end - kw_begin + KC - 1) / KC;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+
+  int acc[BT][kColsPerLane];
+#pragma unroll
+  for (int r = 0; r < BT; ++r)
+#pragma unroll
+    for (int c = 0; c < kColsPerLane; ++c) acc[r][c] = 0;
+
+#pragma unroll 1
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_stages)
+      issue_stage<Dense>(G, P, smem + s * P.stage_bytes, words, x,
+                         kw_begin + s * KC, b0, n0);
+    cp_commit();
+  }
+#pragma unroll 1
+  for (int s = 0; s < n_stages; ++s) {
+    cp_wait<kStages - 2>();
+    __syncthreads();
+    const int nxt = s + kStages - 1;
+    if (nxt < n_stages)
+      issue_stage<Dense>(G, P, smem + (nxt % kStages) * P.stage_bytes, words,
+                         x, kw_begin + nxt * KC, b0, n0);
+    cp_commit();
+    const uint8_t* slot = smem + (s % kStages) * P.stage_bytes;
+    const int8_t* xs = (const int8_t*)(slot + P.w_stage);
+    const int units = (Dense ? 2 : 1) * min(KC, kw_end - kw_begin - s * KC);
+#pragma unroll 1
+    for (int u = warp; u < units; u += kWarps) {
+      if (Dense) {
+        // Rows 4u .. 4u + 3 of the stage: each row's four columns with the
+        // planes added in at their shift (0/1 bytes: no carry), then a
+        // byte transpose gives each column its four K rows.
+        uint32_t v[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          v[i] = 0;
+#pragma unroll
+          for (int p = 0; p < kP; ++p)
+            if (WBc || p < WB)
+              v[i] += lds4(slot, p * 8 * KC + 4 * u + i, lane) << p;
+        }
+        transpose4(v);
+        uint32_t w[kColsPerLane];
+#pragma unroll
+        for (int c = 0; c < kColsPerLane; ++c) w[c] = to_signed(v[c], WB);
+#pragma unroll
+        for (int r = 0; r < BT; ++r) {
+          const int xv =
+              *reinterpret_cast<const int*>(xs + r * P.x_row + 4 * u);
+#pragma unroll
+          for (int c = 0; c < kColsPerLane; ++c)
+            acc[r][c] = __dp4a(xv, (int)w[c], acc[r][c]);
+        }
+      } else {
+        // K word u of the stage, rows 8u .. 8u + 7.
+        uint32_t raw[8];
+#pragma unroll
+        for (int p = 0; p < 8; ++p)
+          raw[p] = p < kP && (WBc || p < WB) ? lds4(slot, p * KC + u, lane)
+                                             : 0u;
+        uint32_t lo[kColsPerLane], hi[kColsPerLane];
+        rebuild_t<kP>(raw, WB, lo, hi);
+#pragma unroll
+        for (int r = 0; r < BT; ++r) {
+          const int2 xv =
+              *reinterpret_cast<const int2*>(xs + r * P.x_row + 8 * u);
+#pragma unroll
+          for (int c = 0; c < kColsPerLane; ++c) {
+            acc[r][c] = __dp4a(xv.x, (int)lo[c], acc[r][c]);
+            acc[r][c] = __dp4a(xv.y, (int)hi[c], acc[r][c]);
+          }
+        }
+      }
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // One batch row at a time through the ring's memory: [kWarps][128].
+  int* red = reinterpret_cast<int*>(smem);
+  const bool atomic = P.n_split > 1;
+  const int n = n0 + threadIdx.x;
+#pragma unroll
+  for (int r = 0; r < BT; ++r) {
+    *reinterpret_cast<int4*>(red + warp * kTileCols + lane * kColsPerLane) =
+        make_int4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    __syncthreads();
+    if (threadIdx.x < kTileCols && n < G.N && b0 + r < G.B) {
+      int sum = 0;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) sum += red[w * kTileCols + threadIdx.x];
+      put(out, (int64_t)(b0 + r) * G.N + n, sum, atomic);
+    }
+    __syncthreads();
+  }
+}
+
+// --------------------------------------------------------------- prefill --
+
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Unpack a stage once into the signed int8 tile wt: row kq (K rows
@@ -449,8 +534,8 @@ plane_mma_kernel(const int8_t* __restrict__ x,
 // ---------------------------------------------------------------- launch --
 
 template <typename Kern>
-int run_mma(Kern kernel, const Plan& P, const Geom& G, const void* x,
-            const void* words, void* out, cudaStream_t s) {
+int run(Kern kernel, const Plan& P, const Geom& G, const void* x,
+        const void* words, void* out, cudaStream_t s) {
   if (P.smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P.smem_bytes);
@@ -461,20 +546,16 @@ int run_mma(Kern kernel, const Plan& P, const Geom& G, const void* x,
   return (int)cudaGetLastError();
 }
 
+// The compiled plane counts: 4 (every main-path pack) and 8; any other WB
+// runs the run-time instance.
 template <int BT, bool Dense>
-int run_dp4a(const Plan& P, const Geom& G, bool vec, const void* x,
-             const void* words, void* out, cudaStream_t s) {
-  const dim3 grid(P.grid_x, P.grid_y, P.grid_z);
-  const bool atomic = P.n_split > 1;
-  if (vec)
-    plane_kernel<BT, true, Dense><<<grid, kThreads, 0, s>>>(
-        (const int8_t*)x, (const uint8_t*)words, (int32_t*)out, G.B, G.K,
-        G.Kw, G.N, G.WB, P.split_words, atomic);
-  else
-    plane_kernel<BT, false, Dense><<<grid, kThreads, 0, s>>>(
-        (const int8_t*)x, (const uint8_t*)words, (int32_t*)out, G.B, G.K,
-        G.Kw, G.N, G.WB, P.split_words, atomic);
-  return (int)cudaGetLastError();
+int run_dp4a(const Plan& P, const Geom& G, const void* x, const void* words,
+             void* out, cudaStream_t s) {
+  switch (G.WB) {
+    case 4: return run(plane_kernel<BT, 4, Dense>, P, G, x, words, out, s);
+    case 8: return run(plane_kernel<BT, 8, Dense>, P, G, x, words, out, s);
+    default: return run(plane_kernel<BT, 0, Dense>, P, G, x, words, out, s);
+  }
 }
 
 template <bool Dense>
@@ -482,38 +563,36 @@ int dispatch(const Plan& P, const Geom& G, const void* x, const void* words,
              void* out, cudaStream_t s) {
   if (P.tensor_cores) {
     if (P.rows == 64)
-      return run_mma(plane_mma_kernel<2, Dense>, P, G, x, words, out, s);
-    return run_mma(plane_mma_kernel<4, Dense>, P, G, x, words, out, s);
+      return run(plane_mma_kernel<2, Dense>, P, G, x, words, out, s);
+    return run(plane_mma_kernel<4, Dense>, P, G, x, words, out, s);
   }
-  // dp4a: four adjacent columns load as one uint32 (N % 4 == 0 and an
-  // aligned base), else byte by byte.
-  const bool vec = (G.N % 4 == 0) && ((uintptr_t)words % 4 == 0);
   switch (P.rows) {
-    case 1: return run_dp4a<1, Dense>(P, G, vec, x, words, out, s);
-    case 4: return run_dp4a<4, Dense>(P, G, vec, x, words, out, s);
-    default: return run_dp4a<16, Dense>(P, G, vec, x, words, out, s);
+    case 1: return run_dp4a<1, Dense>(P, G, x, words, out, s);
+    case 4: return run_dp4a<4, Dense>(P, G, x, words, out, s);
+    default: return run_dp4a<16, Dense>(P, G, x, words, out, s);
   }
 }
 
 // The plan's invariants that the kernels rely on.
 bool plan_ok(const Plan& P, const Geom& G, int dense) {
   const int KC = P.stage_words;
+  const int rpw = dense ? 8 : 1;
   const bool common =
-      P.split_words >= KC && KC >= 1 && P.split_words % KC == 0 &&
+      P.split_words >= KC && P.split_words % KC == 0 &&
       P.n_split == (G.Kw + P.split_words - 1) / P.split_words &&
       P.grid_x == (G.N + kTileCols - 1) / kTileCols &&
-      P.grid_y == (G.B + P.rows - 1) / P.rows && P.grid_z == P.n_split;
+      P.grid_y == (G.B + P.rows - 1) / P.rows && P.grid_z == P.n_split &&
+      (KC == 4 || KC == 8 || KC == 16 || KC == 32) && P.stages == kStages &&
+      P.x_row == 8 * KC + kPad && P.w_stage == G.WB * rpw * KC * kTileCols &&
+      P.stage_bytes == P.w_stage + P.rows * P.x_row &&
+      P.smem_bytes <= kMaxSmem;
   if (!P.tensor_cores)
     return common && (P.rows == 1 || P.rows == 4 || P.rows == 16) &&
-           KC == kChunkWords;
-  const int rpw = dense ? 8 : 1;
-  return common && (P.rows == 64 || P.rows == 128) &&
-         (KC == 4 || KC == 8 || KC == 16) && P.stages == kStages &&
-         P.x_row == 8 * KC + kPad &&
-         P.w_stage == G.WB * rpw * KC * kTileCols &&
-         P.stage_bytes == P.w_stage + P.rows * P.x_row &&
-         P.smem_bytes >= kStages * P.stage_bytes + 2 * KC * kWtStride * 4 &&
-         P.smem_bytes <= kMaxSmem;
+           (dense ? 2 : 1) * KC >= kWarps &&
+           P.smem_bytes >= kStages * P.stage_bytes &&
+           P.smem_bytes >= kWarps * kTileCols * 4;
+  return common && (P.rows == 64 || P.rows == 128) && KC <= 16 &&
+         P.smem_bytes >= kStages * P.stage_bytes + 2 * KC * kWtStride * 4;
 }
 
 int launch(const void* x, const void* words, void* out, int B, int K, int Kw,

@@ -16,13 +16,16 @@ version.  ``mode`` ("planes" or "folded") selects an execution schedule in
 the reference; both give the same integers, so it is validated and
 otherwise ignored.
 
-Decode rows (B <= 16) run ``__dp4a`` on CUDA cores; from
-``TC_MIN_ROWS`` = 17 rows (prefill) the int8 tensor cores run, on a weight
-tile staged with 16-byte ``cp.async`` and unpacked once per block.
-``plan_launch`` makes every choice of a launch on the host from the shapes
-and the device's SM count (path, rows per block, stage words, K split,
-shared memory, grid); the kernel only checks it, so the CPU tests reach
-the plan.  Every launch runs with its tensors' device current.
+Decode rows (B <= 16) run ``__dp4a`` on CUDA cores, in a kernel instance
+compiled for the pack's plane count (``INSTANCE_WB``; any other runs the
+instance that takes it at run time); from ``TC_MIN_ROWS`` = 17 rows
+(prefill) the int8 tensor cores run.  Both stage the weight rows and x
+through a ring in shared memory with 16-byte ``cp.async`` and split K
+across blocks in whole stages.  ``plan_launch`` makes every choice of a
+launch on the host from the shapes and the device's SM count (path, rows
+per block, stage words, K split, shared memory, grid); the kernel only
+checks it, so the CPU tests reach the plan.  Every launch runs with its
+tensors' device current.
 """
 from __future__ import annotations
 
@@ -43,15 +46,27 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 TILE_COLS = 128           # output columns per block (both paths)
-CHUNK_WORDS = 64          # dp4a: K words of x staged per pass
 DP4A_ROWS = (1, 4, 16)    # batch rows per dp4a block
 TC_ROWS = (64, 128)       # batch rows per tensor-core block
 STAGE_WORDS = (16, 8, 4)  # tensor cores: K words per stage, first choice first
-STAGES = 4                # tensor cores: shared-memory ring depth
+#: dp4a: K words per stage, first choice first, by layout (dense or not).
+#: A stage gives each of the 8 warps at least one unit of work: a K word
+#: (bit-packed) or four K rows (dense).
+DP4A_WORDS = {False: (32, 16, 8), True: (8, 4)}
+WARPS = 8                 # warps per block
+STAGES = 4                # shared-memory ring depth (both paths)
 PAD = 16                  # bytes past 8 * stage words in an x row
 WT_STRIDE = TILE_COLS + 8  # 32-bit words per row of the unpacked int8 tile
 RING_BUDGET = 112 * 1024  # shared bytes per block that keep two per SM
 SMEM_MAX = 232_448        # shared bytes one block may use
+INSTANCE_WB = (4, 8)      # dp4a: plane counts compiled in; others at run time
+
+
+def instance_wb(wb: int) -> int:
+    """The plane count the dp4a kernel instance that runs ``wb`` planes is
+    compiled for: ``wb`` itself if it is one of ``INSTANCE_WB``, else 0,
+    the instance that takes WB at run time."""
+    return wb if wb in INSTANCE_WB else 0
 
 
 def plane_plain(x: torch.Tensor, planes: torch.Tensor, mode: str = "folded",
@@ -74,8 +89,8 @@ class Plan:
 
     ``tensor_cores``: the int8 MMA path (prefill rows), else ``__dp4a``.
     ``rows`` batch rows per block (every block owns ``TILE_COLS`` columns);
-    ``stage_words`` K words per stage (the dp4a path stages x only,
-    ``CHUNK_WORDS`` at a time), ``stages`` in the ring; ``split_words`` K
+    ``stage_words`` K words per stage, ``stages`` in the ring (both paths
+    stage weight rows and x rows); ``split_words`` K
     words per block along gridDim.z (``n_split`` splits, partial sums added
     into a zeroed output when there is more than one); ``x_row`` shared
     bytes per staged x row; ``w_stage`` and ``stage_bytes`` the weight rows
@@ -110,24 +125,23 @@ def plan_launch(b: int, kw: int, n: int, wb: int, dense: bool,
 
     ``b`` batch rows, ``kw`` = ceil(K / 8) K words, ``n`` columns, ``wb``
     planes, ``sms`` the device's SM count.  Below ``TC_MIN_ROWS`` rows the
-    dp4a path takes tiles of 1, 4 or 16 rows and stages x ``CHUNK_WORDS``
-    words at a time; from there the tensor-core path takes 64 or 128 rows.
-    Its ring of ``STAGES`` fits ``RING_BUDGET`` (two blocks per SM) at the
-    first of ``STAGE_WORDS`` that does, else the smallest stage.  K splits,
-    in whole stages, until about ``2 * sms`` blocks are in flight; of the
+    dp4a path takes tiles of 1, 4 or 16 rows and stages of
+    ``DP4A_WORDS``; from there the tensor-core path takes 64 or 128 rows
+    and stages of ``STAGE_WORDS``.  Both stage weight rows and x rows
+    through a ring of ``STAGES``, which fits ``RING_BUDGET`` (two blocks per
+    SM) at the first stage size that does, else the smallest.  K splits, in
+    whole stages, until about ``2 * sms`` blocks are in flight; of the
     stage sizes that fit, the largest that still reaches that many blocks
     wins.
     """
     tiles_n = _cdiv(n, TILE_COLS)
-    if b < TC_MIN_ROWS:
+    tc = b >= TC_MIN_ROWS
+    if tc:
+        rows = TC_ROWS[0] if b <= TC_ROWS[0] else TC_ROWS[1]
+        words = STAGE_WORDS
+    else:
         rows = next(r for r in DP4A_ROWS if r >= b)
-        tiles = tiles_n * _cdiv(b, rows)
-        _, split_words, n_split = split_k(kw, [CHUNK_WORDS], tiles, sms)
-        x_row = 8 * CHUNK_WORDS
-        return Plan(False, rows, CHUNK_WORDS, 1, split_words, n_split, x_row,
-                    0, rows * x_row, rows * x_row + 8 * TILE_COLS * 4,
-                    (tiles_n, _cdiv(b, rows), n_split))
-    rows = TC_ROWS[0] if b <= TC_ROWS[0] else TC_ROWS[1]
+        words = DP4A_WORDS[dense]
     rpw = 8 if dense else 1
     tiles = tiles_n * _cdiv(b, rows)
 
@@ -135,14 +149,17 @@ def plan_launch(b: int, kw: int, n: int, wb: int, dense: bool,
         x_row = 8 * kc + PAD
         w_stage = wb * rpw * kc * TILE_COLS
         stage = w_stage + rows * x_row
-        return x_row, w_stage, stage, STAGES * stage + 2 * kc * WT_STRIDE * 4
+        # tensor cores: the unpacked int8 tile; dp4a: the warps' partial
+        # sums of one row, [WARPS, TILE_COLS] int32, in the ring's memory
+        total = (STAGES * stage + 2 * kc * WT_STRIDE * 4 if tc else
+                 max(STAGES * stage, WARPS * TILE_COLS * 4))
+        return x_row, w_stage, stage, total
 
-    fit = [kc for kc in STAGE_WORDS if smem(kc)[-1] <= RING_BUDGET]
-    kc, split_words, n_split = split_k(kw, fit or STAGE_WORDS[-1:], tiles,
-                                       sms)
+    fit = [kc for kc in words if smem(kc)[-1] <= RING_BUDGET]
+    kc, split_words, n_split = split_k(kw, fit or words[-1:], tiles, sms)
     x_row, w_stage, stage, total = smem(kc)
-    return Plan(True, rows, kc, STAGES, split_words, n_split, x_row,
-                w_stage, stage, total, (tiles_n, _cdiv(b, rows), n_split))
+    return Plan(tc, rows, kc, STAGES, split_words, n_split, x_row, w_stage,
+                stage, total, (tiles_n, _cdiv(b, rows), n_split))
 
 
 @functools.lru_cache(maxsize=512)

@@ -267,15 +267,49 @@ def test_plane_gemm_equals_plain(gen, b, k, n):
             plane_gemm.gemv(x, words[0], logical_k=k)
 
 
+@pytest.mark.parametrize("kn", [(100, 77), (2048, 200), (6144, 2048)])
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("wb", [1, 3, 4, 8])
+def test_plane_gemm_plane_counts_equal_plain(gen, wb, b, kn):
+    """Every dp4a kernel instance: the compiled plane counts (WB 4 and 8)
+    and the one that takes WB at run time (WB 1 and 3), at each row tile,
+    both layouts, on an aligned layer 0 and a layer 1 that starts
+    unaligned when N is odd (the byte-staged path)."""
+    k, n = kn
+    half = 1 << (wb - 1)
+    w = torch.randint(-half, half, (2, k, n), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    dense = torch.stack([ref.pack_bitplanes(w[i], wb) for i in range(2)])
+    words = torch.stack([ref.pack_plane_words(dense[i]) for i in range(2)])
+    x = torch.randint(-127, 128, (b, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    for layer in range(2):
+        want = (x.double() @ w[layer].double()).to(torch.int32)
+        for layout, planes, lk in (("bitpack8", words[layer], k),
+                                   ("dense", dense[layer], None)):
+            kw = dict(layout=layout, logical_k=lk)
+            assert torch.equal(plane_gemm.plane_plain(x, planes, **kw), want)
+            n0 = plane_gemm.gemm.launches
+            assert torch.equal(plane_gemm.gemm(x, planes, **kw), want)
+            assert plane_gemm.gemm.launches == n0 + 1
+            if b == 1:
+                v0 = plane_gemm.gemv.launches
+                assert torch.equal(plane_gemm.gemv(x, planes, **kw), want)
+                assert plane_gemm.gemv.launches == v0 + 1
+
+
+@pytest.mark.parametrize("wb", [3, 4, 8])
 @pytest.mark.parametrize("n", [200, 2048])
 @pytest.mark.parametrize("layout", ["bitpack8", "dense"])
-def test_plane_gemm_is_batch_invariant(gen, layout, n):
+def test_plane_gemm_is_batch_invariant(gen, layout, n, wb):
     """The rows of a 128-row call (tensor cores) equal 17-row (tensor
-    cores), 4-row and 1-row calls (dp4a) on the same weights."""
+    cores), 4-row and 1-row calls (dp4a) on the same weights, for a
+    compiled plane count and the run-time one."""
     k = 2048
-    w = torch.randint(-8, 8, (k, n), generator=gen, device="cuda",
+    half = 1 << (wb - 1)
+    w = torch.randint(-half, half, (k, n), generator=gen, device="cuda",
                       dtype=torch.int32)
-    planes = ref.pack_bitplanes(w, 4)
+    planes = ref.pack_bitplanes(w, wb)
     if layout == "bitpack8":
         planes = ref.pack_plane_words(planes)
     kw = dict(layout=layout, logical_k=k if layout == "bitpack8" else None)

@@ -135,56 +135,63 @@ def test_plane_plan_covers_its_operands(b, kn, dense):
     assert spans[0][0] == 0 and spans[-1][1] == kw
     assert all(lo < hi for lo, hi in spans)
     assert all(a[1] == c[0] for a, c in zip(spans, spans[1:]))
+    assert p.stages == plane_gemm.STAGES
+    assert p.x_row == 8 * p.stage_words + plane_gemm.PAD
+    assert p.x_row % 16 == 0
+    assert p.w_stage == WB * (8 if dense else 1) * p.stage_words * 128
+    assert p.stage_bytes == p.w_stage + p.rows * p.x_row
     if p.tensor_cores:
         assert p.rows in plane_gemm.TC_ROWS and p.rows >= min(b, 64)
         assert p.stage_words in plane_gemm.STAGE_WORDS
-        assert p.stages == plane_gemm.STAGES
-        assert p.x_row == 8 * p.stage_words + plane_gemm.PAD
-        assert p.x_row % 16 == 0
-        assert p.w_stage == WB * (8 if dense else 1) * p.stage_words * 128
-        assert p.stage_bytes == p.w_stage + p.rows * p.x_row
         wt = 2 * p.stage_words * plane_gemm.WT_STRIDE * 4
         assert p.stages * p.stage_bytes + wt <= p.smem_bytes \
             <= plane_gemm.SMEM_MAX
     else:
         assert p.rows in plane_gemm.DP4A_ROWS and p.rows >= b
-        assert p.stage_words == plane_gemm.CHUNK_WORDS
-
-
-def _c_rule(b, kw, n, sms, gemv):
-    """The dp4a launch rule the C side applied before the plan moved to
-    the host: tiles of 1 (GEMV), 4 (B <= 4) or 16 rows and 128 columns;
-    K split in chunks of 64 words until about two blocks per SM."""
-    bt = 1 if gemv else (4 if b <= 4 else 16)
-    tiles_n = (n + 127) // 128
-    tiles_b = (b + bt - 1) // bt
-    chunks = (kw + 63) // 64
-    tiles = tiles_n * tiles_b
-    want = (2 * sms + tiles - 1) // tiles
-    split = want if want < chunks else chunks
-    split = 1 if split < 1 else split
-    split_words = ((chunks + split - 1) // split) * 64
-    n_split = (kw + split_words - 1) // split_words
-    return bt, split_words, n_split, (tiles_n, tiles_b, n_split)
+        assert p.stage_words in plane_gemm.DP4A_WORDS[dense]
+        assert p.stages * p.stage_bytes <= p.smem_bytes <= plane_gemm.SMEM_MAX
 
 
 @pytest.mark.parametrize("dense", [False, True])
 @pytest.mark.parametrize("kn", PLAN_KN)
 @pytest.mark.parametrize("b", [1, 2, 3, 4, 5, 8, 15, 16])
-def test_decode_plan_reproduces_the_c_rule(b, kn, dense):
-    """At 132 SMs, B <= 16 keeps the rule the C side used: the same rows
-    per block (B = 1 as the GEMV entry ran it: the GEMM entry's 4-row tile
-    at B = 1 becomes the one-row tile, the same grid), K split and grid."""
+def test_decode_plan_stages_and_splits(b, kn, dense):
+    """B <= 16 at 132 SMs: the smallest row tile that holds B; the ring of
+    ``STAGES`` fits ``RING_BUDGET`` where a stage size of ``DP4A_WORDS``
+    does (else the smallest, within ``SMEM_MAX``) and gives each of the 8
+    warps at least one unit per stage; K splits in whole stages until about
+    two blocks per SM are in flight (at least one after the rounding to
+    whole stages, about two on the wi / wo / 2048 x 2048 shapes), or until
+    each split is one stage; the warps' partial sums fit the ring's memory;
+    fewer SMs, no more splits (fewer on those three shapes)."""
     k, n = kn
     kw = -(-k // 8)
     p = plane_gemm.plan_launch(b, kw, n, WB, dense, 132)
-    bt, split_words, n_split, grid = _c_rule(b, kw, n, 132, b == 1)
+    words = plane_gemm.DP4A_WORDS[dense]
     assert not p.tensor_cores
-    assert (p.rows, p.split_words, p.n_split, p.grid) == \
-        (bt, split_words, n_split, grid)
-    if b == 1:     # the GEMM entry's old 4-row tile: the same grid
-        assert _c_rule(1, kw, n, 132, False)[1:] == (split_words, n_split,
-                                                     grid)
+    assert p.rows == next(r for r in plane_gemm.DP4A_ROWS if r >= b)
+    assert p.stage_words in words
+    assert (2 if dense else 1) * p.stage_words >= plane_gemm.WARPS
+    ring = p.stages * p.stage_bytes
+    assert p.smem_bytes == max(ring, plane_gemm.WARPS * 128 * 4)
+    fits = [kc for kc in words
+            if p.stages * (WB * (8 if dense else 1) * kc * 128
+                        + p.rows * (8 * kc + plane_gemm.PAD))
+            <= plane_gemm.RING_BUDGET]
+    if fits:
+        assert p.stage_words in fits and p.smem_bytes <= plane_gemm.RING_BUDGET
+    else:
+        assert p.stage_words == words[-1]
+        assert p.smem_bytes <= plane_gemm.SMEM_MAX
+    assert p.split_words % p.stage_words == 0
+    assert p.n_split == -(-kw // p.split_words)
+    blocks = p.grid[0] * p.grid[1] * p.grid[2]
+    # whole stages round the split down to at least one block per SM
+    assert blocks >= 132 or p.split_words == p.stage_words
+    few = plane_gemm.plan_launch(b, kw, n, WB, dense, 16)
+    assert few.n_split <= p.n_split
+    if kn in ((2048, 6144), (6144, 2048), (2048, 2048)):
+        assert blocks >= 1.9 * 132 and few.n_split < p.n_split
 
 
 @pytest.mark.parametrize("kn", [(2048, 6144), (6144, 2048)])
@@ -301,3 +308,169 @@ def test_tensor_core_schedule_equals_plain(bkn, sms):
         plain = plane_gemm.plane_plain(tx, pl, layout=layout, logical_k=lk)
         np.testing.assert_array_equal(plain.numpy(), want)
         assert torch.equal(_emulate_tc(tx, pl, layout, lk, sms), plain)
+
+
+# ---- a plain emulation of the dp4a (decode) schedule, the kernel's word
+# operations on uint32 lanes: 32 lanes of four adjacent columns each.
+
+M32 = 0xFFFFFFFF
+
+
+def _quads(t):
+    """[..., 4 m] bytes -> [..., m] uint32 words, little-endian: a stage
+    row's 128 bytes are the 32 lanes' words of four columns (byte c of
+    lane q's word: column 4 q + c), an x row's bytes its K quads."""
+    t = (t & 0xFF).reshape(*t.shape[:-1], -1, 4)
+    return t[..., 0] | t[..., 1] << 8 | t[..., 2] << 16 | t[..., 3] << 24
+
+
+def _byte_perm(a, b, sel):
+    """``__byte_perm(a, b, sel)``: byte j of the result is byte
+    sel[4 j .. 4 j + 2] of the eight bytes b:a."""
+    x = (b << 32) | a
+    return sum(((x >> (8 * ((sel >> (4 * j)) & 7))) & 0xFF) << (8 * j)
+               for j in range(4))
+
+
+def _transpose4(r):
+    t0, t1 = _byte_perm(r[0], r[1], 0x5140), _byte_perm(r[0], r[1], 0x7362)
+    t2, t3 = _byte_perm(r[2], r[3], 0x5140), _byte_perm(r[2], r[3], 0x7362)
+    return [_byte_perm(t0, t2, 0x5410), _byte_perm(t0, t2, 0x7632),
+            _byte_perm(t1, t3, 0x5410), _byte_perm(t1, t3, 0x7632)]
+
+
+def _to_signed(v, wb):
+    return ((v + (128 - (1 << (wb - 1))) * 0x01010101) & M32) ^ 0x80808080
+
+
+def _sbyte(v, j):
+    t = (v >> (8 * j)) & 0xFF
+    return torch.where(t >= 128, t - 256, t)
+
+
+def _dp4a(a, b):
+    """``__dp4a(a, b, 0)``: four signed int8 products summed."""
+    return sum(_sbyte(a, j) * _sbyte(b, j) for j in range(4))
+
+
+def _swap_bits(x, k, m):
+    t = (x ^ (x >> k)) & m
+    return (x ^ t ^ (t << k)) & M32
+
+
+def _rebuild_t(raw, wb):
+    """The bit-packed decode rebuild of ``rebuild_t``: a byte transpose
+    gathers each column's plane bytes (planes 0-3 and 4-7), three delta
+    swaps transpose the 8 x 8 bit matrix, ``to_signed`` takes 2^(WB-1)
+    off.  ``raw``: WB [..., 32] words.  Returns (lo, hi) lists of four
+    [..., 32] words (K rows 0-3 and 4-7 of column 4 q + c)."""
+    zero = torch.zeros_like(raw[0])
+    raw = list(raw) + [zero] * (8 - len(raw))
+    lo4, hi4 = _transpose4(raw[:4]), _transpose4(raw[4:])
+    lo, hi = [], []
+    for c in range(4):
+        a = _swap_bits(_swap_bits(lo4[c], 7, 0x00AA00AA), 14, 0x0000CCCC)
+        b = _swap_bits(_swap_bits(hi4[c], 7, 0x00AA00AA), 14, 0x0000CCCC)
+        t = (a ^ (b << 4)) & 0xF0F0F0F0
+        lo.append(_to_signed(a ^ t, wb))
+        hi.append(_to_signed(b ^ (t >> 4), wb))
+    return lo, hi
+
+
+def _emulate_dp4a(x, planes, layout, logical_k, sms):
+    """The dp4a schedule in plain PyTorch: per block (128 columns, ``rows``
+    x rows, one K split) and stage, the staged weight and x rows
+    zero-filled as ``issue_stage`` fills them; each unit of the stage (a
+    K word, or four dense rows) rebuilt as the kernel does it on 32 lanes
+    of four columns (bit-packed: ``rebuild_t``; dense: the planes added at
+    their shift, the byte transpose, ``to_signed``) and multiplied by
+    ``__dp4a``; the partial sums of the blocks of a K split added."""
+    dense = layout == "dense"
+    b, k = x.shape
+    wb, rpp, n = planes.shape
+    kw = -(-k // 8)
+    rpw = 8 if dense else 1
+    p = plane_gemm.plan_launch(b, kw, n, wb, dense, sms)
+    assert not p.tensor_cores
+    kc = p.stage_words
+    mem = planes.view(torch.uint8).long()
+    xl = x.long()
+    out = torch.zeros((b, n), dtype=torch.int64)
+    seen = torch.zeros((n, kw), dtype=torch.int32)
+    gx, gy, gz = p.grid
+    for bx in range(gx):
+        n0 = bx * 128
+        cols = torch.arange(n0, n0 + 128)
+        cok = cols < n
+        for by in range(gy):
+            b0 = by * p.rows
+            brows = torch.arange(b0, b0 + p.rows)
+            bok = brows < b
+            for bz in range(gz):
+                lo = bz * p.split_words
+                hi = min(kw, lo + p.split_words)
+                acc = torch.zeros((p.rows, 128), dtype=torch.int64)
+                for kw0 in range(lo, hi, kc):
+                    grows = kw0 * rpw + torch.arange(rpw * kc)
+                    stage = torch.zeros((wb, rpw * kc, 128), dtype=torch.int64)
+                    gok = grows < rpp
+                    stage[:, gok.nonzero()[:, 0][:, None],
+                          cok.nonzero()[:, 0]] = \
+                        mem[:, grows[gok]][:, :, cols[cok]]
+                    ks = kw0 * 8 + torch.arange(8 * kc)
+                    xs = torch.zeros((p.rows, 8 * kc), dtype=torch.int64)
+                    kok = ks < k
+                    xs[bok.nonzero()[:, 0][:, None], kok.nonzero()[:, 0]] = \
+                        xl[brows[bok]][:, ks[kok]]
+                    xw = _quads(xs)                # [rows, 2 KC] x words
+                    nw = min(kc, hi - kw0)
+                    seen[cols[cok], kw0:kw0 + nw] += 1
+                    q = _quads(stage)              # [WB, rpw KC, 32]
+                    part = torch.zeros((p.rows, 4, 32), dtype=torch.int64)
+                    if dense:
+                        for u in range(2 * nw):
+                            v = [sum(q[pl, 4 * u + i] << pl
+                                     for pl in range(wb)) for i in range(4)]
+                            w = torch.stack([_to_signed(t, wb)
+                                             for t in _transpose4(v)])
+                            part += _dp4a(xw[:, u, None, None], w)
+                    else:
+                        for u in range(nw):
+                            wl, wh = _rebuild_t([q[pl, u] for pl in range(wb)],
+                                                wb)
+                            part += (_dp4a(xw[:, 2 * u, None, None],
+                                           torch.stack(wl))
+                                     + _dp4a(xw[:, 2 * u + 1, None, None],
+                                             torch.stack(wh)))
+                    # lane q's column c is column 4 q + c
+                    acc += part.transpose(1, 2).reshape(p.rows, 128)
+                out[brows[bok][:, None], cols[cok]] += acc[bok][:, cok]
+    assert bool((seen == 1).all())
+    return out.to(torch.int32)
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("bkn", [(1, 100, 133), (4, 200, 130),
+                                 (16, 300, 129), (3, 150, 200)])
+@pytest.mark.parametrize("wb", range(1, 9))
+def test_decode_schedule_equals_plain(wb, bkn, sms):
+    """The dp4a schedule (stages, zero fill past B, K and N, both
+    rebuilds, K splits in whole stages) reproduces ``plane_plain`` bit for
+    bit for every plane count 1 to 8 (4 and 8 compiled, the rest at run
+    time), both layouts; ``sms`` 1 runs every stage of K in one block (two
+    column tiles fill one SM twice), 132 splits K across blocks."""
+    b, k, n = bkn
+    rng = np.random.default_rng(wb * 1000 + b + k + n)
+    half = 1 << (wb - 1)
+    w = rng.integers(-half, half, (k, n), dtype=np.int32)
+    planes = ref.pack_bitplanes(torch.from_numpy(w), wb)
+    words = ref.pack_plane_words(planes)
+    x = torch.from_numpy(_x(b + n, b, k))
+    want = x.numpy().astype(np.int64) @ w.astype(np.int64)
+    for layout, pl, lk in (("bitpack8", words, k), ("dense", planes, None)):
+        plain = plane_gemm.plane_plain(x, pl, layout=layout, logical_k=lk)
+        np.testing.assert_array_equal(plain.numpy(), want)
+        split = plane_gemm.plan_launch(b, -(-k // 8), n, wb,
+                                       layout == "dense", sms).n_split
+        assert (split > 1) == (sms > 1)
+        assert torch.equal(_emulate_dp4a(x, pl, layout, lk, sms), plain)
