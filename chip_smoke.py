@@ -23,7 +23,11 @@ Phases (any failure exits nonzero and prints no result line):
      for bit, the same packs run through the plain versions on the card;
   5. the calibration check: the main run's calibrated levels (12 kernel
      launches over the whole grid) equal ``calibrate_fleet`` through the
-     plain version on the card, from the same seed;
+     plain version on the card, from the same seed; then the cache-miss
+     calibration again, stage by stage with ``cuda.synchronize`` after each
+     (manufacture, the iterations' draws, the ``calib_iter`` launches,
+     ``measure_ecr_fleet``, the cache save), its levels, ECR and masks
+     equal to the session's, and a profile of the ECR stage by kernel;
   6. reopen the session on the same cache: table HIT and placement HIT;
   7. the unplaced engine path at full width, through the serving entry
      point: ``--pud-gemv --calib-cache <the same cache> --no-placement
@@ -44,6 +48,8 @@ Phases (any failure exits nonzero and prints no result line):
      65,536-column subarray built from ``write_row`` / ``frac`` / ``simra``
      commands (one ``majx_sense`` launch each), whose ECR must agree with
      ``measure_ecr_maj5`` on the same offsets within a binomial tolerance;
+     the host wall per event beside the device time per event by kernel
+     (``torch.profiler`` over 16 more events);
  11. the dense plane layout (the reference's default) through the ``ops``
      entries at the reference kernel benchmark's shapes (B 8 and B 1,
      K = N = 2048, 4-bit): every GEMM/GEMV entry launches its kernel;
@@ -52,13 +58,18 @@ Phases (any failure exits nonzero and prints no result line):
      launches, L2 flushed before each, the host's launch time hidden behind
      a spin on the card) beside its bound and a library
      yardstick (``torch._int_mm`` on the unpacked signed weights, with x
-     zero-padded to 32 rows where it has fewer; none for the sensing
-     kernel); the dense layout as extra shapes of the GEMM rows; each
-     GEMM/GEMV shape prints its launch plan (dp4a or tensor cores, grid, K
-     split, stage words, stages, shared memory; an unplaced dp4a row also
-     the WB its kernel instance is compiled for), made for the card's SM
-     count;
+     zero-padded to 32 rows where it has fewer; none for the calibration
+     and sensing kernels); ``calib_iter`` also at a ragged grid (its byte
+     path), ``majx_sense`` beside an empty kernel timed the same way (the
+     floor of a timed launch); the dense layout as extra shapes of the
+     GEMM rows; each shape prints its launch plan (GEMM/GEMV: dp4a or
+     tensor cores, grid, K split, stage words, stages, shared memory; an
+     unplaced dp4a row also the WB its kernel instance is compiled for;
+     made for the card's SM count);
  13. print the ``kernels`` JSON line and, last, the device JSON line.
+
+Device time from ``torch.profiler`` counts each device event (kernel, copy,
+memset) once; the host ops that launched them are not added again.
 
 It needs the port's sources beside it (``src/repro_torch``) and a GPU.
 """
@@ -100,6 +111,9 @@ DENSE = dict(b=8, k=2048, n=2048, wb=4)   # benchmarks/kernel_bench.py
 SENSE_SHAPES = [(1, 8, SIMRA["n_cols"], 3), (256, 8, 65536, 3),
                 (256, 8, 65536, 0), (16, 8, 4096, 0), (16, 8, 4096, 3),
                 (13, 8, 65000, 3)]
+# calib_iter rows beside the main path's grid: a ragged one (C not a
+# multiple of 4, the kernel's byte path)
+CALIB_SHAPES = [(3, 64, 5, 1001)]
 
 
 class PhaseError(RuntimeError):
@@ -316,6 +330,92 @@ def quickstart_phase(torch, dev, grid: dict) -> dict:
     return dict(baseline=base, tuned=tuned)
 
 
+def calibration_walls(torch, dev, session, sync) -> dict:
+    """The cache-miss calibration of ``session`` (``load_or_calibrate``)
+    again, stage by stage, with ``cuda.synchronize`` after each: the
+    fleet's manufacture, the draws and the ``calib_iter`` launches of
+    ``calibrate_fleet``'s iterations, ``measure_ecr_fleet``, and the cache
+    save.  Its levels, ECR and masks must equal the session's."""
+    from repro_torch.core.ecr import measure_ecr_fleet
+    from repro_torch.core.fleet import (fleet_calib_charges, ladder_tables,
+                                        manufacture_fleet)
+    from repro_torch.core.offsets import neutral_level
+    from repro_torch.core.rng import derive_seed, generator
+    from repro_torch.kernels.calib_iter import calib_iter
+    from repro_torch.runtime.calib_cache import CalibrationTableCache
+    phase("calibration walls: the cache-miss calibration stage by stage")
+    cfg, p, cc, seed = (session.fleet_cfg, session.physics,
+                        session.calib_cfg, session.seed)
+    walls = dict.fromkeys(("manufacture", "draws", "calib_iter", "ecr",
+                           "save"), 0.0)
+
+    def timed(stage, fn, *args):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync()
+        walls[stage] += time.perf_counter() - t0
+        return out
+
+    offsets = timed("manufacture", manufacture_fleet, seed, cfg, p, dev)
+    ladder = cfg.ladder(p)
+    qsum, swing = ladder_tables(ladder, p)
+    g, c = offsets.shape
+    gen = generator(seed, "calibrate", device=dev)
+    levels = torch.full((g, c), neutral_level(ladder), dtype=torch.int32,
+                        device=dev)
+
+    def draws():
+        return (torch.randint(0, 2, (g, cc.n_samples, cc.maj_inputs, c),
+                              generator=gen, device=dev, dtype=torch.uint8),
+                torch.randn((g, cc.n_samples, c), generator=gen, device=dev,
+                            dtype=torch.float32))
+
+    for _ in range(cc.n_iterations):
+        inputs, noise = timed("draws", draws)
+        levels, _ = timed("calib_iter", calib_iter, inputs, noise, levels,
+                          offsets, p, ladder.n_fracs, qsum, swing,
+                          cc.threshold, cc.maj_inputs, cc.const_charge_sum,
+                          cc.const_swing_sq)
+    del inputs, noise
+    ecr, masks = timed(
+        "ecr", lambda: measure_ecr_fleet(
+            derive_seed(seed, 0x0ECD), offsets,
+            fleet_calib_charges(ladder, levels, p), p, ladder.n_fracs,
+            n_trials=session.n_trials_ecr))
+    st = session.calibration
+    need(torch.equal(levels, st.levels) and torch.equal(ecr, st.ecr)
+         and torch.equal(masks, st.masks),
+         "the staged calibration differs from the session's")
+    if dev.type == "cuda":
+        # what the ECR stage runs on the card
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            measure_ecr_fleet(derive_seed(seed, 0x0ECD), offsets,
+                              fleet_calib_charges(ladder, levels, p), p,
+                              ladder.n_fracs, n_trials=session.n_trials_ecr)
+            sync()
+        rows = device_rows(prof)
+        print(f"  measure_ecr_fleet under torch.profiler: device time "
+              f"{sum(d for d, _, _ in rows) / 1e3:.1f} ms over "
+              f"{sum(c for _, c, _ in rows)} device ops; by op:")
+        print_top(rows)
+    with tempfile.TemporaryDirectory(prefix="pud-walls-") as d:
+        timed("save", lambda: CalibrationTableCache(d).save(
+            session.device_id, cfg, p, levels.cpu().numpy(),
+            ecr=ecr.cpu().numpy(), masks=masks.cpu().numpy(),
+            metadata={"method": "fused", "n_iterations": cc.n_iterations},
+            assumed_temp_c=p.temp_nominal_c))
+    total = sum(walls.values())
+    print("  " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in walls.items())
+          + f"; sum {total * 1e3:.1f} ms (the session's unsynchronised "
+          f"cache miss: {st.wall_s * 1e3:.1f} ms); levels, ECR and masks "
+          "== the session's")
+    return dict(walls_ms={k: v * 1e3 for k, v in walls.items()},
+                session_ms=st.wall_s * 1e3)
+
+
 def simra_phase(torch, dev, cfg: dict, counter) -> dict:
     """MAJ5 through the command-level simulator: per event, five operand
     rows, the B_{3,0,0} rows built with commands (a 1 row Frac'd three
@@ -337,9 +437,8 @@ def simra_phase(torch, dev, cfg: dict, counter) -> dict:
     state = pud.make_subarray(gen, 8, n, p, device=dev)
     ones = torch.ones(n, device=dev)
     any_err = torch.zeros(n, dtype=torch.bool, device=dev)
-    counter.launches = 0
-    t0 = time.perf_counter()
-    for _ in range(events):
+
+    def event(state):
         bits = torch.randint(0, 2, (5, n), generator=gen, device=dev,
                              dtype=torch.uint8)
         for r in range(5):
@@ -350,7 +449,13 @@ def simra_phase(torch, dev, cfg: dict, counter) -> dict:
         state = pud.write_row(state, 6, torch.zeros_like(ones))
         state = pud.write_row(state, 7, ones)
         state, out = pud.simra(state, range(8), gen, 3)
-        any_err |= out != (bits.sum(dim=0) > 2).to(torch.float32)
+        return state, out != (bits.sum(dim=0) > 2).to(torch.float32)
+
+    counter.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(events):
+        state, err = event(state)
+        any_err |= err
     if dev.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -370,7 +475,37 @@ def simra_phase(torch, dev, cfg: dict, counter) -> dict:
           f"{wall:.3f}s")
     need(abs(cmd - fast) <= tol, "command-level ECR disagrees with "
          "measure_ecr_maj5")
-    return dict(ecr_cmd=cmd, ecr_fast=fast, tol=tol, launches=launches)
+    res = dict(ecr_cmd=cmd, ecr_fast=fast, tol=tol, launches=launches,
+               wall_ms_per_event=wall / events * 1e3)
+    if dev.type == "cuda":
+        # device time per event, by kernel, over a few more events
+        from torch.profiler import ProfilerActivity, profile
+        n_prof = 16
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_prof):
+                state, _ = event(state)
+            torch.cuda.synchronize()
+        rows = device_rows(prof)
+        need(rows, "the profiler reported no device time for the events")
+        busy = sum(d for d, _, _ in rows) / 1e3 / n_prof
+        sense_ms = sum(d for d, _, k in rows if "sense_kernel" in k) / 1e3
+        res.update(device_ms_per_event=busy,
+                   sense_ms_per_event=sense_ms / n_prof)
+        print(f"  per event: host wall {res['wall_ms_per_event']:.4f} ms "
+              f"(the {events} events' wall / {events}); device time "
+              f"{busy:.4f} ms, of which majx_sense "
+              f"{sense_ms / n_prof:.4f} ms (torch.profiler over {n_prof} "
+              "more events); by op, per event:")
+        print_top(rows, n_prof)
+    return res
+
+
+def print_top(rows, per: int = 1, n: int = 5) -> None:
+    """The ``n`` ops with the most device time, divided by ``per``."""
+    for dev_us, count, key in sorted(rows, reverse=True)[:n]:
+        print(f"    {dev_us / 1e3 / per:8.4f} ms  x{count / per:<6g} "
+              f"{key[:70]}")
 
 
 def dense_phase(torch, dev, cfg: dict, kernels) -> dict:
@@ -446,12 +581,16 @@ GEMM_KERNELS = ("dp4a_kernel", "mma_kernel", "plane_kernel")
 
 
 def device_rows(prof) -> list:
-    """(device us, calls, name) of every profiled op with device time."""
+    """(device us, calls, name) of every event that ran on the device:
+    kernels, copies, memsets.  The host ops that launched them are left
+    out: an op's self device time is the time of the kernels it launched,
+    which appear as rows of their own, so summing both counts them
+    twice."""
+    from torch.autograd import DeviceType
     rows = []
     for e in prof.key_averages():
-        dev_us = getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-        if dev_us > 0:
+        dev_us = e.self_device_time_total
+        if e.device_type != DeviceType.CPU and dev_us > 0:
             rows.append((dev_us, e.count, e.key))
     return rows
 
@@ -654,6 +793,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
     print(f"  levels {list(want_levels.shape)} after "
           f"{ccfg.n_iterations} iterations: kernel == plain version")
     del offs, want_levels
+    walls = calibration_walls(torch, dev, session, sync)
 
     phase("reopen: cache hits")
     cfg = PUDGemvConfig(weight_bits=4, packable=FFN_PACKABLE)
@@ -770,41 +910,53 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
     rows = []
 
     # calib_iter: one launch over the whole grid, as each iteration of the
-    # main path makes it: G subarrays x S=256 samples of M=5 operands.
+    # main path makes it: G subarrays x S=256 samples of M=5 operands; then
+    # a ragged grid (C not a multiple of 4: the byte path).
     ladder = fcfg.ladder(p)
     qsum, swing = ladder_tables(ladder, p)
-    g, s, m, c = (fcfg.n_subarrays_total, ccfg.n_samples, ccfg.maj_inputs,
-                  fcfg.n_cols)
     gen = generator(SEED, "chip-smoke", device=dev)
-    bits = torch.randint(0, 2, (g, s, m, c), generator=gen, device=dev,
-                         dtype=torch.uint8)
-    noise = torch.randn((g, s, c), generator=gen, device=dev)
-    levels = torch.randint(0, ladder.n_levels, (g, c), generator=gen,
-                           device=dev, dtype=torch.int32)
-    offs = manufacture_fleet(SEED, fcfg, p, device=dev)
-    cargs = (p, ladder.n_fracs, qsum, swing, ccfg.threshold, m)
-    k_l, k_b = calib_iter.calib_iter(bits, noise, levels, offs, *cargs)
-    p_l, p_b = calib_iter.calib_iter_plain(bits, noise, levels, offs, *cargs)
-    sync()
-    need(torch.equal(k_l, p_l) and torch.equal(k_b, p_b),
-         "calib_iter differs from its plain version")
-    need(bool((k_l != levels).any()), "calib_iter moved no level")
-    nbytes = g * (s * m * c + s * c * 4 + 4 * c * 4)
-    nops = g * s * c * (m + 10)
+
+    def calib_row(g, s, m, c):
+        bits = torch.randint(0, 2, (g, s, m, c), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        noise = torch.randn((g, s, c), generator=gen, device=dev)
+        levels = torch.randint(0, ladder.n_levels, (g, c), generator=gen,
+                               device=dev, dtype=torch.int32)
+        offs = 0.033 * torch.randn((g, c), generator=gen, device=dev)
+        cargs = (p, ladder.n_fracs, qsum, swing, ccfg.threshold, m)
+        k_l, k_b = calib_iter.calib_iter(bits, noise, levels, offs, *cargs)
+        p_l, p_b = calib_iter.calib_iter_plain(bits, noise, levels, offs,
+                                               *cargs)
+        sync()
+        need(torch.equal(k_l, p_l) and torch.equal(k_b, p_b),
+             f"calib_iter differs from its plain version at [{g},{s},{m},"
+             f"{c}]")
+        need(bool((k_l != levels).any()), "calib_iter moved no level")
+        plan = calib_iter.plan_launch(g, m, c, True)
+        nbytes = g * (s * m * c + s * c * 4 + 4 * c * 4)
+        nops = g * s * c * (m + 10)
+        return dict(
+            shape=f"inputs [{g},{s},{m},{c}] u8, noise [{g},{s},{c}]",
+            plan=(f"{'vector' if plan.vec else 'byte'} path, "
+                  f"{plan.threads} threads x {calib_iter.COLS} columns, "
+                  f"{plan.blocks} blocks, {plan.smem_bytes} B shared"),
+            max_abs_err=float((k_b - p_b).abs().max()),
+            ms=time_ms(torch, lambda: calib_iter.calib_iter(
+                bits, noise, levels, offs, *cargs), flush),
+            plain_ms=time_ms(torch, lambda: calib_iter.calib_iter_plain(
+                bits, noise, levels, offs, *cargs), flush, reps=10),
+            bytes=nbytes, ops=nops,
+            bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
+            bound_by_ops_ms=nops / F32_OPS_S * 1e3, library_ms=None)
+
+    (g0, s0, m0, c0), *rest = [(fcfg.n_subarrays_total, ccfg.n_samples,
+                                ccfg.maj_inputs, fcfg.n_cols)] + CALIB_SHAPES
     rows.append(dict(
         name="calib_iter", route="cuda",
         source="src/repro_torch/csrc/calib_iter.cu",
         replaces="src/repro/kernels/majx.py:157",
-        shape=f"inputs [{g},{s},{m},{c}] u8, noise [{g},{s},{c}]",
-        launches=launches["calib_iter"],
-        max_abs_err=float((k_b - p_b).abs().max()),
-        ms=time_ms(torch, lambda: calib_iter.calib_iter(
-            bits, noise, levels, offs, *cargs), flush),
-        plain_ms=time_ms(torch, lambda: calib_iter.calib_iter_plain(
-            bits, noise, levels, offs, *cargs), flush, reps=10),
-        bytes=nbytes, ops=nops,
-        bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
-        bound_by_ops_ms=nops / F32_OPS_S * 1e3, library_ms=None))
+        launches=launches["calib_iter"], **calib_row(g0, s0, m0, c0),
+        extra_shapes=[calib_row(*sh) for sh in rest]))
 
     # bit-plane GEMM / GEMV on the main path's packs (placed and unplaced).
     gen_x = generator(SEED, "chip-smoke-x", device=dev)
@@ -822,8 +974,10 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         need(0 < float(want.mean()) < 1, "majx_sense sensed one value")
         nbytes = (t * r * c + 2 * t * c + c) * 4
         nops = t * c * (5 * r + 9)
+        plan = sense.plan_launch(t, c)
         return dict(
             shape=f"charge [{t},{r},{c}], n_fracs {n_fracs}",
+            plan=f"{plan.threads} threads, grid {plan.grid}",
             max_abs_err=float((got - want).abs().max()),
             ms=time_ms(torch, lambda: sense.majx_sense(*args), flush),
             plain_ms=time_ms(torch, lambda: sense.majx_sense_plain(*args),
@@ -943,12 +1097,16 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
     del duun
 
     (t0_, r0_, c0_, f0_), *rest = sense_shapes
+    # the practical floor of a CUDA-event-timed launch: an empty kernel
+    # (a spin of zero cycles) timed the same way
+    floor = time_ms(torch, lambda: torch.cuda._sleep(0), flush) \
+        if on_card else None
     rows.append(dict(
         name="majx_sense", route="cuda",
         source="src/repro_torch/csrc/simra_sense.cu",
         replaces="src/repro/kernels/majx.py:197",
         launches=launches["majx_sense"], **sense_row(t0_, r0_, c0_, f0_),
-        extra_shapes=[sense_row(*sh) for sh in rest]))
+        floor_ms=floor, extra_shapes=[sense_row(*sh) for sh in rest]))
 
     for r in [e for row in rows for e in [row] + row.get("extra_shapes", [])]:
         bb, bo = r["bound_by_bytes_ms"], r["bound_by_ops_ms"]
@@ -960,10 +1118,14 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library {lib} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}), max |err| {r['max_abs_err']}")
+        if r.get("floor_ms") is not None:
+            print(f"      floor: an empty kernel timed the same way "
+                  f"{r['floor_ms']:.4f} ms")
         if r.get("plan"):
             print(f"      plan: {r['plan']}")
     return {"rows": rows, "mean_ecr": mean_ecr, "occupancy": occupancy,
-            "table1": t1, "quickstart": qs, "simra": sim}
+            "calibration_walls": walls, "table1": t1, "quickstart": qs,
+            "simra": sim}
 
 
 def main() -> int:
@@ -990,6 +1152,7 @@ def main() -> int:
         {**{k: r[k] for k in keys},
          "shape": r["shape"],
          **({"plan": r["plan"]} if r.get("plan") else {}),
+         **({"floor_ms": r["floor_ms"]} if r.get("floor_ms") else {}),
          **({"extra_shapes": [{k: e[k] for k in (
              "shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
              "bound_by", "library_ms", "layout", "launches", "plan")

@@ -33,20 +33,37 @@ def gen():
     return g
 
 
-@pytest.mark.parametrize("shape", [((), 256, 65536), ((3,), 64, 1000),
-                                   ((2,), 5, 77)])
-def test_calib_iter_equals_plain(gen, shape):
-    lead, s, c = shape
+def _calib_operands(gen, lead, s, m, c, shift=0):
+    """Operands of one calib_iter call; ``shift`` > 0 starts every tensor
+    that many elements into its storage, so no pointer is 16-byte aligned
+    (the kernel's byte path at any C)."""
+    def alloc(fn, shape, **kw):
+        n = 1
+        for d in shape:
+            n *= d
+        return fn((n + shift,), generator=gen, device="cuda", **kw)[
+            shift:].view(shape)
     p = PhysicsParams()
     ladder = FleetConfig().ladder(p)
     qsum, swing = ladder_tables(ladder, p)
-    bits = torch.randint(0, 2, lead + (s, 5, c), generator=gen, device="cuda",
-                         dtype=torch.uint8)
-    noise = torch.randn(lead + (s, c), generator=gen, device="cuda")
-    levels = torch.randint(0, ladder.n_levels, lead + (c,), generator=gen,
-                           device="cuda", dtype=torch.int32)
-    offs = 0.033 * torch.randn(lead + (c,), generator=gen, device="cuda")
-    args = (p, ladder.n_fracs, qsum, swing, 0.0009, 5)
+    bits = alloc(lambda *a, **kw: torch.randint(0, 2, *a, **kw),
+                 lead + (s, m, c), dtype=torch.uint8)
+    noise = alloc(torch.randn, lead + (s, c))
+    levels = alloc(lambda *a, **kw: torch.randint(0, ladder.n_levels, *a,
+                                                  **kw),
+                   lead + (c,), dtype=torch.int32)
+    offs = alloc(torch.randn, lead + (c,)).mul_(0.033)
+    args = (p, ladder.n_fracs, qsum, swing, 0.0009, m)
+    return bits, noise, levels, offs, args
+
+
+@pytest.mark.parametrize("shape", [((), 256, 5, 65536), ((3,), 64, 5, 1000),
+                                   ((2,), 5, 5, 77), ((3,), 64, 5, 1001),
+                                   ((2,), 33, 3, 4096), ((3,), 64, 3, 1001),
+                                   ((2,), 64, 7, 4096), ((1,), 17, 7, 1001)])
+def test_calib_iter_equals_plain(gen, shape):
+    lead, s, m, c = shape
+    bits, noise, levels, offs, args = _calib_operands(gen, lead, s, m, c)
     before = calib_iter.calib_iter.launches
     got = calib_iter.calib_iter(bits, noise, levels, offs, *args)
     want = calib_iter.calib_iter_plain(bits, noise, levels, offs, *args)
@@ -54,6 +71,20 @@ def test_calib_iter_equals_plain(gen, shape):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     with pytest.raises(ValueError):          # float bits are not taken
         calib_iter.calib_iter(bits.float(), noise, levels, offs, *args)
+
+
+@pytest.mark.parametrize("m", [3, 5])
+def test_calib_iter_unaligned_pointers_take_the_byte_path(gen, m):
+    """C a multiple of 4 but no pointer 16-byte aligned: the plan takes
+    the byte path and the kernel still equals the plain version."""
+    bits, noise, levels, offs, args = _calib_operands(gen, (2,), 40, m,
+                                                      4096, shift=1)
+    assert noise.data_ptr() % 16 and bits.is_contiguous()
+    before = calib_iter.calib_iter.launches
+    got = calib_iter.calib_iter(bits, noise, levels, offs, *args)
+    want = calib_iter.calib_iter_plain(bits, noise, levels, offs, *args)
+    assert calib_iter.calib_iter.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 def _window(gen, k, n, blocked):
@@ -345,7 +376,9 @@ def test_pud_matmul_cuda_equals_reference_backend(gen, b):
 
 @pytest.mark.parametrize("n_fracs", [0, 3])
 @pytest.mark.parametrize("shape", [(256, 8, 65536), (16, 8, 4096),
-                                   (3, 5, 1000), (1, 8, 77)])
+                                   (3, 5, 1000), (1, 8, 77), (1, 8, 65536),
+                                   (2, 5, 1001), (4, 8, 1002), (5, 3, 1002),
+                                   (70000, 8, 4)])
 def test_majx_sense_equals_plain(gen, shape, n_fracs):
     t, r, c = shape
     charge = torch.rand(shape, generator=gen, device="cuda")
@@ -360,6 +393,22 @@ def test_majx_sense_equals_plain(gen, shape, n_fracs):
     assert 0 < float(got.mean()) < 1
     with pytest.raises(ValueError):                  # float64 is not taken
         sense.majx_sense(charge.double(), offs, noise, p, n_fracs)
+
+
+@pytest.mark.parametrize("shift", [1, 2])
+def test_majx_sense_unaligned_pointers(gen, shift):
+    """Pointers only 4- or 8-byte aligned: the kernel still equals the
+    plain version."""
+    t, r, c = 3, 8, 4096
+    charge = torch.rand(t * r * c + shift, generator=gen, device="cuda")[
+        shift:].view(t, r, c)
+    offs = 0.03 * torch.randn(c + shift, generator=gen, device="cuda")
+    offs = offs[shift:]
+    noise = torch.randn(t * c + shift, generator=gen, device="cuda")[
+        shift:].view(t, c)
+    p = PhysicsParams()
+    got = sense.majx_sense(charge, offs, noise, p, 3)
+    assert torch.equal(got, sense.majx_sense_plain(charge, offs, noise, p, 3))
 
 
 def test_simra_launches_the_sensing_kernel(gen):

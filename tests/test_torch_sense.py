@@ -185,3 +185,44 @@ def test_pud_gemv_dense_equals_reference(placed):
                              jnp.asarray(scale), backend="reference", **jkw)
         assert got.shape == xi.shape[:-1] + (256,)
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ---------------------------------------------------------------------------
+# The launch plan of csrc/simra_sense.cu
+# ---------------------------------------------------------------------------
+
+def _covered(plan, t, c):
+    """How often the plan's grid visits each (event, column), as the
+    kernel walks it: block (x, y), thread i takes column x * threads + i
+    (if below C) and events y, y + grid_y, ..."""
+    gx, gy = plan.grid
+    col = np.arange(gx * plan.threads)
+    hits = np.zeros((t, c), dtype=np.int64)
+    for y in range(gy):
+        hits[y::gy] += np.bincount(col[col < c], minlength=c)
+    return hits
+
+
+@pytest.mark.parametrize("t, c", [(1, 65536), (256, 65536), (16, 4096),
+                                  (13, 65000), (3, 77), (1, 1), (5, 257)])
+def test_plan_covers_every_event_and_column_once(t, c):
+    plan = sense.plan_launch(t, c)
+    assert (_covered(plan, t, c) == 1).all()
+
+
+def test_plan_keeps_a_block_per_sm_for_one_event():
+    """The simulator's launch (one event of a 65,536-column subarray) has
+    at least one block for each of the H100's 132 SMs."""
+    plan = sense.plan_launch(1, 65536)
+    assert plan.grid[0] * plan.grid[1] >= 132
+    assert plan.threads == sense.THREADS and plan.threads % 32 == 0
+
+
+def test_plan_strides_events_past_the_grid_limit():
+    """More events than a grid row count: blocks stride over them, and
+    every event is still visited once."""
+    t = sense.MAX_GRID_Y + 4465
+    plan = sense.plan_launch(t, 4)
+    assert plan.grid == (1, sense.MAX_GRID_Y)
+    assert (_covered(plan, t, 4) == 1).all()
+    assert plan.c_array()[:] == [plan.threads, *plan.grid]
