@@ -29,6 +29,16 @@ Phases (any failure exits nonzero and prints no result line):
      ``measure_ecr_fleet``, the cache save), its levels, ECR and masks
      equal to the session's, and a profile of the ECR stage by kernel;
   6. reopen the session on the same cache: table HIT and placement HIT;
+     then, on a copy of the cache, a partial recalibration: subarrays 3
+     and 11 drift by a seeded shift of 0.5 sigma_static, their ECR on the
+     old levels, ``PUDSession.recalibrate_subarrays`` (12 ``calib_iter``
+     launches), its stages with ``cuda.synchronize`` after each, and the
+     checks (kernel == plain version, one pass == one pass per subarray,
+     the other 14 rows unchanged); then read-fault injection: a placed
+     and an identity plan from the main run's masks, packed, every
+     error-prone window column reading its stuck value, prefill and 4
+     greedy steps through the placed kernels (placed logits bit-identical
+     to the clean pack's, identity logits off by more than 0.1);
   7. the unplaced engine path at full width, through the serving entry
      point: ``--pud-gemv --calib-cache <the same cache> --no-placement
      --engine`` with 8 prompts on 4 engine slots, every packed projection in
@@ -39,11 +49,21 @@ Phases (any failure exits nonzero and prints no result line):
   8. a ragged engine run (12 requests, prompts of 8 to 128 tokens, budgets
      of 4 to 32) through the kernels and again through the plain versions
      with the same schedule: tokens equal, logits bit for bit;
-  9. the paper's Table I at its own scales: ``evaluate_method`` for B300
-     and T210 (Algorithm 1 on a 65,536-column subarray, 8,192 MAJ5 trials,
-     ADD8 / MUL8 graph ECR on 4,096 columns at 512 / 128 trials), each
-     number beside the paper's and each stage's wall time; then the
-     quickstart's ``PUDSession.baseline_ecr()`` and ``calibrate()``;
+  9. the pack archive: the placed and the unplaced ``PackedModel`` saved
+     with ``save_packed_npz`` and loaded with ``load_packed_npz``; greedy
+     decode at batch 4 and batch 1 from the loaded packs equal to the
+     in-memory packs', bit for bit, and a loaded layer's ``to_dense``
+     form through the GEMM kernel equal to its bit-packed form; then the
+     paper's Table I at its own scales through
+     ``repro_torch.benchmarks.table1.run`` for B300 and T210 (Algorithm 1
+     on a 65,536-column subarray, 8,192 MAJ5 trials, ADD8 / MUL8 graph ECR
+     on 4,096 columns at 512 / 128 trials), each number beside the paper's
+     and each stage's wall time; ``benchmarks.fleet_calibration --full
+     --check-full`` (its parity leg and its main leg, 20 ``calib_iter``
+     launches at [16, 512, 5, 65,536], bit-exact against the plain
+     version on the same inputs; its ``#csv`` block);
+     then the quickstart's ``PUDSession.baseline_ecr()`` and
+     ``calibrate()``;
  10. the command-level simulator at paper width: 256 MAJ5 events on one
      65,536-column subarray built from ``write_row`` / ``frac`` / ``simra``
      commands (one ``majx_sense`` launch each), whose ECR must agree with
@@ -59,8 +79,8 @@ Phases (any failure exits nonzero and prints no result line):
      a spin on the card) beside its bound and a library
      yardstick (``torch._int_mm`` on the unpacked signed weights, with x
      zero-padded to 32 rows where it has fewer; none for the calibration
-     and sensing kernels); ``calib_iter`` also at a ragged grid (its byte
-     path), ``majx_sense`` beside an empty kernel timed the same way (the
+     and sensing kernels); ``calib_iter`` also at the fleet benchmark's
+     main-leg shape and at a ragged grid (its byte path), ``majx_sense`` beside an empty kernel timed the same way (the
      floor of a timed launch); the dense layout as extra shapes of the
      GEMM rows; each shape prints its launch plan (GEMM/GEMV: dp4a or
      tensor cores, grid, K split, stage words, stages, shared memory; an
@@ -111,9 +131,16 @@ DENSE = dict(b=8, k=2048, n=2048, wb=4)   # benchmarks/kernel_bench.py
 SENSE_SHAPES = [(1, 8, SIMRA["n_cols"], 3), (256, 8, 65536, 3),
                 (256, 8, 65536, 0), (16, 8, 4096, 0), (16, 8, 4096, 3),
                 (13, 8, 65000, 3)]
-# calib_iter rows beside the main path's grid: a ragged one (C not a
-# multiple of 4, the kernel's byte path)
-CALIB_SHAPES = [(3, 64, 5, 1001)]
+# calib_iter rows beside the main path's grid: the fleet benchmark's main
+# leg (--full: 16 subarrays, CalibrationConfig's 512 samples) and a ragged
+# one (C not a multiple of 4, the kernel's byte path)
+CALIB_SHAPES = [(16, 512, 5, 65536), (3, 64, 5, 1001)]
+RECAL = (3, 11)              # the drifted subarrays of the recalibration
+FAULT_STEPS = 4              # decode steps of the fault-injection phase
+ARCHIVE_STEPS = 4            # decode steps from the loaded archives
+# benchmarks.fleet_calibration on the card; --check-full holds its main
+# leg's calib_iter launches against the plain version on the same inputs
+FLEET_ARGV = ["--full", "--check-full"]
 
 
 class PhaseError(RuntimeError):
@@ -198,16 +225,6 @@ def library_weights(pt):
     return signed_weights(dense).to(dense.dtype).contiguous()   # int8
 
 
-def dense_pack(pt):
-    """The same pack in the dense layout (one int8 byte per bit), built
-    here as a test operand: the wrappers never repack."""
-    from repro_torch.kernels.ref import unpack_plane_words
-    return types.SimpleNamespace(
-        k=pt.k, n=pt.n, layout="dense", logical_k=None,
-        planes=unpack_plane_words(pt.planes, pt.logical_k).contiguous(),
-        col_ids=pt.col_ids, window_block=pt.window_block)
-
-
 def kernel_name(mangled: str) -> str:
     """A readable name of a mangled kernel: its name (the shortest
     identifier after its length that ends in ``kernel``; a longer one can
@@ -273,42 +290,43 @@ def finite(*xs) -> bool:
 
 
 def table1_phase(torch, dev, scale: dict, calib=None) -> dict:
-    """Paper Table I through ``evaluate_method`` at ``scale``: every number
-    beside the paper's, with each stage's wall time."""
+    """Paper Table I through ``repro_torch.benchmarks.table1.run`` at
+    ``scale`` (it prints each method's stage walls): every number beside
+    the paper's."""
+    from repro_torch.benchmarks import table1
+    from repro_torch.benchmarks.common import BenchScale, emit
     from repro_torch.core.calibrate import CalibrationConfig
-    from repro_torch.core.throughput import evaluate_method
-    phase("Table I: evaluate_method B300 and T210 at the paper's scales")
-    print(f"  {scale}, {calib or CalibrationConfig()}")
+    phase("Table I: benchmarks.table1.run, B300 and T210 at the paper's "
+          "scales")
+    calib = calib or CalibrationConfig()
+    print(f"  {scale}, {calib}")
+    rows = table1.run(BenchScale(**scale), seed=SEED, device=dev,
+                      calib_config=calib)
+    emit("table1", rows, header="paper Table I; gains row compares T210/B300")
+    rows = {r["method"]: r for r in rows}
     res = {}
     for name in ("B300", "T210"):
-        t0 = time.perf_counter()
-        r = evaluate_method(SEED, name, device=dev,
-                            calib_config=calib or CalibrationConfig(),
-                            **scale)
-        wall = time.perf_counter() - t0
-        ref = PAPER[name]
-        print(f"  {name}: ECR {r.ecr:.4f} (paper {ref['ecr']}), ADD8 ECR "
-              f"{r.ecr_add:.4f}, MUL8 ECR {r.ecr_mul:.4f}; MAJ5 "
-              f"{r.maj5_tops / 1e12:.4f} TOPS (paper {ref['maj5'] / 1e12}), "
-              f"ADD8 {r.add8_gops / 1e9:.3f} GOPS (paper "
-              f"{ref['add'] / 1e9}), MUL8 {r.mul8_gops / 1e9:.3f} GOPS "
+        row, ref = rows[name], PAPER[name]
+        r = dict(ecr=row["ecr_pct"] / 100, ecr_add=row["ecr_add_pct"] / 100,
+                 ecr_mul=row["ecr_mul_pct"] / 100,
+                 maj5_tops=row["maj5_tops"] * 1e12,
+                 add8_gops=row["add8_gops"] * 1e9,
+                 mul8_gops=row["mul8_gops"] * 1e9)
+        print(f"  {name}: ECR {r['ecr']:.4f} (paper {ref['ecr']}), ADD8 ECR "
+              f"{r['ecr_add']:.4f}, MUL8 ECR {r['ecr_mul']:.4f}; MAJ5 "
+              f"{row['maj5_tops']:.4f} TOPS (paper {ref['maj5'] / 1e12}), "
+              f"ADD8 {row['add8_gops']:.3f} GOPS (paper "
+              f"{ref['add'] / 1e9}), MUL8 {row['mul8_gops']:.3f} GOPS "
               f"(paper {ref['mul'] / 1e9})")
-        print("    wall: " + ", ".join(f"{k} {v:.3f}s"
-                                       for k, v in r.stage_s.items())
-              + f"; evaluate_method {wall:.3f}s")
-        need(finite(r.ecr, r.ecr_add, r.ecr_mul, r.maj5_tops, r.add8_gops,
-                    r.mul8_gops), f"{name}: a Table-I number is not finite")
-        res[name] = dict(ecr=r.ecr, ecr_add=r.ecr_add, ecr_mul=r.ecr_mul,
-                         maj5_tops=r.maj5_tops, add8_gops=r.add8_gops,
-                         mul8_gops=r.mul8_gops, stage_s=r.stage_s, wall_s=wall)
-    b, t = res["B300"], res["T210"]
-    gains = dict(maj5=t["maj5_tops"] / b["maj5_tops"],
-                 add=t["add8_gops"] / b["add8_gops"],
-                 mul=t["mul8_gops"] / b["mul8_gops"])
+        need(finite(*r.values()), f"{name}: a Table-I number is not finite")
+        res[name] = r
+    g = rows["gain_T210_over_B300"]
+    gains = dict(maj5=g["maj5_tops"], add=g["add8_gops"], mul=g["mul8_gops"])
     print("  gains T210/B300: " + ", ".join(
         f"{k.upper()} {v:.3f}x (paper {PAPER['gain'][k]}x)"
         for k, v in gains.items()))
-    need(t["ecr"] < b["ecr"], "T210's ECR is not below B300's")
+    need(res["T210"]["ecr"] < res["B300"]["ecr"],
+         "T210's ECR is not below B300's")
     need(finite(*gains.values()), "a Table-I gain is not finite")
     res["gains"] = gains
     return res
@@ -330,6 +348,19 @@ def quickstart_phase(torch, dev, grid: dict) -> dict:
     return dict(baseline=base, tuned=tuned)
 
 
+def stage_timer(walls: dict, sync):
+    """``timed(stage, fn, *args)``: ``fn(*args)`` between two
+    synchronisations, its wall added to ``walls[stage]``."""
+    def timed(stage, fn, *args):
+        sync()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        sync()
+        walls[stage] += time.perf_counter() - t0
+        return out
+    return timed
+
+
 def calibration_walls(torch, dev, session, sync) -> dict:
     """The cache-miss calibration of ``session`` (``load_or_calibrate``)
     again, stage by stage, with ``cuda.synchronize`` after each: the
@@ -348,14 +379,7 @@ def calibration_walls(torch, dev, session, sync) -> dict:
                         session.calib_cfg, session.seed)
     walls = dict.fromkeys(("manufacture", "draws", "calib_iter", "ecr",
                            "save"), 0.0)
-
-    def timed(stage, fn, *args):
-        sync()
-        t0 = time.perf_counter()
-        out = fn(*args)
-        sync()
-        walls[stage] += time.perf_counter() - t0
-        return out
+    timed = stage_timer(walls, sync)
 
     offsets = timed("manufacture", manufacture_fleet, seed, cfg, p, dev)
     ladder = cfg.ladder(p)
@@ -414,6 +438,278 @@ def calibration_walls(torch, dev, session, sync) -> dict:
           "== the session's")
     return dict(walls_ms={k: v * 1e3 for k, v in walls.items()},
                 session_ms=st.wall_s * 1e3)
+
+
+def recalibration_phase(torch, dev, session, cache_dir: str, recal,
+                        kernels, sync) -> dict:
+    """Partial recalibration on a copy of the main run's cache: subarrays
+    ``recal`` drift by a seeded normal shift of 0.5 sigma_static; their
+    ECR against the old levels, then ``recalibrate_subarrays`` (its
+    ``calib_iter`` launches counted), the same stages again with
+    ``cuda.synchronize`` after each, and the checks: the kernel's levels
+    equal the plain version's, one pass equals one pass per subarray, and
+    the other rows of levels, ECR and masks are unchanged."""
+    import shutil
+    from repro_torch.core.ecr import measure_ecr_fleet
+    from repro_torch.core.fleet import (fleet_calib_charges,
+                                        iterate_calibration,
+                                        manufacture_fleet,
+                                        recalibrate_subarrays,
+                                        recalibration_draws)
+    from repro_torch.core.rng import derive_seed, generator
+    from repro_torch.runtime.session import PUDSession
+    phase(f"partial recalibration: subarrays {list(recal)} after a drift")
+    tmp = tempfile.TemporaryDirectory(prefix="pud-recal-")
+    shutil.copytree(cache_dir, tmp.name, dirs_exist_ok=True)
+    rs = PUDSession.open(session.arch, grid=session.fleet_cfg,
+                         cache_dir=tmp.name, calib=session.calib_cfg,
+                         seed=session.seed, device=dev)
+    st0 = rs.calibrate()
+    need(st0.cache_hit, "the copied cache missed")
+    cfg, p, cc, seed = rs.fleet_cfg, rs.physics, rs.calib_cfg, rs.seed
+    ladder = cfg.ladder(p)
+    offs = manufacture_fleet(seed, cfg, p, dev)
+    gen = generator(SEED, "drift", device=dev)
+    rows = torch.tensor(recal, device=dev)
+    offs[rows] += 0.5 * p.sigma_static * torch.randn(
+        (len(recal), cfg.n_cols), generator=gen, device=dev)
+    before, _ = measure_ecr_fleet(
+        derive_seed(seed, 0x0EC5), offs[rows],
+        fleet_calib_charges(ladder, st0.levels[rows], p), p, ladder.n_fracs,
+        n_trials=rs.n_trials_ecr)
+
+    reset_counts(kernels)
+    st1 = rs.recalibrate_subarrays(recal, offs)
+    sync()
+    launches = kernels["calib_iter"].launches
+    need(launches == cc.n_iterations or dev.type != "cuda",
+         f"recalibration launched calib_iter {launches} times")
+    after = st1.ecr[rows]
+    print("  ECR " + ", ".join(
+        f"subarray {g}: {float(b):.4f} on the old levels -> {float(a):.4f}"
+        for g, b, a in zip(recal, before, after))
+          + f"; session wall {st1.wall_s * 1e3:.1f} ms (synchronised, the "
+          f"save not included), {launches} calib_iter launches")
+
+    walls = dict.fromkeys(("draws", "calib_iter", "ecr", "merge", "save"),
+                          0.0)
+    timed = stage_timer(walls, sync)
+
+    def draws():
+        it = recalibration_draws(seed, recal, cc, cfg.n_cols, dev)
+        for _ in range(cc.n_iterations):
+            yield timed("draws", next, it)
+
+    levels, _ = timed("calib_iter", iterate_calibration, draws(),
+                      offs[rows], ladder, p, cc)
+    walls["calib_iter"] -= walls["draws"]       # the loop timed its draws
+    ecr, masks = timed("ecr", lambda: measure_ecr_fleet(
+        derive_seed(seed, 0x0EC5), offs[rows],
+        fleet_calib_charges(ladder, levels, p), p, ladder.n_fracs,
+        n_trials=rs.n_trials_ecr))
+
+    def merge():
+        lv, e, m = st0.levels.clone(), st0.ecr.clone(), st0.masks.clone()
+        lv[rows], e[rows], m[rows] = levels, ecr, masks
+        return lv, e, m
+
+    lv, e, m = timed("merge", merge)
+    timed("save", lambda: rs.cache.save(
+        rs.device_id, cfg, p, lv.cpu().numpy(), ecr=e.cpu().numpy(),
+        masks=m.cpu().numpy(), metadata={"method": rs.method,
+                                         "recalibrated_subarrays":
+                                         list(recal)},
+        assumed_temp_c=p.temp_nominal_c))
+    print("  stages: " + ", ".join(f"{k} {v * 1e3:.1f} ms"
+                                   for k, v in walls.items())
+          + f"; sum {sum(walls.values()) * 1e3:.1f} ms")
+    need(torch.equal(lv, st1.levels) and torch.equal(e, st1.ecr)
+         and torch.equal(m, st1.masks),
+         "the staged recalibration differs from the session's")
+    keep = torch.tensor([g for g in range(cfg.n_subarrays_total)
+                         if g not in recal], device=dev)
+    need(torch.equal(st1.levels[keep], st0.levels[keep])
+         and torch.equal(st1.ecr[keep], st0.ecr[keep])
+         and torch.equal(st1.masks[keep], st0.masks[keep]),
+         "recalibration changed a row it was not given")
+    plain = recalibrate_subarrays(seed, offs, recal, cfg, p, cc,
+                                  method="reference")
+    need(torch.equal(st1.levels[rows], plain),
+         "recalibrated levels through calib_iter differ from the plain "
+         "version")
+    apart = torch.cat([recalibrate_subarrays(seed, offs, [g], cfg, p, cc)
+                       for g in recal])
+    need(torch.equal(apart, plain), "recalibrating one subarray at a time "
+         "differs from one pass over both")
+    need(rs.cache.load(rs.device_id, cfg, p).metadata[
+        "recalibrated_subarrays"] == list(recal),
+        "the merged table was not persisted")
+    print(f"  levels of {list(recal)}: kernel == plain version, one pass "
+          f"== one pass per subarray; the other "
+          f"{cfg.n_subarrays_total - len(recal)} rows of levels, ECR and "
+          "masks unchanged")
+    tmp.cleanup()
+    return dict(launches=launches, wall_ms=st1.wall_s * 1e3,
+                walls_ms={k: v * 1e3 for k, v in walls.items()},
+                ecr_before=[float(x) for x in before],
+                ecr_after=[float(x) for x in after])
+
+
+def fault_phase(torch, dev, model, params, tokens, max_len, masks, grid,
+                kernels, sync) -> dict:
+    """Read-fault injection at full width: a placed plan and the identity
+    plan from the main run's masks, both packed, both with every
+    error-prone window column reading its stuck value; prefill and
+    ``FAULT_STEPS`` greedy decode steps through the placed kernels.  The
+    placed logits stay bit-identical; the identity layout's break."""
+    from repro_torch.launch import serve
+    from repro_torch.pud.gemv import FFN_PACKABLE, PUDGemvConfig
+    from repro_torch.pud.packer import pack_for_serving, packing_requests
+    from repro_torch.pud.placement import inject_read_faults, plan_for_grid
+    phase("read-fault injection: placed vs identity layout")
+    cfg = PUDGemvConfig(weight_bits=4, packable=FFN_PACKABLE)
+    reqs = packing_requests(params, cfg)
+    m = masks.cpu().numpy()
+    gshape = (grid["n_channels"], grid["n_banks"], grid["n_subarrays"])
+    reset_counts(kernels)
+    out = {}
+    for label, avoid in (("placed", True), ("identity", False)):
+        plan = plan_for_grid(m, reqs, gshape, avoid_faulty=avoid)
+        clean, _ = pack_for_serving(params, cfg, placement=plan)
+        hurt = inject_read_faults(clean, plan)
+        bad = sum(int(tp.faulty.sum()) for tp in plan.entries.values())
+        _, lc = serve.greedy_generate(model, clean, tokens, FAULT_STEPS,
+                                      max_len)
+        _, lh = serve.greedy_generate(model, hurt, tokens, FAULT_STEPS,
+                                      max_len)
+        sync()
+        out[label] = dict(clean=lc, hurt=lh, corrupted_cols=bad,
+                          used=plan.used_total)
+        del clean, hurt
+        print(f"  {label}: {plan.used_total:,} columns placed, {bad:,} "
+              "corrupted window columns")
+    counts = read_counts(kernels)
+    pl_, id_ = out["placed"], out["identity"]
+    delta = float((id_["hurt"] - id_["clean"]).abs().max())
+    print(f"  launches: {counts}; logits {list(pl_['clean'].shape)}: "
+          "placed fault-injected == clean bit for bit, identity clean == "
+          f"placed clean, identity fault-injected max |delta| {delta:.3f}")
+    need(torch.equal(pl_["hurt"], pl_["clean"]),
+         "fault-injected placed logits differ from the clean ones")
+    need(torch.equal(id_["clean"], pl_["clean"]),
+         "the identity layout's clean logits differ from the placed ones")
+    need(delta > 0.1, f"identity logits moved by only {delta}")
+    need(pl_["corrupted_cols"] > 0 and id_["corrupted_cols"] > 0,
+         "no window column was corrupted")
+    need(counts["gemm_placed"] > 0 or dev.type != "cuda",
+         "fault-injected decode never launched gemm_placed")
+    return dict(launches=counts, delta=delta,
+                corrupted_cols={k: v["corrupted_cols"]
+                                for k, v in out.items()})
+
+
+def swap_packs(tree, packs: dict, path=()):
+    """``tree`` with every ``<name>_pud`` pack replaced by ``packs[name]``."""
+    out = {}
+    for key, sub in tree.items():
+        if key.endswith("_pud"):
+            out[key] = packs["/".join(path + (key[: -len("_pud")],))]
+        elif isinstance(sub, dict):
+            out[key] = swap_packs(sub, packs, path + (key,))
+        else:
+            out[key] = sub
+    return out
+
+
+def archive_phase(torch, dev, model, runs, kernels, sync) -> dict:
+    """The pack archive: each (label, PackedModel, prompts) of ``runs`` is
+    saved with ``save_packed_npz`` and loaded with ``load_packed_npz``;
+    greedy decode at batch 4 and one batch-1 request from the loaded packs
+    must equal the in-memory packs' tokens and logits bit for bit, and a
+    loaded layer's ``to_dense`` form through the GEMM kernel must equal its
+    bit-packed one."""
+    from repro_torch.core.rng import generator
+    from repro_torch.kernels import placed_gemm, plane_gemm
+    from repro_torch.launch import serve
+    from repro_torch.pud.packed import (load_packed_npz, save_packed_npz,
+                                        to_dense)
+    phase("pack archive: save, load, decode from the loaded packs")
+    gen = generator(SEED, "archive", device=dev)
+    res = {}
+    with tempfile.TemporaryDirectory(prefix="pud-packs-") as d:
+        for label, pm, tokens, max_len in runs:
+            path = pathlib.Path(d) / f"{label}.npz"
+            sync()
+            t0 = time.perf_counter()
+            save_packed_npz(path, pm)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            loaded = load_packed_npz(path, device=dev)
+            sync()
+            t_load = time.perf_counter() - t0
+            need(loaded is not None and list(loaded) == list(pm.tensors),
+                 f"the {label} archive did not load")
+            tree = swap_packs(pm.params, loaded)
+            reset_counts(kernels)
+            for rows_ in (BATCH, 1):
+                toks = tokens[:rows_]
+                got = serve.greedy_generate(model, tree, toks, ARCHIVE_STEPS,
+                                            max_len)
+                want = serve.greedy_generate(model, pm.params, toks,
+                                             ARCHIVE_STEPS, max_len)
+                sync()
+                need(torch.equal(got[0], want[0])
+                     and torch.equal(got[1], want[1]),
+                     f"{label} batch-{rows_} decode from the archive "
+                     "differs from the in-memory packs")
+            counts = read_counts(kernels)
+            pt = loaded["layers_0_dense/mixer/wi"].layer(0)
+            dense = to_dense(pt)
+            x = torch.randint(-127, 128, (BATCH, pt.k), generator=gen,
+                              device=dev, dtype=torch.int8)
+            if pt.placed:
+                fn, extra = placed_gemm.gemm_placed, (pt.col_ids,)
+                kw = dict(window_block=pt.window_block)
+            else:
+                fn, extra, kw = plane_gemm.gemm, (), {}
+            a = fn(x, pt.planes, *extra, "folded", layout=pt.layout,
+                   logical_k=pt.logical_k, **kw)
+            b = fn(x, dense.planes, *extra, "folded", layout="dense",
+                   logical_k=None, **kw)
+            sync()
+            need(torch.equal(a, b), f"{label}: to_dense of a loaded pack "
+                 "differs from its bit-packed form through the kernel")
+            size = path.stat().st_size
+            print(f"  {label}: {len(loaded)} packs, {size / 2**20:.1f} MiB, "
+                  f"save {t_save:.3f}s, load {t_load:.3f}s; batch {BATCH} "
+                  f"and batch 1 x {ARCHIVE_STEPS} steps from the loaded "
+                  f"packs == in memory, bit for bit; to_dense through "
+                  f"{fn.__name__} == bit-packed; launches {counts}")
+            res[label] = dict(bytes=size, save_s=t_save, load_s=t_load,
+                              launches=counts)
+            del loaded, tree
+    return res
+
+
+def fleet_calibration_phase(torch, dev, argv, counter) -> dict:
+    """``repro_torch.benchmarks.fleet_calibration.main(argv)``: its fused
+    kernel legs must equal the plain version on the same inputs, the
+    parity leg and (``--check-full``, required here) the main leg, or the
+    benchmark raises; it prints its ``#csv`` block."""
+    from repro_torch.benchmarks import fleet_calibration
+    phase(f"benchmarks.fleet_calibration {' '.join(argv)}")
+    need("--check-full" in argv, "the fleet benchmark's main leg would run "
+         "calib_iter unchecked: pass --check-full")
+    counter.launches = 0
+    try:
+        rc = fleet_calibration.main(argv)
+    except RuntimeError as e:
+        raise PhaseError(str(e)) from e
+    need(rc == 0, f"fleet_calibration exited {rc}")
+    need(counter.launches > 0 or dev.type != "cuda",
+         "fleet_calibration never launched calib_iter")
+    print(f"  calib_iter launches: {counter.launches}")
+    return dict(launches=counter.launches)
 
 
 def simra_phase(torch, dev, cfg: dict, counter) -> dict:
@@ -674,7 +970,9 @@ def profile_step(torch, model, params, tokens, max_len, sync,
 def run(torch, dev, preset: str = "full", grid: dict = GRID,
         table1: dict = TABLE1, table1_calib=None,
         quickstart: dict = QUICKSTART, simra: dict = SIMRA,
-        dense_cfg: dict = DENSE, sense_shapes=SENSE_SHAPES) -> dict:
+        dense_cfg: dict = DENSE, sense_shapes=SENSE_SHAPES,
+        calib_shapes=CALIB_SHAPES, fleet_argv=FLEET_ARGV,
+        recal=RECAL) -> dict:
     """All phases on ``dev``.  ``main`` runs them on the GPU at full
     width; a CPU rehearsal (``dev`` cpu, smoke preset, small grid and
     Table-I scales) runs the same control flow through the plain versions,
@@ -687,6 +985,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
                                      plane_gemm, sense)
     from repro_torch.launch import serve
     from repro_torch.pud.gemv import FFN_PACKABLE, PUDGemvConfig
+    from repro_torch.pud.packed import to_dense
     from repro_torch.pud.physics import PhysicsParams
     from repro_torch.runtime.engine import ServingEngine
     from repro_torch.runtime.session import PUDSession
@@ -812,6 +1111,15 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
           f"[{again.placement_name}]")
     del again, packed2
 
+    recal = recalibration_phase(torch, dev, session, cache.name, recal,
+                                kernels, sync)
+    launches["calib_iter"] += recal["launches"]
+    fault = fault_phase(torch, dev, res["model"], res["params"],
+                        res["tokens"], res["max_len"],
+                        session.calibration.masks, grid, kernels, sync)
+    for k in ("gemm_placed", "gemv_placed"):
+        launches[k] += fault["launches"][k]
+
     phase("unplaced engine path: --no-placement --engine, unplaced kernels")
     argv_u = ["--arch", ARCH, "--preset", preset, "--pud-gemv",
               "--calib-cache", cache.name, "--no-placement", "--engine",
@@ -858,7 +1166,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
          "the unplaced path launched a placed kernel")
     need(tuple(one_u.shape) == (1, GEN), "bad batch-1 tokens")
     for k in ("gemm", "gemv"):
-        launches[k] = ucounts[k] + ucounts1[k]
+        launches[k] += ucounts[k] + ucounts1[k]
 
     phase("profile: one batch-4 unplaced decode step")
     profile_step(torch, model, upacked.params, ures["tokens"][:BATCH],
@@ -895,10 +1203,22 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
           "logits through the kernels == plain versions, bit for bit")
     del eng, eng_ref, got_c, want_c
 
+    archive = archive_phase(
+        torch, dev, model,
+        [("placed", packed, res["tokens"], res["max_len"]),
+         ("unplaced", upacked, ures["tokens"], ures["max_len"])],
+        kernels, sync)
+    for counts_ in (a["launches"] for a in archive.values()):
+        for k in ("gemm_placed", "gemv_placed", "gemm", "gemv"):
+            launches[k] += counts_[k]
+
     del res, ures
     cache.cleanup()
 
     t1 = table1_phase(torch, dev, table1, table1_calib)
+    fleet = fleet_calibration_phase(torch, dev, fleet_argv,
+                                    calib_iter.calib_iter)
+    launches["calib_iter"] += fleet["launches"]
     qs = quickstart_phase(torch, dev, quickstart)
     sim = simra_phase(torch, dev, simra, sense.majx_sense)
     launches["majx_sense"] = sim["launches"]
@@ -911,7 +1231,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
 
     # calib_iter: one launch over the whole grid, as each iteration of the
     # main path makes it: G subarrays x S=256 samples of M=5 operands; then
-    # a ragged grid (C not a multiple of 4: the byte path).
+    # ``calib_shapes`` (the fleet benchmark's main leg, a ragged grid).
     ladder = fcfg.ladder(p)
     qsum, swing = ladder_tables(ladder, p)
     gen = generator(SEED, "chip-smoke", device=dev)
@@ -950,7 +1270,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
             bound_by_ops_ms=nops / F32_OPS_S * 1e3, library_ms=None)
 
     (g0, s0, m0, c0), *rest = [(fcfg.n_subarrays_total, ccfg.n_samples,
-                                ccfg.maj_inputs, fcfg.n_cols)] + CALIB_SHAPES
+                                ccfg.maj_inputs, fcfg.n_cols)] + list(
+                                    calib_shapes)
     rows.append(dict(
         name="calib_iter", route="cuda",
         source="src/repro_torch/csrc/calib_iter.cu",
@@ -1045,7 +1366,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
 
     wi, wo, un = layer0(packed, "wi"), layer0(packed, "wo"), \
         packed.tensor("unembed/w")
-    dun = dense_pack(un)
+    dun = to_dense(un)
     src = "src/repro_torch/csrc/placed_gemm.cu"
     rows.append(dict(
         name="gemm_placed", route="cuda", source=src,
@@ -1070,7 +1391,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
 
     uwi, uwo, uun = layer0(upacked, "wi"), layer0(upacked, "wo"), \
         upacked.tensor("unembed/w")
-    duun = dense_pack(uun)
+    duun = to_dense(uun)
     src = "src/repro_torch/csrc/plane_gemm.cu"
     rows.append(dict(
         name="gemm", route="cuda", source=src,
@@ -1125,7 +1446,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
             print(f"      plan: {r['plan']}")
     return {"rows": rows, "mean_ecr": mean_ecr, "occupancy": occupancy,
             "calibration_walls": walls, "table1": t1, "quickstart": qs,
-            "simra": sim}
+            "simra": sim, "recalibration": recal, "faults": fault,
+            "archive": archive, "fleet_calibration": fleet}
 
 
 def main() -> int:

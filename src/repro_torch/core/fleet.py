@@ -12,6 +12,13 @@ ported yet).
       - ``per_subarray``: ``identify_calibration`` on each subarray with
         its own generator, the single-subarray Algorithm 1 (the oracle: it
         draws per subarray, so its levels do not follow the fleet draws).
+  * ``recalibrate_subarrays`` — Algorithm 1 again on a subset of subarrays
+    against their current offsets, each from its own stream
+    (``subarray_key``), so the result does not depend on how the subsets
+    were batched; the block methods stack the subset's draws and make one
+    launch per iteration.
+  * ``iterate_calibration`` — the block methods' iteration loop over given
+    draws (what both engines above run, and what a test can feed).
   * ``fleet_calib_charges`` — levels -> per-subarray calibration-row charges.
   * ``load_or_calibrate``  — cache glue: a persisted table, or identify,
     measure ECR + masks, and persist.
@@ -70,6 +77,18 @@ class FleetCalibration:
     config: FleetConfig
     method: str
 
+    @property
+    def levels_grid(self) -> torch.Tensor:
+        """[channels, banks, subarrays, cols] view."""
+        return self.levels.reshape(self.config.grid_shape
+                                   + (self.config.n_cols,))
+
+
+def subarray_key(seed: int, index: int, device=None) -> torch.Generator:
+    """The stream of subarray ``index`` in a partial recalibration (the
+    reference's ``subarray_key`` folds the index into its key)."""
+    return generator(seed, "recalibrate", int(index), device=device)
+
 
 def manufacture_fleet(seed: int, cfg: FleetConfig, params: PhysicsParams,
                       device=None) -> torch.Tensor:
@@ -116,25 +135,97 @@ def calibrate_fleet(seed: int, sense_offsets: torch.Tensor, cfg: FleetConfig,
                 sense_offsets[i].to(torch.float32), ladder, params, config)
             for i in range(g)])
         return FleetCalibration(levels, None, cfg, method)
+    gen = generator(seed, "calibrate", device=device)
+
+    def draws():
+        for _ in range(config.n_iterations):
+            yield draw_iteration(gen, (g,), config, c, device)
+
+    levels, hist = iterate_calibration(draws(), sense_offsets, ladder,
+                                       params, config, method)
+    return FleetCalibration(levels, hist, cfg, method)
+
+
+def draw_iteration(gen: torch.Generator, lead: tuple,
+                   config: CalibrationConfig, c: int, device
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One iteration's operand bits [*lead, S, M, C] uint8 and noise
+    [*lead, S, C] float32, drawn in that order from ``gen``."""
+    inputs = torch.randint(0, 2, lead + (config.n_samples, config.maj_inputs,
+                                         c), generator=gen, device=device,
+                           dtype=torch.uint8)
+    noise = torch.randn(lead + (config.n_samples, c), generator=gen,
+                        device=device, dtype=torch.float32)
+    return inputs, noise
+
+
+def iterate_calibration(draws, sense_offsets: torch.Tensor,
+                        ladder: OffsetLadder, params: PhysicsParams,
+                        config: CalibrationConfig, method: str = "fused"
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Algorithm 1 over ``sense_offsets`` [G, C] from the neutral level,
+    one step per item of ``draws`` (``(inputs [G, S, M, C], noise [G, S,
+    C])``): the ``calib_iter`` kernel (``fused``) or its plain version
+    (``reference``).  Returns (levels [G, C] int32, mean |bias| per
+    iteration)."""
+    if method not in ("fused", "reference"):
+        raise ValueError(f"method {method!r} has no iteration loop")
     qsum, swing = ladder_tables(ladder, params)
     step = calib_iter if method == "fused" else calib_iter_ref
-    gen = generator(seed, "calibrate", device=device)
     offsets = sense_offsets.to(torch.float32).contiguous()
-    levels = torch.full((g, c), neutral_level(ladder), dtype=torch.int32,
-                        device=device)
+    levels = torch.full(offsets.shape, neutral_level(ladder),
+                        dtype=torch.int32, device=offsets.device)
     hist = []
-    for _ in range(config.n_iterations):
-        inputs = torch.randint(0, 2, (g, config.n_samples, config.maj_inputs,
-                                      c), generator=gen, device=device,
-                               dtype=torch.uint8)
-        noise = torch.randn((g, config.n_samples, c), generator=gen,
-                            device=device, dtype=torch.float32)
+    for inputs, noise in draws:
         levels, bias = step(inputs, noise, levels, offsets, params,
                             ladder.n_fracs, qsum, swing, config.threshold,
                             config.maj_inputs, config.const_charge_sum,
                             config.const_swing_sq)
         hist.append(bias.abs().mean())
-    return FleetCalibration(levels, torch.stack(hist), cfg, method)
+    return levels, torch.stack(hist)
+
+
+def recalibrate_subarrays(seed: int, sense_offsets: torch.Tensor, subarrays,
+                          cfg: FleetConfig, params: PhysicsParams,
+                          config: CalibrationConfig = CalibrationConfig(), *,
+                          method: str = "fused") -> torch.Tensor:
+    """Re-run Algorithm 1 for ``subarrays`` against the fleet's current
+    offsets ``sense_offsets`` [G, C]; returns their levels [k, C] in
+    ascending index order (merging them is the caller's job).
+
+    Subarray g draws from ``subarray_key(seed, g)`` alone, so {3} then {5}
+    gives the rows of one {3, 5} pass.  ``fused`` stacks the subset's
+    draws into [k, S, M, C] and launches ``calib_iter`` once per
+    iteration; ``reference`` runs its plain version on the same draws;
+    ``per_subarray`` runs ``identify_calibration_fn`` on each stream.
+    """
+    if method not in METHODS:
+        raise ValueError(f"method {method!r} not in {METHODS}")
+    idx = sorted(int(s) for s in subarrays)
+    device = sense_offsets.device
+    offs = sense_offsets[torch.tensor(idx, device=device)].to(torch.float32)
+    ladder = cfg.ladder(params)
+    if method == "per_subarray":
+        return torch.stack([
+            identify_calibration_fn(subarray_key(seed, g, device=device), o,
+                                    ladder, params, config)
+            for g, o in zip(idx, offs)])
+    levels, _ = iterate_calibration(
+        recalibration_draws(seed, idx, config, offs.shape[1], device), offs,
+        ladder, params, config, method)
+    return levels
+
+
+def recalibration_draws(seed: int, subarrays, config: CalibrationConfig,
+                        c: int, device):
+    """The draws of ``recalibrate_subarrays``: per iteration, each
+    subarray's (in the given order) from its own ``subarray_key`` stream,
+    stacked into (inputs [k, S, M, C], noise [k, S, C])."""
+    gens = [subarray_key(seed, g, device=device) for g in subarrays]
+    for _ in range(config.n_iterations):
+        parts = [draw_iteration(gen, (), config, c, device) for gen in gens]
+        yield (torch.stack([p[0] for p in parts]),
+               torch.stack([p[1] for p in parts]))
 
 
 def fleet_calib_charges(ladder: OffsetLadder, levels: torch.Tensor,

@@ -16,13 +16,14 @@ import torch
 
 from repro_torch.pud.physics import PhysicsParams
 
+from . import ref
 from .backends import DEFAULT_BACKEND, get_backend
 
 __all__ = [
     "majx_sense", "calib_iter_fused", "bitplane_gemv",
     "bitplane_gemv_placed", "bitplane_gemm", "bitplane_gemm_placed",
-    "pud_matmul", "pud_gemv", "quantize_activations", "N_BLOCK",
-    "largest_divisor",
+    "pud_matmul", "pud_gemv", "pud_gemv_ref", "quantize_activations",
+    "N_BLOCK", "largest_divisor",
 ]
 
 #: Logical columns per N tile of the reference kernels; placement blocks
@@ -169,3 +170,16 @@ def pud_gemv(x: torch.Tensor, planes: torch.Tensor, w_scale: torch.Tensor,
     if x.dim() == 1:
         return pud_matmul(x[None, :], planes, w_scale, **kw)[0]
     return pud_matmul(x, planes, w_scale, **kw)
+
+
+def pud_gemv_ref(x: torch.Tensor, planes: torch.Tensor,
+                 w_scale: torch.Tensor,
+                 col_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """The oracle of ``pud_matmul`` on dense [WB, K, N|W] planes: quantize,
+    the plain bit-plane GEMV (placed through ``col_ids``), dequantize."""
+    xq, x_scale = quantize_activations(x)
+    if col_ids is not None:
+        acc = ref.bitplane_gemv_placed_ref(xq, planes, col_ids)
+    else:
+        acc = ref.bitplane_gemv_ref(xq, planes)
+    return acc.to(torch.float32) * x_scale * w_scale

@@ -157,6 +157,33 @@ def unpack_plane_words(words: torch.Tensor, k: int | None = None
     return planes[:, : (kw * 8 if k is None else k), :]
 
 
+def pack_plane_words_n(planes: torch.Tensor) -> torch.Tensor:
+    """The rejected word axis: [WB, K, N] {0,1} -> [WB, K, ceil(N/32)]
+    uint32, 32 consecutive N columns per word, LSB-first (kept for the
+    round-trip tests that justify packing along K: words along N would
+    break column addressing, the placement gathers and per-channel
+    scales)."""
+    wb, k, n = planes.shape
+    nw = -(-n // 32)
+    p = planes.to(torch.int64)
+    if nw * 32 != n:
+        p = torch.nn.functional.pad(p, (0, nw * 32 - n))
+    shifts = torch.arange(32, dtype=torch.int64, device=planes.device)
+    words = (p.reshape(wb, k, nw, 32) << shifts).sum(dim=3)
+    return words.to(torch.uint32)
+
+
+def unpack_plane_words_n(words: torch.Tensor, n: int | None = None
+                         ) -> torch.Tensor:
+    """Inverse of ``pack_plane_words_n``: [WB, K, Nw] uint32 -> [WB, K, n]
+    int8 (``n`` drops the padding columns)."""
+    wb, k, nw = words.shape
+    shifts = torch.arange(32, dtype=torch.int64, device=words.device)
+    bits = (words.to(torch.int64)[..., None] >> shifts) & 1
+    planes = bits.reshape(wb, k, nw * 32).to(torch.int8)
+    return planes[:, :, : (nw * 32 if n is None else n)]
+
+
 def densify(x: torch.Tensor, planes: torch.Tensor, layout: str,
             logical_k: int | None) -> tuple[torch.Tensor, torch.Tensor]:
     """(x, dense [WB, K, N] planes) of a pack in either layout: bit-words

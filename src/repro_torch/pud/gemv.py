@@ -18,7 +18,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels.ops import pud_matmul
+from repro_torch.kernels.ops import pud_matmul, quantize_activations
 from repro_torch.kernels.ref import pack_bitplanes, pack_plane_words
 
 from .bitserial import add8_counts, mul8_counts
@@ -46,6 +46,18 @@ class PUDGemvConfig:
     backend: str | None = None
 
 
+def _quantize_weights(w: torch.Tensor, n_bits: int
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(q [K, N] integers in the weights' dtype, scale [N]): symmetric per
+    output channel, scale = max|w| / qmax, q = clip(round(w / scale))."""
+    qmax = (1 << (n_bits - 1)) - 1
+    eps = torch.tensor(1e-8, dtype=w.dtype, device=w.device)
+    div = torch.tensor(float(qmax), dtype=w.dtype, device=w.device)
+    scale = torch.maximum(w.abs().amax(dim=0), eps) / div          # [N]
+    q = torch.clamp(torch.round(w / scale[None, :]), -qmax - 1, qmax)
+    return q, scale
+
+
 def pack_linear(w: torch.Tensor, n_bits: int = 4, backend: str | None = None,
                 bitpack: bool = True) -> PackedTensor:
     """[K, N] float weights -> per-output-channel-quantized bit-planes.
@@ -55,11 +67,7 @@ def pack_linear(w: torch.Tensor, n_bits: int = 4, backend: str | None = None,
     when it packs eagerly.  ``bitpack=True`` stores [WB, ceil(K/8), N] uint8
     words, otherwise dense [WB, K, N] int8 planes.
     """
-    qmax = (1 << (n_bits - 1)) - 1
-    eps = torch.tensor(1e-8, dtype=w.dtype, device=w.device)
-    div = torch.tensor(float(qmax), dtype=w.dtype, device=w.device)
-    scale = torch.maximum(w.abs().amax(dim=0), eps) / div          # [N]
-    q = torch.clamp(torch.round(w / scale[None, :]), -qmax - 1, qmax)
+    q, scale = _quantize_weights(w, n_bits)
     planes = pack_bitplanes(q.to(torch.int32), n_bits)
     if not bitpack:
         return PackedTensor(planes=planes, scale=scale.to(torch.float32),
@@ -85,6 +93,17 @@ def pud_linear(x: torch.Tensor, packed: PackedTensor,
                    layout=packed.layout, logical_k=packed.logical_k,
                    window_block=packed.window_block)
     return y.reshape(lead + (y.shape[-1],))
+
+
+def pud_linear_ref(x: torch.Tensor, w: torch.Tensor,
+                   n_bits: int = 4) -> torch.Tensor:
+    """Oracle: quantize ``w`` [K, N] as ``pack_linear`` does and run the
+    float32 matmul on the dequantized integers."""
+    q, scale = _quantize_weights(w, n_bits)
+    xq, x_scale = quantize_activations(x.reshape(-1, x.shape[-1]))
+    y = xq.to(torch.float32) @ q.to(torch.float32)
+    y = y * x_scale * scale[None, :]
+    return y.reshape(x.shape[:-1] + (w.shape[-1],))
 
 
 # Peak weight-staging bandwidth of the paper's 4-channel DDR4-2133 system

@@ -4,17 +4,32 @@
 columns, the per-output-channel dequant scale and, when placed, the
 ``col_ids`` gather map into the physical window.  ``PackedModel`` is a whole
 serving tree (bf16 leaves plus ``<name>_pud`` packs) with its packing
-metadata.  Only typed packs exist in the port; the reference's legacy dict
-packs are not supported.
+metadata.  The port builds typed packs only; ``as_packed_tensor`` reads a
+reference-style ``{"planes", "scale", "col_ids"?}`` mapping into one.
+
+``save_packed_npz`` / ``load_packed_npz`` keep the reference's
+``pud-pack-v2`` archive, so either package reads what the other wrote.
+The port records no autotuned tile plan (``tile_plan`` is written as
+null and ignored on load).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import zipfile
 
+import numpy as np
 import torch
+
+_FIELDS = ("planes", "scale", "col_ids")
 
 LAYOUT_DENSE = "dense"        # [L?, WB, K, N/W] int8, one byte per bit
 LAYOUT_BITPACK = "bitpack8"   # [L?, WB, ceil(K/8), N/W] uint8, 8 bits/byte
+
+#: .npz archive tag.  The loader also reads "pud-pack-v1", the dense-era
+#: archives without per-entry layout metadata (each pack's layout follows
+#: its plane dtype).
+PACK_FORMAT = "pud-pack-v2"
 
 
 @dataclasses.dataclass(eq=False)
@@ -37,6 +52,18 @@ class PackedTensor:
     layout: str = LAYOUT_DENSE
     logical_k: int | None = None
     window_block: int | None = None
+
+    @property
+    def placed(self) -> bool:
+        return self.col_ids is not None
+
+    @property
+    def bitpacked(self) -> bool:
+        return self.layout == LAYOUT_BITPACK
+
+    @property
+    def n_bits(self) -> int:
+        return self.planes.shape[-3]
 
     @property
     def k(self) -> int:
@@ -74,12 +101,75 @@ class PackedTensor:
     def replace(self, **kw) -> "PackedTensor":
         return dataclasses.replace(self, **kw)
 
+    def get(self, key: str, default=None):
+        """The mapping view of the reference's packs: ``planes``,
+        ``scale`` or ``col_ids``, or ``default`` where it is absent."""
+        value = getattr(self, key) if key in _FIELDS else None
+        return default if value is None else value
+
+    def keys(self) -> tuple[str, ...]:
+        return tuple(f for f in _FIELDS if getattr(self, f) is not None)
+
+    def items(self) -> tuple:
+        return tuple((k, getattr(self, k)) for k in self.keys())
+
     def layer(self, index: int) -> "PackedTensor":
         """Slice of a stacked pack at one layer (what the reference's layer
         ``lax.scan`` hands each iteration)."""
         return self.replace(
             planes=self.planes[index], scale=self.scale[index],
             col_ids=None if self.col_ids is None else self.col_ids[index])
+
+
+def is_pack(value) -> bool:
+    """Is ``value`` a pack: a ``PackedTensor`` or a mapping that holds
+    planes and a scale?"""
+    if isinstance(value, PackedTensor):
+        return True
+    return isinstance(value, dict) and "planes" in value and "scale" in value
+
+
+def as_packed_tensor(pack) -> PackedTensor:
+    """A ``PackedTensor`` passes through; a ``{"planes", "scale",
+    "col_ids"?}`` mapping becomes one.  A mapping carries no layout tag, so
+    the plane dtype decides: uint8 planes are bit-packed words (logical K
+    = Kw * 8), anything else the dense one-byte-per-bit layout."""
+    if isinstance(pack, PackedTensor):
+        return pack
+    planes = pack["planes"]
+    layout = LAYOUT_BITPACK if planes.dtype == torch.uint8 else LAYOUT_DENSE
+    return PackedTensor(planes=planes, scale=pack["scale"],
+                        col_ids=pack.get("col_ids"), layout=layout)
+
+
+def _per_layer(fn, planes: torch.Tensor) -> torch.Tensor:
+    """``fn`` on [WB, ., N] planes, or on each layer of stacked [L, WB, .,
+    N] planes."""
+    if planes.dim() == 4:
+        return torch.stack([fn(p) for p in planes])
+    return fn(planes)
+
+
+def to_dense(pt) -> PackedTensor:
+    """Bit-exact conversion to the dense one-byte-per-bit layout."""
+    from repro_torch.kernels.ref import unpack_plane_words
+    pt = as_packed_tensor(pt)
+    if pt.layout == LAYOUT_DENSE:
+        return pt
+    dense = _per_layer(lambda w: unpack_plane_words(w, pt.k), pt.planes)
+    return pt.replace(planes=dense.contiguous(), layout=LAYOUT_DENSE,
+                      logical_k=None)
+
+
+def to_bitpacked(pt) -> PackedTensor:
+    """Bit-exact conversion of a dense pack to bit-packed words."""
+    from repro_torch.kernels.ref import pack_plane_words
+    pt = as_packed_tensor(pt)
+    if pt.layout == LAYOUT_BITPACK:
+        return pt
+    words = _per_layer(pack_plane_words, pt.planes)
+    return pt.replace(planes=words, layout=LAYOUT_BITPACK,
+                      logical_k=pt.planes.shape[-2])
 
 
 @dataclasses.dataclass(eq=False)
@@ -149,3 +239,78 @@ def packed_bytes(params) -> dict:
 
     walk(params)
     return stats
+
+
+# ---------------------------------------------------------------------------
+# Serialization: one .npz per PackedModel (versioned, no pickle)
+# ---------------------------------------------------------------------------
+
+
+def save_packed_npz(path, pm: PackedModel) -> None:
+    """Write a ``PackedModel``'s packs to ``path`` as one ``pud-pack-v2``
+    .npz with per-tensor layout metadata.  Only the packed projections
+    serialize; the bf16 leaves are not part of the archive."""
+    tensors = pm.tensors
+    meta = {
+        "format": PACK_FORMAT,
+        "names": list(tensors),
+        "weight_bits": pm.weight_bits,
+        "placed": pm.placed,
+        "entries": {
+            name: {"layout": pt.layout, "logical_k": pt.logical_k,
+                   "window_block": pt.window_block, "backend": pt.backend,
+                   "tile_plan": None}
+            for name, pt in tensors.items()
+        },
+    }
+    arrays = {"meta": np.array(json.dumps(meta))}
+    for i, pt in enumerate(tensors.values()):
+        arrays[f"t{i}_planes"] = pt.planes.cpu().numpy()
+        arrays[f"t{i}_scale"] = pt.scale.cpu().numpy()
+        if pt.col_ids is not None:
+            arrays[f"t{i}_col_ids"] = pt.col_ids.cpu().numpy().astype(
+                np.int32)
+    with open(path, "wb") as f:
+        np.savez(f, **arrays)
+
+
+def load_packed_npz(path, device=None) -> dict[str, PackedTensor] | None:
+    """Read an archive's packs back as {name: PackedTensor} on ``device``
+    (default the GPU; raises without one).  A ``pud-pack-v1`` archive
+    loads with each pack's layout taken from its plane dtype; an unknown
+    format tag or a corrupt file reads as None.  A recorded backend the
+    port does not have (the reference's ``pallas``) loads as None, the
+    default."""
+    from repro_torch.devices import resolve_device
+    from repro_torch.kernels.backends import backend_names
+    device = resolve_device(device)
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(str(z["meta"]))
+            if meta.get("format") not in (PACK_FORMAT, "pud-pack-v1"):
+                return None
+            entries = meta.get("entries", {})
+            out = {}
+            for i, name in enumerate(meta["names"]):
+                planes = torch.from_numpy(z[f"t{i}_planes"]).to(device)
+                col_ids = (torch.from_numpy(z[f"t{i}_col_ids"]).to(device)
+                           if f"t{i}_col_ids" in z else None)
+                pt = PackedTensor(
+                    planes=planes,
+                    scale=torch.from_numpy(z[f"t{i}_scale"]).to(device),
+                    col_ids=col_ids,
+                    layout=(LAYOUT_BITPACK if planes.dtype == torch.uint8
+                            else LAYOUT_DENSE))
+                e = entries.get(name, {})
+                if e:                       # v2: explicit layout metadata
+                    backend = e.get("backend")
+                    pt = pt.replace(layout=e.get("layout", pt.layout),
+                                    logical_k=e.get("logical_k"),
+                                    window_block=e.get("window_block"),
+                                    backend=(backend if backend
+                                             in backend_names() else None))
+                out[name] = pt
+            return out
+    except (OSError, ValueError, KeyError, EOFError, json.JSONDecodeError,
+            zipfile.BadZipFile):
+        return None

@@ -1,5 +1,6 @@
 """Serving-time weight packer (port of ``repro/pud/packer.py``, single
-device: ``packing_requests``, ``pack_model`` and the placed-window pack).
+device: ``packing_requests``, ``pack_model`` (and its tuple-returning
+``pack_for_serving``) and the placed-window pack).
 
 ``pack_model`` walks a parameter tree and replaces the projections matched
 by ``PUDGemvConfig.packable`` with ``PackedTensor`` bit-plane packs, which
@@ -183,3 +184,13 @@ def pack_model(params: dict, cfg: PUDGemvConfig = PUDGemvConfig(),
                        weight_bits=cfg.weight_bits,
                        placed=placement is not None)
 
+
+def pack_for_serving(params: dict, cfg: PUDGemvConfig = PUDGemvConfig(),
+                     include_unembed: bool = True,
+                     placement: Placement | None = None
+                     ) -> tuple[dict, dict]:
+    """The reference's older entry: (serving params tree, report dict) of
+    ``pack_model``."""
+    pm = pack_model(params, cfg, include_unembed=include_unembed,
+                    placement=placement)
+    return pm.params, pm.report

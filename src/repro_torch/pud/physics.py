@@ -61,6 +61,15 @@ class PhysicsParams:
     def maj_margin(self) -> float:
         return 0.5 * self.cell_weight
 
+    def frac_charge(self, bit: torch.Tensor,
+                    n_frac: torch.Tensor) -> torch.Tensor:
+        """Cell charge after ``n_frac`` Frac ops applied to a stored bit:
+        0.5 + (bit - 0.5) * alpha^n_frac, float32."""
+        half = f32(NEUTRAL, bit)
+        alpha = f32(self.frac_alpha, bit)
+        return half + (bit.to(torch.float32) - half) * torch.pow(
+            alpha, n_frac.to(torch.float32))
+
     def sensing_sigma(self, n_fracs_total: float,
                       sum_swing_sq: torch.Tensor) -> torch.Tensor:
         """Effective dynamic noise std of one SiMRA sensing:

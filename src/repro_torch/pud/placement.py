@@ -11,6 +11,14 @@ packs' ``col_ids`` store) are absolute window positions.
 
 Persisted placements use the reference's ``pud-placement-v2`` npz format,
 so either package reads what the other wrote.
+
+Fault injection models serving from the faulty device: ``corrupt_planes``
+makes every bit stored on an error-prone window column read its stuck
+value, ``inject_read_faults`` does so for every placed pack of a serving
+tree, and ``refresh_fault_state`` re-reads the windows' fault state from
+new masks.  With ``avoid_faulty=True`` no ``col_ids`` entry addresses a
+corrupted column, so decoding is bit-identical; the identity layout
+computes on faulty columns and breaks.
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ import json
 import zipfile
 
 import numpy as np
+import torch
 
 from repro_torch.kernels.ops import N_BLOCK, largest_divisor
 
@@ -272,6 +281,75 @@ def plan_for_grid(masks, requests, grid_shape, **kw) -> Placement:
     """``plan_placement`` with the true (channels, banks, subarrays) shape."""
     p = plan_placement(masks, requests, **kw)
     return dataclasses.replace(p, grid_shape=tuple(grid_shape))
+
+
+def refresh_fault_state(placement: Placement, masks,
+                        sense_offsets=None) -> Placement:
+    """Every entry's faulty / stuck window masks recomputed from new
+    ``masks`` [G, C] (drift changes which columns err, not where tensors
+    live).  The column maps and the capacity accounting stay as planned."""
+    flat_faulty = np.asarray(masks, bool).reshape(-1)
+    entries: dict[str, TensorPlacement] = {}
+    for name, tp in placement.entries.items():
+        stacked = tp.phys_cols.ndim == 2
+        slices = tp.phys_cols if stacked else tp.phys_cols[None]
+        faulty, stuck = [], []
+        for cols in slices:
+            starts, spans = _slice_blocks(np.asarray(cols, np.int64),
+                                          tp.block_cols)
+            f, s = _window_masks(starts, spans, tp.window_block,
+                                 flat_faulty, sense_offsets)
+            faulty.append(f)
+            stuck.append(s)
+        entries[name] = dataclasses.replace(
+            tp, faulty=np.stack(faulty) if stacked else faulty[0],
+            stuck=np.stack(stuck) if stacked else stuck[0])
+    return dataclasses.replace(placement, entries=entries)
+
+
+def corrupt_planes(planes: torch.Tensor, tp: TensorPlacement
+                   ) -> torch.Tensor:
+    """``planes`` [L?, WB, K(/8), W] with every bit on an error-prone
+    window column of ``tp`` replaced by its stuck read (every plane and
+    row of the column).  Bit-packed words of a stuck-1 column read 0xFF,
+    of a stuck-0 column 0x00."""
+    dev = planes.device
+    faulty = torch.from_numpy(np.asarray(tp.faulty, bool)).to(dev)
+    stuck = torch.from_numpy(np.asarray(tp.stuck, np.int8)).to(dev)
+    if planes.dtype == torch.uint8:
+        stuck = stuck.to(torch.uint8) * 0xFF
+    else:
+        stuck = stuck.to(planes.dtype)
+    return torch.where(faulty[..., None, None, :],
+                       stuck[..., None, None, :], planes)
+
+
+def inject_read_faults(packed_params: dict, placement: Placement) -> dict:
+    """A copy of the serving tree ``packed_params`` (``pack_model``'s
+    ``params``) with the planes of every placed pack corrupted by
+    ``corrupt_planes``; unplaced packs and other leaves are shared."""
+    from .packed import as_packed_tensor, is_pack
+
+    def walk(tree, path):
+        out = {}
+        for key, sub in tree.items():
+            if key.endswith("_pud") and is_pack(sub) \
+                    and sub.get("col_ids") is not None:
+                name = "/".join(path + (key[: -len("_pud")],))
+                tp = placement.entries.get(name)
+                if tp is None:
+                    raise KeyError(
+                        f"packed tensor {name!r} has no placement entry "
+                        f"(have: {sorted(placement.entries)})")
+                pt = as_packed_tensor(sub)
+                out[key] = pt.replace(planes=corrupt_planes(pt.planes, tp))
+            elif isinstance(sub, dict):
+                out[key] = walk(sub, path + (key,))
+            else:
+                out[key] = sub
+        return out
+
+    return walk(packed_params, ())
 
 
 # ---------------------------------------------------------------------------

@@ -52,9 +52,17 @@ class CalibrationTable:
     ecr: np.ndarray | None            # [G] float32
     masks: np.ndarray | None          # [G, n_cols] bool (True = error-prone)
     metadata: dict
-    calibrated_at: float | None = None
-    assumed_temp_c: float | None = None
-    params_fingerprint: str | None = None
+    calibrated_at: float | None = None       # wall time of identification
+    assumed_temp_c: float | None = None      # operating temp the table assumes
+    params_fingerprint: str | None = None    # physics fingerprint of the entry
+
+    def age_days(self, now: float | None = None) -> float | None:
+        """Days since identification, or None for an entry without age
+        metadata."""
+        if self.calibrated_at is None:
+            return None
+        return max(0.0, ((time.time() if now is None else now)
+                         - self.calibrated_at) / 86400.0)
 
 
 def _safe_name(name: str) -> str:
@@ -196,3 +204,123 @@ class CalibrationTableCache:
         d = self._entry_dir(device_id, cfg, params) / "placements"
         return sorted(p.stem for p in d.glob("*.npz")
                       if ".tmp-" not in p.name) if d.exists() else []
+
+    # -- inspection ---------------------------------------------------------
+
+    def entries(self) -> list[dict]:
+        """Manifests of every valid entry under the cache root."""
+        out = []
+        if not self.directory.exists():
+            return out
+        for manifest in sorted(self.directory.glob("*/*/manifest.json")):
+            if ".tmp-" in manifest.parent.name:   # crashed/in-flight save
+                continue
+            try:
+                out.append(json.loads(manifest.read_text()))
+            except (OSError, json.JSONDecodeError):
+                continue
+        return out
+
+    def evict(self, device_id: str) -> int:
+        """Drop every table of one device; returns the number removed."""
+        d = self.directory / device_id
+        if not d.exists():
+            return 0
+        n = sum(1 for m in d.glob("*/manifest.json")
+                if ".tmp-" not in m.parent.name)
+        shutil.rmtree(d)
+        return n
+
+
+# ---------------------------------------------------------------------------
+# CLI: inspect/evict persisted device tables without writing any Python.
+#
+#     python -m repro_torch.runtime.calib_cache --root DIR --list
+#     python -m repro_torch.runtime.calib_cache --root DIR --stats
+#     python -m repro_torch.runtime.calib_cache --root DIR --evict DEVICE
+#
+# numpy only: an operator can inspect a serving host's cache from any
+# Python, without torch or a GPU.
+# ---------------------------------------------------------------------------
+
+
+def _dir_bytes(path: pathlib.Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def _entry_rows(root: pathlib.Path) -> list[dict]:
+    rows = []
+    for manifest in sorted(root.glob("*/*/manifest.json")):
+        entry = manifest.parent
+        if ".tmp-" in entry.name:
+            continue
+        try:
+            m = json.loads(manifest.read_text())
+        except (OSError, json.JSONDecodeError):
+            m = {}
+        placements = entry / "placements"
+        rows.append({
+            "calibrated_at": (m.get("calibration") or {}).get("calibrated_at"),
+            "device_id": entry.parent.name,
+            "table_key": entry.name,
+            "format": m.get("format", "?"),
+            "grid_shape": m.get("grid_shape"),
+            "n_cols": m.get("n_cols"),
+            "frac_counts": m.get("frac_counts"),
+            "n_placements": (sum(1 for p in placements.glob("*.npz")
+                                 if ".tmp-" not in p.name)
+                             if placements.exists() else 0),
+            "bytes": _dir_bytes(entry),
+        })
+    return rows
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.runtime.calib_cache",
+        description="Inspect a persistent calibration-table cache.")
+    ap.add_argument("--root", required=True, metavar="DIR",
+                    help="cache root (the --calib-cache directory)")
+    g = ap.add_mutually_exclusive_group(required=True)
+    g.add_argument("--list", action="store_true",
+                   help="one line per persisted table entry")
+    g.add_argument("--stats", action="store_true",
+                   help="aggregate counts and on-disk size")
+    g.add_argument("--evict", metavar="DEVICE",
+                   help="drop every table of one device")
+    args = ap.parse_args(argv)
+
+    root = pathlib.Path(args.root)
+    if args.evict:
+        n = CalibrationTableCache(root).evict(args.evict)
+        print(f"evicted {n} table(s) of device {args.evict!r}")
+        return 0
+    rows = _entry_rows(root) if root.exists() else []
+    if args.list:
+        if not rows:
+            print(f"no cache entries under {root}")
+            return 0
+        for r in rows:
+            grid = "x".join(str(s) for s in (r["grid_shape"] or ["?"]))
+            frac = "".join(str(f) for f in (r["frac_counts"] or ["?"]))
+            at = r["calibrated_at"]
+            age = (f"age {(time.time() - at) / 86400.0:.1f}d"
+                   if at else "age unknown")
+            print(f"{r['device_id']:<12s} {r['table_key']:<40s} "
+                  f"{r['format']:<15s} grid {grid} x {r['n_cols']} cols "
+                  f"T{frac}  {r['n_placements']} placement(s)  {age}  "
+                  f"{r['bytes'] / 1024:.1f} KiB")
+        return 0
+    devices = {r["device_id"] for r in rows}
+    print(f"cache root       {root}")
+    print(f"devices          {len(devices)}")
+    print(f"table entries    {len(rows)}")
+    print(f"placements       {sum(r['n_placements'] for r in rows)}")
+    print("on-disk size     "
+          f"{(_dir_bytes(root) if root.exists() else 0) / 1024:.1f} KiB")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -12,9 +12,10 @@
 Calibration tables and placements persist in the reference's on-disk
 formats, so either package reads what the other wrote.  The session runs
 on ``cuda`` unless ``device="cpu"`` is passed; without a GPU it raises.
-Per-call execution (``linear``), pinned operating points, canaries, live
-recalibration, tuning and the multi-device fleet session are not ported
-yet.
+``recalibrate_subarrays`` re-identifies a few subarrays against their
+current offsets and merges them into the state.  Per-call execution
+(``linear``), pinned operating points, canaries, tuning and the
+multi-device fleet session are not ported yet.
 """
 from __future__ import annotations
 
@@ -25,8 +26,9 @@ import torch
 
 from repro_torch.core.calibrate import CalibrationConfig
 from repro_torch.core.ecr import measure_ecr_fleet
-from repro_torch.core.fleet import (FleetConfig, load_or_calibrate,
-                                    manufacture_fleet)
+from repro_torch.core.fleet import (FleetConfig, fleet_calib_charges,
+                                    load_or_calibrate, manufacture_fleet,
+                                    recalibrate_subarrays)
 from repro_torch.core.offsets import baseline_charges
 from repro_torch.core.rng import derive_seed
 from repro_torch.devices import resolve_device
@@ -55,6 +57,12 @@ class CalibrationState:
     @property
     def mean_ecr(self) -> float:
         return float(self.ecr.float().mean())
+
+
+def _sync(device: torch.device) -> None:
+    """Wait for ``device``'s queued work, so that a host wall is whole."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class _NullCache:
@@ -160,16 +168,14 @@ class PUDSession:
         """Load the device's persisted table, or identify + persist it."""
         if self._state is not None and not force:
             return self._state
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        _sync(self.device)
         t0 = time.time()
         levels, ecr, masks, hit = load_or_calibrate(
             self.cache if self.cache is not None else _NullCache(),
             self.device_id, self.seed, self.fleet_cfg, self.physics,
             config=self.calib_cfg, method=self.method,
             n_trials_ecr=self.n_trials_ecr, device=self.device)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        _sync(self.device)
         self._state = CalibrationState(
             levels=levels, ecr=ecr, masks=masks,
             cache_hit=bool(hit), wall_s=time.time() - t0)
@@ -187,6 +193,68 @@ class PUDSession:
             base[None].expand(cfg.n_subarrays_total, 3, cfg.n_cols),
             self.physics, 3, n_trials=n_trials or self.n_trials_ecr)
         return float(ecr.mean())
+
+    def recalibrate_subarrays(self, subarrays, sense_offsets: torch.Tensor,
+                              *, assumed_temp_c: float | None = None
+                              ) -> CalibrationState:
+        """Partial recalibration against the device's current offsets
+        ``sense_offsets`` [G, C].
+
+        Re-runs Algorithm 1 for ``subarrays`` only (one stream per
+        subarray, ``core/fleet.recalibrate_subarrays``), re-measures their
+        ECR and masks with a stream of its own, merges the refreshed rows
+        into the state (every other row is kept as it was) and persists
+        the merged table.  The save replaces the whole cache entry, which
+        drops its persisted placements: plans made from the old masks may
+        sit on columns that went bad, so the next ``pack`` plans again.
+        """
+        if self._state is None:
+            raise RuntimeError(
+                "recalibrate_subarrays requires calibrate() first")
+        _sync(self.device)
+        t0 = time.time()
+        idx = sorted(int(s) for s in subarrays)
+        offs = sense_offsets.to(self.device)
+        sub_levels = recalibrate_subarrays(
+            self.seed, offs, idx, self.fleet_cfg, self.physics,
+            self.calib_cfg, method=self.method)
+        rows = torch.tensor(idx, device=self.device)
+        sub_ecr, sub_masks = measure_ecr_fleet(
+            derive_seed(self.seed, 0x0EC5), offs[rows],
+            fleet_calib_charges(self.ladder, sub_levels, self.physics),
+            self.physics, self.n_fracs, n_trials=self.n_trials_ecr)
+        levels, ecr, masks = (self._state.levels.clone(),
+                              self._state.ecr.clone(),
+                              self._state.masks.clone())
+        levels[rows], ecr[rows], masks[rows] = sub_levels, sub_ecr, sub_masks
+        _sync(self.device)
+        self._state = CalibrationState(levels=levels, ecr=ecr, masks=masks,
+                                       cache_hit=False,
+                                       wall_s=time.time() - t0)
+        if self.cache is not None:
+            self.cache.save(
+                self.device_id, self.fleet_cfg, self.physics,
+                levels.cpu().numpy(), ecr=ecr.cpu().numpy(),
+                masks=masks.cpu().numpy(),
+                metadata={"method": self.method,
+                          "recalibrated_subarrays": idx},
+                assumed_temp_c=(self.physics.temp_nominal_c
+                                if assumed_temp_c is None
+                                else assumed_temp_c))
+        return self._state
+
+    def calibration_age(self) -> dict | None:
+        """Age metadata of the persisted table, or None without a cache or
+        a persisted entry."""
+        if self.cache is None:
+            return None
+        table = self.cache.load(self.device_id, self.fleet_cfg, self.physics)
+        if table is None:
+            return None
+        return {"calibrated_at": table.calibrated_at,
+                "age_days": table.age_days(),
+                "assumed_temp_c": table.assumed_temp_c,
+                "params_fingerprint": table.params_fingerprint}
 
     # -- placement + packing ------------------------------------------------
 

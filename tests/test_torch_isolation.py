@@ -33,11 +33,18 @@ def test_sources_exist():
     assert len(files) > 20 and all(f.exists() for f in files)
 
 
-#: The modules of the Table-I slice and the SiMRA sensing kernel: each is
-#: among the scanned sources (its CUDA source among the built ones).
+#: The modules of the Table-I slice and the SiMRA sensing kernel, then of
+#: partial recalibration, the noise fit, the pack archive, fault injection
+#: and the paper's benchmarks: each is among the scanned sources (its CUDA
+#: source among the built ones).
 SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "pud/bitserial.py", "core/calibrate.py", "core/fleet.py",
-                 "core/ecr.py", "core/throughput.py", "runtime/session.py")
+                 "core/ecr.py", "core/throughput.py", "runtime/session.py",
+                 "core/fit.py", "runtime/calib_cache.py", "pud/physics.py",
+                 "pud/packed.py", "pud/placement.py", "pud/packer.py",
+                 "pud/gemv.py", "kernels/ref.py", "benchmarks/__init__.py",
+                 "benchmarks/common.py", "benchmarks/table1.py",
+                 "benchmarks/fleet_calibration.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -211,10 +211,12 @@ def _chip_smoke():
     return mod
 
 
-def test_chip_smoke_rehearses_on_cpu(capsys):
+def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
     """The chip script's phases, on the CPU at smoke size through the plain
     versions: every check passes and every kernel row is complete."""
+    from repro_torch.benchmarks import common
     from repro_torch.core.calibrate import CalibrationConfig
+    monkeypatch.setattr(common, "ART", tmp_path)
     cs = _chip_smoke()
     out = cs.run(torch, torch.device("cpu"), preset="smoke",
                  grid=dict(n_channels=1, n_banks=1, n_subarrays=8,
@@ -228,7 +230,12 @@ def test_chip_smoke_rehearses_on_cpu(capsys):
                  simra=dict(n_cols=2048, events=64),
                  dense_cfg=dict(b=4, k=256, n=512, wb=4),
                  sense_shapes=[(1, 8, 2048, 3), (16, 8, 512, 0),
-                               (3, 5, 100, 3)])
+                               (3, 5, 100, 3)],
+                 calib_shapes=[(4, 512, 5, 256), (3, 64, 5, 1001)],
+                 fleet_argv=["--subarrays", "4", "--n-cols", "256",
+                             "--n-trials", "256", "--check-full",
+                             "--device", "cpu"],
+                 recal=(3, 5))
     names = [r["name"] for r in out["rows"]]
     assert names == ["calib_iter", "gemm_placed", "gemv_placed", "gemm",
                      "gemv", "majx_sense"]
@@ -248,6 +255,11 @@ def test_chip_smoke_rehearses_on_cpu(capsys):
     assert "gains T210/B300" in text and "command level" in text
     assert "unplaced engine path" in text and "100.0% of requests" in text
     assert "plan: dp4a" in text and "plan: tensor cores" in text
+    assert "other 6 rows of levels, ECR and masks unchanged" in text
+    assert out["faults"]["delta"] > 0.1
+    assert set(out["archive"]) == {"placed", "unplaced"}
+    assert "#csv fleet_calibration" in text and "#csv table1" in text
+    assert "main leg == reference on the same inputs" in text
 
 
 def test_chip_smoke_fails_without_gpu_or_sources(tmp_path):
