@@ -86,7 +86,23 @@ Phases (any failure exits nonzero and prints no result line):
      tensor cores, grid, K split, stage words, stages, shared memory; an
      unplaced dp4a row also the WB its kernel instance is compiled for;
      made for the card's SM count);
- 13. print the ``kernels`` JSON line and, last, the device JSON line.
+ 13. gemma-7b at full width through the engine's scheduler, after the
+     qwen3 phases' models, packs and caches are freed: 28 layers, d 3,072,
+     d_ff 24,576, vocab 256,000, random weights from the seed, on a 1 x 1 x
+     32 x 65,536 grid (its 1,718,272 placed columns do not fit 16
+     subarrays): calibration (a cache miss), placement, 4-bit placed packs;
+     12 requests on 4 slots (8 sharing a 64-token system prompt, 2 exact
+     repeats, 2 unrelated; ``GEMMA``) served (A) with 32-row chunked
+     prefill, a prefix cache and a heartbeat, (B) by the FIFO engine with
+     whole-request bucketed prefill, (C) as A with SLO admission at a
+     deadline of 16 modeled steps: A's tokens and logits equal B's bit for
+     bit, 2 full and 7 partial prefix hits, fewer prefilled tokens, the
+     heartbeat at the last step, C sheds at admission and meets deadlines,
+     its unshed requests equal B's; A replayed through the plain versions
+     bit for bit; profiles of a chunk step and a decode step (the placed
+     GEMM kernels' device time and launches); peak device memory; then
+     the placed GEMM/GEMV and ``calib_iter`` at gemma's shapes, as in 12;
+ 14. print the ``kernels`` JSON line and, last, the device JSON line.
 
 Device time from ``torch.profiler`` counts each device event (kernel, copy,
 memset) once; the host ops that launched them are not added again.
@@ -95,6 +111,7 @@ It needs the port's sources beside it (``src/repro_torch``) and a GPU.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import pathlib
@@ -141,6 +158,17 @@ ARCHIVE_STEPS = 4            # decode steps from the loaded archives
 # benchmarks.fleet_calibration on the card; --check-full holds its main
 # leg's calib_iter launches against the plain version on the same inputs
 FLEET_ARGV = ["--full", "--check-full"]
+# gemma-7b at full width through the engine's scheduler: 1,718,272 placed
+# columns need 32 subarrays of 65,536 (16 hold ~1.01 M error-free).  The
+# traffic: 8 prompts sharing a 64-token system prompt (own tails of 8-64
+# tokens), 2 unrelated prompts of 16-96 and 2 exact repeats, budgets of
+# 4-16; the SLO run's deadline is ``slo_steps`` modeled steps.
+GEMMA = dict(arch="gemma-7b", preset="full",
+             grid=dict(n_channels=1, n_banks=1, n_subarrays=32,
+                       n_cols=65536),
+             slots=4, max_len=256, chunk=32, system=64, own=(8, 64),
+             unrelated=(16, 96), budget=(4, 16), n_shared=8, cache=64,
+             slo_steps=16)
 
 
 class PhaseError(RuntimeError):
@@ -924,47 +952,357 @@ def profile_prefill(torch, model, params, tokens, max_len, sync) -> list:
     return gemm
 
 
-def profile_step(torch, model, params, tokens, max_len, sync,
-                 placed_was=None) -> None:
-    """Host wall time of one decode step and, from ``torch.profiler``, the
-    device time it launched, by kernel, and the GEMM kernels' sum;
-    ``placed_was``: the placed GEMM's device time per step before its
-    staged redesign (ms), printed beside it."""
+def profile_calls(torch, label: str, fn, sync, was: str = "") -> dict:
+    """Host wall of one call of ``fn`` (median of 5, synchronised) and,
+    from ``torch.profiler``, the device time it launched, by kernel, and
+    the GEMM kernels' sum and launches (``was``: printed beside it)."""
     from torch.profiler import ProfilerActivity, profile
-
     with torch.inference_mode():
-        logits, cache = model.prefill(params, tokens, max_len=max_len)
-        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-        pos = tokens.shape[1]
         for _ in range(2):
-            model.decode_step(params, cache, nxt, pos)
+            fn()
         sync()
         walls = []
         for _ in range(5):
             t0 = time.perf_counter()
-            model.decode_step(params, cache, nxt, pos)
+            fn()
             sync()
             walls.append((time.perf_counter() - t0) * 1e3)
         acts = [ProfilerActivity.CPU]
-        if tokens.is_cuda:
+        if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
         with profile(activities=acts) as prof:
-            model.decode_step(params, cache, nxt, pos)
+            fn()
             sync()
-    rows = device_rows(prof)
     wall = statistics.median(walls)
-    busy = sum(r[0] for r in rows) / 1e3
-    print(f"  decode step (batch {tokens.shape[0]}): host wall "
-          f"{wall:.3f} ms (median of 5)")
+    rows = device_rows(prof)
+    print(f"  {label}: host wall {wall:.3f} ms (median of 5)")
     if not rows:
         print("  device time: not measured (the profiler reported none)")
-        return
-    print(f"  device time {busy:.3f} ms ({busy / wall:.1%} of the wall "
-          "step); by kernel:")
+        return dict(wall_ms=wall)
+    busy = sum(r[0] for r in rows) / 1e3
+    print(f"  device time {busy:.3f} ms ({busy / wall:.1%} of the wall); "
+          "by kernel:")
     for dev_us, count, key in sorted(rows, reverse=True)[:8]:
         print(f"    {dev_us / 1e3:8.3f} ms  x{count:<5d} {key[:70]}")
-    print_gemm_kernels(rows, "step", "" if placed_was is None else
-                       f" (before the staged redesign: {placed_was} ms)")
+    gemm = print_gemm_kernels(rows, "step", was)
+    return dict(wall_ms=wall, device_ms=busy,
+                gemm_ms=sum(d for d, _, _ in gemm) / 1e3,
+                gemm_launches=sum(c for _, c, _ in gemm))
+
+
+def profile_step(torch, model, params, tokens, max_len, sync,
+                 placed_was=None) -> None:
+    """``profile_calls`` over one decode step after a prefill of
+    ``tokens``; ``placed_was``: the placed GEMM's device time per step
+    before its staged redesign (ms), printed beside it."""
+    with torch.inference_mode():
+        logits, cache = model.prefill(params, tokens, max_len=max_len)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    profile_calls(torch, f"decode step (batch {tokens.shape[0]})",
+                  lambda: model.decode_step(params, cache, nxt,
+                                            tokens.shape[1]), sync,
+                  "" if placed_was is None else
+                  f" (before the staged redesign: {placed_was} ms)")
+
+
+def gemma_traffic(torch, vocab: int, cfg: dict):
+    """The gemma phase's requests, as (first wave, second wave): the first
+    shared prompt and the two unrelated ones, then the other shared
+    prompts and the repeats of requests 0 and 1.  Lengths and budgets come
+    from a CPU generator, so a CPU rehearsal draws the same ones."""
+    from repro_torch.core.rng import generator
+    from repro_torch.runtime.engine import Request
+    g = generator(SEED, "gemma-traffic")
+
+    def n_in(lo_hi):
+        return int(torch.randint(lo_hi[0], lo_hi[1] + 1, (1,), generator=g))
+
+    def toks(n):
+        return torch.randint(0, vocab, (n,), generator=g, dtype=torch.int32)
+
+    system = toks(cfg["system"])
+    shared = [torch.cat([system, toks(n_in(cfg["own"]))])
+              for _ in range(cfg["n_shared"])]
+    unrelated = [toks(n_in(cfg["unrelated"])) for _ in range(2)]
+    prompts = ([shared[0]] + unrelated + shared[1:]
+               + [shared[0].clone(), unrelated[0].clone()])
+    reqs = [Request(i, t, n_in(cfg["budget"])) for i, t in enumerate(prompts)]
+    return reqs[:3], reqs[3:]
+
+
+def counting_cache(capacity: int):
+    """A ``PrefixCache`` that also counts its full hits (an entry covering
+    the whole prompt) apart from its partial ones."""
+    from repro_torch.runtime.prefix_cache import PrefixCache
+
+    class Counting(PrefixCache):
+        full_hits = 0
+
+        def lookup(self, version, tokens, lengths):
+            entry = super().lookup(version, tokens, lengths)
+            if entry is not None and entry.n_tokens == len(tokens):
+                self.full_hits += 1
+            return entry
+
+    return Counting(capacity=capacity)
+
+
+def serve_waves(engine, waves, warm: int) -> list:
+    """Submit the first wave, step ``warm`` times (the first shared prompt's
+    chunks), then serve the second wave to completion."""
+    first, second = waves
+    engine.submit_all(first)
+    for _ in range(warm):
+        engine.step()
+    return engine.run(second)
+
+
+def gemma_phase(torch, dev, cfg: dict, kernels, sync) -> dict:
+    """gemma-7b at full width (depth not cut, random weights from the seed)
+    served by the engine's scheduler through the placed kernels.
+
+    Calibrate a 1 x 1 x 32 x 65,536 grid (a cache miss), place and pack
+    the FFN and unembed projections (4 bits); then the same traffic
+    through (A) chunked prefill of ``chunk`` rows with a prefix cache and a
+    heartbeat, (B) the FIFO engine with whole-request bucketed prefill,
+    (C) A's scheduler with SLO admission; A's tokens and logits equal B's
+    bit for bit, C's unshed requests equal B's; A again through the plain
+    versions, bit for bit; profiles of a chunk step and a decode step.
+    Returns the packs for the kernel rows and the launches of runs A-C."""
+    from repro_torch.configs import get
+    from repro_torch.core.calibrate import CalibrationConfig
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.core.rng import generator
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.pud.gemv import FFN_PACKABLE, PUDGemvConfig
+    from repro_torch.runtime.engine import ServingEngine, SLOConfig
+    from repro_torch.runtime.session import PUDSession
+    from repro_torch.runtime.watchdog import Heartbeat
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    spec = get(cfg["arch"])
+    model = spec.make_model() if cfg["preset"] == "full" else \
+        spec.make_smoke()
+    mc = model.cfg
+    phase(f"{cfg['arch']} ({cfg['preset']}): calibrate -> place -> pack on "
+          f"a {cfg['grid']['n_subarrays']} x {cfg['grid']['n_cols']:,} grid")
+    sync()
+    t0 = time.perf_counter()
+    params = init_params(model.param_defs(), SEED, dev)
+    sync()
+    print(f"  {param_count(model.param_defs()):,} parameters ({mc.n_layers} "
+          f"layers, d {mc.d_model}, d_ff {mc.d_ff}, heads {mc.n_heads} / "
+          f"{mc.n_kv_heads} of {mc.hd}, vocab {mc.vocab}, {mc.activation}, "
+          f"embed scale {mc.embed_scale}, zero-centred norm "
+          f"{mc.zero_centered_norm}); init {time.perf_counter() - t0:.2f}s")
+    cache = tempfile.TemporaryDirectory(prefix="pud-gemma-")
+    session = PUDSession.open(
+        cfg["arch"], grid=FleetConfig(**cfg["grid"]), cache_dir=cache.name,
+        calib=CalibrationConfig(n_iterations=12, n_samples=256),
+        seed=SEED + 2, device=dev)
+    reset_counts(kernels)
+    st = session.calibrate()
+    sync()
+    calib_launches = kernels["calib_iter"].launches
+    need(not st.cache_hit, "a fresh cache reported a hit")
+    need(calib_launches > 0 or not on_card,
+         "calibration never launched calib_iter")
+    print(f"  calibration MISS in {st.wall_s:.3f}s: "
+          f"{session.fleet_cfg.n_subarrays_total} subarrays, mean ECR "
+          f"{st.mean_ecr:.4f}, {calib_launches} calib_iter launches")
+    sync()
+    t0 = time.perf_counter()
+    packed = session.pack(params, PUDGemvConfig(weight_bits=4,
+                                                packable=FFN_PACKABLE),
+                          name=f"{cfg['arch']}-{cfg['preset']}")
+    sync()
+    t_pack = time.perf_counter() - t0
+    del params
+    need(session.placement_status == "planned" and packed.placed,
+         f"placement {session.placement_status}: {session.placement_error}")
+    rep = session.placement.capacity_report()
+    extras = session.decode_extras()
+    print(f"  placement planned: {rep['used_cols']:,} / "
+          f"{rep['usable_cols']:,} error-free columns used (occupancy "
+          f"{rep['occupancy']:.4f}, {rep['occupied_subarrays']} / "
+          f"{rep['n_subarrays']} subarrays); {extras['n_packed']} packs, "
+          f"{extras['stored_bytes'] / 2**30:.2f} GiB bit-packed; pack "
+          f"{t_pack:.2f}s")
+    for name in ("layers_0_dense/mixer/wi", "layers_0_dense/mixer/wo",
+                 "unembed/w"):
+        tp = session.placement.entries[name]
+        print(f"    {name}: block {tp.block_cols}, window block "
+              f"{tp.window_block}")
+
+    waves = gemma_traffic(torch, mc.vocab, cfg)
+    reqs = waves[0] + waves[1]
+    warm = -(-waves[0][0].prompt_len // cfg["chunk"])
+    print(f"  traffic: {len(reqs)} requests on {cfg['slots']} slots, "
+          f"prompts {[r.prompt_len for r in reqs]}, budgets "
+          f"{[r.max_new_tokens for r in reqs]}")
+    common = dict(max_len=cfg["max_len"], batch_size=cfg["slots"],
+                  collect_logits=True)
+
+    def sched():
+        return dict(chunk_prefill=cfg["chunk"],
+                    prefix_cache=counting_cache(cfg["cache"]))
+
+    def drive(label, engine):
+        reset_counts(kernels)
+        sync()
+        t0 = time.perf_counter()
+        comps = serve_waves(engine, waves, warm)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = read_counts(kernels)
+        r = engine.scheduler_report()
+        print(f"  run {label}: {r['completed']} requests, "
+              f"{r['generated_tokens']} tokens in {r['steps']} decode "
+              f"steps, {r['prefill_chunks']} prefill chunks, "
+              f"{r['prefilled_tokens']} prefilled tokens, "
+              f"{r['prefill_traces']} bucket / {r['chunk_traces']} chunk "
+              f"shapes, decode {r['wall_tok_s']:.1f} tok/s; {wall:.2f}s "
+              f"wall; launches {counts}")
+        return comps, r, counts, wall
+
+    phase("gemma run A: chunked prefill + prefix cache + heartbeat")
+    beat_dir = tempfile.TemporaryDirectory(prefix="pud-beat-")
+    eng_a = session.serving_engine(model, heartbeat=Heartbeat(beat_dir.name),
+                                   **common, **sched())
+    comps_a, rep_a, counts_a, wall_a = drive("A", eng_a)
+    pc = rep_a["prefix_cache"]
+    full = eng_a._prefix_cache.full_hits
+    print(f"    prefix cache: {pc['hits']} hits ({full} full, "
+          f"{pc['hits'] - full} partial) / {pc['misses']} misses, "
+          f"{pc['entries']} entries ({pc['bytes'] / 2**20:.1f} MiB), "
+          f"{pc['evictions']} evictions")
+    need(counts_a["gemm_placed"] > 0 and counts_a["gemv_placed"] > 0
+         or not on_card, "run A never launched the placed GEMM and GEMV")
+    need(counts_a["gemm"] == counts_a["gemv"] == 0,
+         "the placed path launched an unplaced kernel")
+    beats = Heartbeat.read_all(beat_dir.name)
+    need(len(beats) == 1 and beats[0]["step"] == rep_a["steps"]
+         and beats[0]["completed"] == len(reqs),
+         f"the heartbeat does not hold the engine's last step: {beats}")
+    print(f"    heartbeat: step {beats[0]['step']}, count "
+          f"{beats[0]['count']}, {beats[0]['completed']} completed")
+    beat_dir.cleanup()
+
+    phase("gemma run B: FIFO engine, whole-request bucketed prefill")
+    eng_b = session.serving_engine(model, **common)
+    comps_b, rep_b, counts_b, wall_b = drive("B", eng_b)
+    need(len(comps_a) == len(comps_b) == len(reqs)
+         and all(len(c.tokens) == r.max_new_tokens
+                 for c, r in zip(comps_b, reqs)),
+         "an engine did not complete every request with its budget")
+    need(all(0 <= t < mc.vocab for c in comps_b for t in c.tokens),
+         "bad tokens")
+    need(all(bool(torch.isfinite(c.logits).all()) for c in comps_b),
+         "non-finite logits")
+    same_tokens = all(a.tokens == b.tokens for a, b in zip(comps_a, comps_b))
+    delta = max(float((a.logits - b.logits).abs().max())
+                for a, b in zip(comps_a, comps_b))
+    bit = all(torch.equal(a.logits, b.logits)
+              for a, b in zip(comps_a, comps_b))
+    print(f"  A vs B: tokens {'equal' if same_tokens else 'DIFFER'}, logits "
+          f"{'bit-identical' if bit else f'max |delta| {delta}'}; "
+          f"prefilled tokens A {rep_a['prefilled_tokens']} < B "
+          f"{rep_b['prefilled_tokens']}")
+    need(same_tokens, "run A's tokens differ from run B's")
+    need(bit, f"run A's logits differ from run B's by {delta}")
+    need(full >= 2 and pc["hits"] - full >= 7,
+         f"expected 7 partial and 2 full prefix hits: {full} full, {pc}")
+    need(rep_a["prefilled_tokens"] < rep_b["prefilled_tokens"],
+         "the prefix cache saved no prefill")
+
+    phase("gemma run C: run A's scheduler with SLO admission")
+    step_ms = session.serving_engine(
+        model, **common, slo=SLOConfig()).scheduler_report()["slo"]["step_ms"]
+    deadline = cfg["slo_steps"] * step_ms
+    print(f"  modeled step {step_ms:.3f} ms (the placement rate model at "
+          f"batch {cfg['slots']}); deadline {cfg['slo_steps']} steps = "
+          f"{deadline:.3f} ms")
+    eng_c = session.serving_engine(
+        model, **common, **sched(),
+        slo=SLOConfig(default_deadline_ms=deadline))
+    comps_c, rep_c, counts_c, wall_c = drive("C", eng_c)
+    slo = rep_c["slo"]
+    print(f"    slo: {slo['met']} met / {slo['missed']} missed (shed "
+          f"{slo['shed_on_admit']} at admission, {slo['shed_admitted']} in "
+          f"flight); shed {[c.request_id for c in comps_c if c.shed]}")
+    need(slo["shed_on_admit"] >= 1 and slo["met"] >= 1,
+         f"the deadline shed nothing at admission or met nothing: {slo}")
+    for c, b in zip(comps_c, comps_b):
+        need(c.shed or (c.tokens == b.tokens
+                        and torch.equal(c.logits, b.logits)),
+             f"run C's request {c.request_id} differs from run B's")
+
+    phase("gemma: run A replayed through the plain versions")
+    plain = ServingEngine(model, restamp(packed.params, "reference"),
+                          session=session, **common, **sched())
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    comps_p = serve_waves(plain, waves, warm)
+    sync()
+    t_plain = time.perf_counter() - t0
+    need(sum(read_counts(kernels).values()) == 0,
+         "the plain replay launched a kernel")
+    for p_, a_ in zip(comps_p, comps_a):
+        need(p_.tokens == a_.tokens and torch.equal(p_.logits, a_.logits),
+             f"request {p_.request_id}: kernels differ from plain versions")
+    print(f"  {len(comps_p)} requests: tokens and logits through the "
+          f"kernels == plain versions, bit for bit ({t_plain:.2f}s wall)")
+    del plain, comps_p
+
+    phase("gemma profile: one chunk step (a 32-row chunk + a batch-4 decode "
+          "wave) and one batch-4 decode step")
+    g = generator(SEED, "gemma-profile")
+    with torch.inference_mode():
+        prompt = torch.randint(0, mc.vocab, (1, 2 * cfg["chunk"]),
+                               generator=g, dtype=torch.int32).to(dev)
+        batch = torch.randint(0, mc.vocab, (cfg["slots"], 2 * cfg["chunk"]),
+                              generator=g, dtype=torch.int32).to(dev)
+        _, cache4 = model.prefill(packed.params, batch,
+                                  max_len=cfg["max_len"])
+        _, cache1 = model.prefill(packed.params, prompt,
+                                  max_len=cfg["max_len"])
+        nxt = batch[:, -1:].contiguous()
+        lens = torch.full((cfg["slots"],), 2 * cfg["chunk"],
+                          dtype=torch.int32, device=dev)
+
+    def chunk_step():
+        model.prefill_chunk(packed.params, prompt[:, cfg["chunk"]:], cache1,
+                            cfg["chunk"], kv_len=2 * cfg["chunk"])
+        model.decode_step(packed.params, cache4, nxt, lens)
+
+    def decode_step():
+        model.decode_step(packed.params, cache4, nxt, lens)
+
+    prof = {"chunk step": profile_calls(torch, "chunk step", chunk_step,
+                                        sync),
+            "decode step": profile_calls(torch, "decode step", decode_step,
+                                         sync)}
+    del cache4, cache1
+    launches = {k: counts_a[k] + counts_b[k] + counts_c[k]
+                for k in counts_a}
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    wall = time.perf_counter() - t_phase
+    print(f"  gemma phase: {wall:.1f}s wall; runs A / B / C "
+          f"{wall_a:.2f} / {wall_b:.2f} / {wall_c:.2f}s; peak device memory "
+          + (f"{peak:.2f} GiB" if peak is not None else "not measured"))
+    out = dict(
+        packed=packed, launches=launches,
+        calib_launches=calib_launches, mean_ecr=st.mean_ecr,
+        calib_wall_s=st.wall_s, occupancy=rep["occupancy"],
+        prefix_cache=pc, slo=slo,
+        hits=(full, pc["hits"] - full),
+        prefilled=(rep_a["prefilled_tokens"], rep_b["prefilled_tokens"]),
+        walls=dict(A=wall_a, B=wall_b, C=wall_c, plain=t_plain,
+                   phase=wall), profile=prof, peak_gib=peak)
+    cache.cleanup()
+    return out
 
 
 def run(torch, dev, preset: str = "full", grid: dict = GRID,
@@ -972,7 +1310,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         quickstart: dict = QUICKSTART, simra: dict = SIMRA,
         dense_cfg: dict = DENSE, sense_shapes=SENSE_SHAPES,
         calib_shapes=CALIB_SHAPES, fleet_argv=FLEET_ARGV,
-        recal=RECAL) -> dict:
+        recal=RECAL, gemma: dict = GEMMA) -> dict:
     """All phases on ``dev``.  ``main`` runs them on the GPU at full
     width; a CPU rehearsal (``dev`` cpu, smoke preset, small grid and
     Table-I scales) runs the same control flow through the plain versions,
@@ -1429,6 +1767,35 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         launches=launches["majx_sense"], **sense_row(t0_, r0_, c0_, f0_),
         floor_ms=floor, extra_shapes=[sense_row(*sh) for sh in rest]))
 
+    # gemma-7b at full width: the qwen3 phases' models, packs and caches
+    # go first
+    del packed, upacked, session, usession, model, wi, wo, un, uwi, uwo, uun
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    gem = gemma_phase(torch, dev, gemma, kernels, sync)
+    gpk = gem.pop("packed")
+    gwi, gwo, gun = layer0(gpk, "wi"), layer0(gpk, "wo"), \
+        gpk.tensor("unembed/w")
+    phase("kernels vs plain versions at gemma's shapes")
+    rows[0]["launches"] += gem["calib_launches"]
+    g_sub = gemma["grid"]["n_subarrays"]
+    rows[0]["extra_shapes"].append(calib_row(g_sub, ccfg.n_samples,
+                                             ccfg.maj_inputs,
+                                             gemma["grid"]["n_cols"]))
+    # gemma's shapes go before each placed row's two dense-layout shapes
+    rows[1]["launches"] += gem["launches"]["gemm_placed"]
+    rows[1]["extra_shapes"][-2:-2] = [
+        gemm_row(placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain, pt,
+                 b) for pt, b in ((gwi, gemma["chunk"]),
+                                  (gwo, gemma["slots"]),
+                                  (gun, gemma["slots"]))]
+    rows[2]["launches"] += gem["launches"]["gemv_placed"]
+    rows[2]["extra_shapes"][-2:-2] = [gemm_row(
+        placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain, gun, 1)]
+    del gpk, gwi, gwo, gun
+
+    phase("kernel rows: every shape against its plain version, timed")
     for r in [e for row in rows for e in [row] + row.get("extra_shapes", [])]:
         bb, bo = r["bound_by_bytes_ms"], r["bound_by_ops_ms"]
         r["bound_ms"] = max(bb, bo)
@@ -1447,7 +1814,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
     return {"rows": rows, "mean_ecr": mean_ecr, "occupancy": occupancy,
             "calibration_walls": walls, "table1": t1, "quickstart": qs,
             "simra": sim, "recalibration": recal, "faults": fault,
-            "archive": archive, "fleet_calibration": fleet}
+            "archive": archive, "fleet_calibration": fleet, "gemma": gem}
 
 
 def main() -> int:

@@ -1,5 +1,7 @@
 """Ported architectures, with the reference's full and smoke configs
-(``repro/configs/archs.py``)."""
+(``repro/configs/archs.py``): the dense GQA family, qwen3-1.7b, gemma-7b,
+deepseek-67b and granite-8b.  The port's ``LMConfig`` has no
+``loss_chunk`` (no training path), so the smoke configs leave it out."""
 from __future__ import annotations
 
 from repro_torch.models.transformer import LMConfig, TransformerLM
@@ -19,4 +21,51 @@ register(ArchSpec(
         name="smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
         d_ff=128, vocab=256, head_dim=16, qk_norm=True)),
     n_params=2.03e9, n_active_params=2.03e9,
+))
+
+
+# --- gemma-7b [dense, GeGLU, head_dim 256] [arXiv:2403.08295] ----------------
+
+register(ArchSpec(
+    arch_id="gemma-7b",
+    family="dense",
+    make_model=lambda: TransformerLM(LMConfig(
+        name="gemma-7b", n_layers=28, d_model=3072, n_heads=16,
+        n_kv_heads=16, d_ff=24576, vocab=256000, head_dim=256,
+        activation="gelu", embed_scale=True, zero_centered_norm=True)),
+    make_smoke=lambda: TransformerLM(LMConfig(
+        name="smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
+        d_ff=256, vocab=512, head_dim=32, activation="gelu",
+        embed_scale=True, zero_centered_norm=True)),
+    n_params=9.3e9, n_active_params=9.3e9,
+))
+
+
+# --- deepseek-67b [dense, 95L] [arXiv:2401.02954] ----------------------------
+
+register(ArchSpec(
+    arch_id="deepseek-67b",
+    family="dense",
+    make_model=lambda: TransformerLM(LMConfig(
+        name="deepseek-67b", n_layers=95, d_model=8192, n_heads=64,
+        n_kv_heads=8, d_ff=22016, vocab=102400, head_dim=128)),
+    make_smoke=lambda: TransformerLM(LMConfig(
+        name="smoke", n_layers=3, d_model=64, n_heads=8, n_kv_heads=2,
+        d_ff=160, vocab=256, head_dim=8)),
+    n_params=67.4e9, n_active_params=67.4e9,
+))
+
+
+# --- granite-8b [dense, code] [arXiv:2405.04324] -----------------------------
+
+register(ArchSpec(
+    arch_id="granite-8b",
+    family="dense",
+    make_model=lambda: TransformerLM(LMConfig(
+        name="granite-8b", n_layers=36, d_model=4096, n_heads=32,
+        n_kv_heads=8, d_ff=14336, vocab=49152, head_dim=128)),
+    make_smoke=lambda: TransformerLM(LMConfig(
+        name="smoke", n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
+        d_ff=160, vocab=256, head_dim=8)),
+    n_params=8.3e9, n_active_params=8.3e9,
 ))

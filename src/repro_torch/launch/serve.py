@@ -1,10 +1,12 @@
 """Batched serving driver: prefill + greedy decode, optional PUD GEMM path
 and continuous-batching engine (port of ``repro/launch/serve.py``: the
-``--pud-gemv --calib-cache [--no-placement] [--engine]`` paths).
+``--pud-gemv --calib-cache [--no-placement] [--engine]`` paths and the
+engine's scheduler flags).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --preset full --pud-gemv --calib-cache DIR \
         --fleet-subarrays 16 --fleet-cols 65536 [--no-placement] [--engine]
+    # gemma-7b needs 1,718,272 placed columns: --fleet-subarrays 32
 
 The driver decodes the batch once through the bf16 weights, then, with
 ``--pud-gemv``, opens a ``PUDSession``: calibration (a cached table, or
@@ -17,12 +19,13 @@ packs, the unplaced ones otherwise.  It prints the placement status, token
 agreement with the bf16 path, the DDR4-PUD rate models and wall times.
 ``--engine`` then serves one request per batch row through the
 continuous-batching ``ServingEngine`` and prints the share of requests
-whose tokens equal the lockstep decode's.
+whose tokens equal the lockstep decode's; ``--chunk-prefill N``,
+``--prefix-cache`` and ``--slo-ms X`` turn on its scheduler extensions and
+print their counters.
 
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions instead.
-The drift monitor, mesh and tuning paths, the engine's chunked prefill,
-prefix cache and SLO admission, attention packing and other weight widths
-are not ported yet.
+The drift monitor, mesh and tuning paths, attention packing and other
+weight widths are not ported yet.
 """
 from __future__ import annotations
 
@@ -87,6 +90,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                          "ServingEngine (one request per batch row); with "
                          "--pud-gemv it serves the packs, alone the bf16 "
                          "tree")
+    ap.add_argument("--chunk-prefill", type=int, default=None, metavar="N",
+                    help="chunked prefill: admit prompts N tokens per step "
+                         "interleaved with decode waves (pow2-rounded; "
+                         "bit-identical to whole-request prefill)")
+    ap.add_argument("--prefix-cache", action="store_true",
+                    help="LRU reuse of completed prefills: repeated "
+                         "prompts skip prefill, shared system prompts "
+                         "resume after the cached prefix")
+    ap.add_argument("--slo-ms", type=float, default=None, metavar="X",
+                    help="SLO-aware admission with an X ms default "
+                         "deadline per request: earliest-deadline-first "
+                         "admission priced by the placement rate model, "
+                         "hopeless and expired requests shed")
     ap.add_argument("--batch-size", type=int, default=None,
                     help="engine decode slots; default = the session's "
                          "occupancy-derived optimal batch")
@@ -226,6 +242,32 @@ def _pud_path(args, spec, model, params, tokens, max_len, ref_toks,
     return session
 
 
+def _scheduler_kwargs(args) -> dict:
+    """The engine's scheduler extensions from the CLI flags (all off by
+    default)."""
+    return {
+        "chunk_prefill": args.chunk_prefill,
+        "prefix_cache": bool(args.prefix_cache),
+        "slo": args.slo_ms,
+    }
+
+
+def _print_scheduler_extras(sched: dict, indent: str = "    ") -> None:
+    """Prefix-cache and SLO counter lines (only when the features are on)."""
+    pc = sched.get("prefix_cache")
+    if pc:
+        print(f"{indent}prefix cache: {pc['hits']} hits / "
+              f"{pc['misses']} misses ({pc['hit_rate']:.0%}), "
+              f"{pc['entries']} entries ({pc['bytes'] / 1024:.0f} KiB), "
+              f"{pc['invalidations']} invalidations")
+    slo = sched.get("slo")
+    if slo:
+        print(f"{indent}slo: {slo['met']} met / {slo['missed']} missed "
+              f"(shed {slo['shed_on_admit']} at admission, "
+              f"{slo['shed_admitted']} in flight; "
+              f"modeled step {slo['step_ms']:.3f} ms)")
+
+
 def _engine_path(args, spec, model, serve_params, session, tokens, max_len,
                  lock_toks, res):
     """Serve one request per batch row through the ServingEngine and hold
@@ -233,7 +275,8 @@ def _engine_path(args, spec, model, serve_params, session, tokens, max_len,
     from repro_torch.runtime.engine import Request, ServingEngine
 
     engine = ServingEngine(model, serve_params, session=session,
-                           max_len=max_len, batch_size=args.batch_size)
+                           max_len=max_len, batch_size=args.batch_size,
+                           **_scheduler_kwargs(args))
     requests = [Request(request_id=i, tokens=tokens[i],
                         max_new_tokens=args.gen)
                 for i in range(args.batch)]
@@ -245,6 +288,11 @@ def _engine_path(args, spec, model, serve_params, session, tokens, max_len,
           f"occupancy {sched['slot_occupancy']:.1%}, "
           f"{sched['wall_tok_s']:.1f} tok/s decode wall, "
           f"{sched['prefill_traces']} prefill buckets; {t_eng:.2f}s wall)")
+    if args.chunk_prefill:
+        print(f"    chunked prefill: {sched['prefill_chunks']} chunks "
+              f"of {engine.chunk_prefill} tokens "
+              f"({sched['chunk_traces']} chunk shapes)")
+    _print_scheduler_extras(sched)
     # continuous batching must not change any request's tokens
     same = [c.tokens == lock_toks[i].tolist()
             for i, c in enumerate(completions)]

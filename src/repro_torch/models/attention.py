@@ -1,12 +1,13 @@
-"""GQA attention: full-sequence (chunked softmax) and one-token decode
-against a KV cache, at one position for all rows or at a position per row
-(port of the GQA half of ``repro/models/attention.py``; MLA and chunked
-prefill are not ported yet).
+"""GQA attention: full-sequence (chunked softmax), one prefill chunk resumed
+into a KV cache, and one-token decode against a KV cache, at one position
+for all rows or at a position per row (port of the GQA half of
+``repro/models/attention.py``; MLA is not ported yet).
 
 Layouts are the reference's: q/k/v [B, S, H, Dh], caches [B, Smax, KV, Dh],
 weights wq/wk/wv [D, H, Dh] and wo [H, Dh, D].  Score and PV products
 accumulate in float32 as the reference's ``preferred_element_type`` does.
-The decode step writes the new key/value row into the cache in place.
+The decode step and the prefill chunk write their key/value rows into the
+cache in place.
 """
 from __future__ import annotations
 
@@ -129,6 +130,42 @@ def gqa_attention(p, cfg: AttnConfig, x: torch.Tensor,
     out = _flash(q, k, v, causal=cfg.causal,
                  kv_chunk=min(cfg.kv_chunk, k.shape[1]))
     return merge_proj(p, "wo", out), (k, v)
+
+
+def gqa_prefill_chunk(p, cfg: AttnConfig, x: torch.Tensor,
+                      cache_k: torch.Tensor, cache_v: torch.Tensor,
+                      start: int, kv_len: int) -> torch.Tensor:
+    """Chunked-prefill attention: resume a prompt into an existing KV cache.
+
+    x: [B, C, D], the chunk's hidden states at absolute positions [start,
+    start + C); cache_k/v: [B, Smax, KV, Dh] holding every earlier chunk's
+    keys and values at their positions.  The chunk's keys and values are
+    written at ``start`` in place, and attention runs over the first
+    ``kv_len`` cache rows (the prompt's pow2 bucket) with the causal mask
+    anchored at ``q_offset=start``: row p sees exactly the keys 0..p that a
+    whole-bucket prefill shows it, over the same ``kv_len``-row chunking
+    of the softmax, so each row equals the whole prefill's.  The
+    reference's head padding is left out: without a mesh it does nothing.
+    Returns out [B, C, D].
+    """
+    b, c, _ = x.shape
+    start = int(start)
+    positions = start + torch.arange(c, device=x.device).expand(b, c)
+    q = head_proj(p, "wq", x, cfg.n_heads, cfg.head_dim)
+    k_new = head_proj(p, "wk", x, cfg.n_kv_heads, cfg.head_dim)
+    v_new = head_proj(p, "wv", x, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q)
+        k_new = rmsnorm(p["k_norm"], k_new)
+    q = rope(q, positions, cfg.rope_theta)
+    k_new = rope(k_new, positions, cfg.rope_theta)
+    cache_k[:, start:start + c] = k_new.to(cache_k.dtype)
+    cache_v[:, start:start + c] = v_new.to(cache_v.dtype)
+    k = cache_k[:, :kv_len].to(x.dtype)
+    v = cache_v[:, :kv_len].to(x.dtype)
+    out = _flash(q, k, v, causal=True, kv_chunk=min(cfg.kv_chunk, kv_len),
+                 q_offset=start)
+    return merge_proj(p, "wo", out)
 
 
 def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,

@@ -7,14 +7,28 @@ rotates in float32, projections run in the activation dtype.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from .params import ParamDef
 
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """Tanh-approximate GELU in the reference's operation order
+    (``jax.nn.gelu(approximate=True)``): every operation in x's dtype, with
+    sqrt(2 / pi) rounded to that dtype first.  ``F.gelu`` computes in
+    float32 and rounds once, which moves 43% of bf16 outputs by one ulp
+    against the reference; this order moves 0.25% (its ``tanh``)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype, device=x.device)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x ** 3))))
+    return x * cdf
+
+
 ACT = {
     "silu": F.silu,
-    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "gelu": gelu_tanh,
     "relu": F.relu,
 }
 

@@ -9,9 +9,12 @@ slicing layer ``i`` out of every stacked leaf.
 
 Entry points: ``param_defs()``, ``cache_defs(batch, max_len)``,
 ``prefill(params, tokens, max_len, last_idx)`` -> (logits [B, V] of the last
-or the ``last_idx`` row, cache) and ``decode_step(params, cache, tokens,
+or the ``last_idx`` row, cache), ``prefill_chunk(params, tokens, cache,
+start, kv_len=, last_idx=)`` -> (logits [B, V], cache), one chunk of a
+prompt resumed into a cache, and ``decode_step(params, cache, tokens,
 cur_len)`` -> (logits [B, V], cache), with ``cur_len`` an int or a [B]
-tensor of per-row lengths.  The decode step updates the cache in place.
+tensor of per-row lengths.  The chunk and the decode step update the cache
+in place.
 """
 from __future__ import annotations
 
@@ -159,6 +162,34 @@ class TransformerLM:
                 h = h + ffn(lp["mixer"], self._norm(lp["ln2"], h),
                             cfg.activation)
             cache[name] = {"k": ck, "v": cv}
+        h = self._norm(params["final_norm"], h)
+        h_last = h[:, -1] if last_idx is None else h[:, int(last_idx)]
+        return logits_last(params["unembed"], h_last), cache
+
+    def prefill_chunk(self, params, tokens: torch.Tensor, cache, start: int,
+                      *, kv_len: int, last_idx: int | None = None):
+        """Resume a prompt into an existing KV cache: one prefill chunk.
+
+        tokens: [B, C], the prompt positions [start, start + C); ``cache``
+        a decode cache (``cache_defs`` layout, leaves [L, B, Smax, KV, Dh])
+        holding the earlier chunks at their positions, updated in place.
+        Attention reads the first ``kv_len`` cache rows (the prompt's pow2
+        bucket), so every row equals a whole-bucket prefill's
+        (``attention.gqa_prefill_chunk``).  ``last_idx``: the chunk-local
+        row whose logits are returned (the prompt's last token); by default
+        the chunk's last row.  Returns (logits [B, V] float32, cache).
+        """
+        cfg = self.cfg
+        h = self._embed_tokens(params, tokens)
+        for gi, (kind, count) in enumerate(cfg.groups()):
+            name = f"layers_{gi}_{kind}"
+            for i in range(count):
+                lp = layer_slice(params[name], i)
+                h = h + attn_mod.gqa_prefill_chunk(
+                    lp["attn"], cfg.attn_config(), self._norm(lp["ln1"], h),
+                    cache[name]["k"][i], cache[name]["v"][i], start, kv_len)
+                h = h + ffn(lp["mixer"], self._norm(lp["ln2"], h),
+                            cfg.activation)
         h = self._norm(params["final_norm"], h)
         h_last = h[:, -1] if last_idx is None else h[:, int(last_idx)]
         return logits_last(params["unembed"], h_last), cache

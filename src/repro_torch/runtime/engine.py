@@ -1,15 +1,16 @@
 """ServingEngine: continuous-batching request scheduler (port of
-``repro/runtime/engine.py``, its default FIFO configuration).
+``repro/runtime/engine.py``; the multi-device ``FleetServingEngine`` is not
+ported yet).
 
-  * **Requests** enter a queue (``submit``); each is one prompt plus a
-    token budget.
+  * **Requests** enter a queue (``submit``); each is one prompt, a token
+    budget and an optional deadline.
   * **Slots**: the engine owns ``batch_size`` decode slots and one KV cache
     ``{group: {"k", "v": [L, batch_size, max_len, ...]}}``; every slot holds
     at most one in-flight request.
   * **Continuous batching**: admission and eviction happen at step
     granularity.  Before every decode step free slots are filled from the
-    queue, in FIFO order; after it finished requests are evicted and their
-    slots freed at once.
+    queue; after it finished requests are evicted and their slots freed at
+    once.
   * **Bucketed prefill**: a prompt is zero-padded at the tail to the next
     power of two and prefilled alone (batch 1); its logits are read at the
     true last token, and its cache goes into the slot's lane of the shared
@@ -17,20 +18,35 @@
     mask and overwritten as the request decodes.  Models whose padded
     prefill is not exact (``supports_chunked_prefill`` False: MoE routing
     is sequence-global) prefill at the exact prompt length instead.
+  * **Chunked prefill** (``chunk_prefill=N``): a slot spends several steps
+    prefilling, one N-token chunk per step resumed into a private batch-1
+    cache (``model.prefill_chunk``), interleaved with the decode waves of
+    the other slots, before its first token.  Every chunk attends over the
+    prompt's whole bucket, so it finishes bit-identical to whole prefill.
+  * **Prefix cache** (``prefix_cache=True``): completed prefills are kept
+    in an LRU (``runtime/prefix_cache.py``) keyed on (params version,
+    prompt hash); a repeated prompt skips prefill (full hit), and a shared
+    system prompt resumes chunked prefill after the cached prefix (partial
+    hit).  ``stage_params`` invalidates it.
+  * **SLO admission** (``slo=``): admission is priced on a virtual clock
+    that advances by the modeled step time of the session's placement rate
+    model (``step_seconds``) per working step: requests admit
+    earliest-deadline first, hopeless ones are shed at admission, expired
+    in-flight ones are shed mid-run; completions carry ``slo_met``.
   * **Per-slot positions**: one decode wave runs all slots at once with a
-    [B] vector of cache lengths (``models/attention.gqa_decode``); free
-    slots decode a dummy token at length 0, in their own lane only.
+    [B] vector of cache lengths (``models/attention.gqa_decode``); free and
+    prefilling slots decode a dummy token at length 0, in their own lane
+    only.
 
 Every per-row computation (activation quantization, the integer bit-plane
 kernels, attention masks, RMSNorm) is independent of the other rows, so a
 request's tokens do not depend on what else is in the batch, as far as the
-device's float operations are themselves independent of the batch size.
+device's float operations are themselves independent of the row count.
 
 Batch size: with a ``PUDSession``, the default is its rate model's optimum
 (``optimal_batch_size``).  PyTorch runs eagerly under
-``torch.inference_mode()``; the cache is updated in place.  Chunked
-prefill, the prefix cache, SLO admission and the multi-device fleet engine
-are not ported yet.
+``torch.inference_mode()``; caches are updated in place, so the jit trace
+counters of the reference become counts of distinct prefill shapes.
 """
 from __future__ import annotations
 
@@ -39,11 +55,22 @@ import dataclasses
 import time
 from typing import Any
 
+import numpy as np
 import torch
 
+from .prefix_cache import PrefixCache
 from .watchdog import StepWatchdog
 
 DEFAULT_MAX_BATCH = 32
+
+#: Modeled decode-step wall time when no rate model is available (the SLO
+#: virtual clock only; never a measurement).
+DEFAULT_STEP_MS = 5.0
+
+#: ``run`` raises after this many consecutive steps with queued or active
+#: work but no progress (a ``prefill_budget`` below the chunk size is the
+#: one configuration that can starve forever).
+_STALL_LIMIT = 8
 
 
 def _next_pow2(n: int) -> int:
@@ -53,13 +80,22 @@ def _next_pow2(n: int) -> int:
     return b
 
 
+def _prompt_np(tokens) -> np.ndarray:
+    """A prompt as a contiguous [S] int32 host array (hashing, lookups)."""
+    if isinstance(tokens, torch.Tensor):
+        tokens = tokens.detach().to("cpu", torch.int32).numpy()
+    return np.ascontiguousarray(np.asarray(tokens, np.int32).reshape(-1))
+
+
 @dataclasses.dataclass
 class Request:
-    """One generation request: a prompt and a token budget."""
+    """One generation request: a prompt, a token budget and optionally a
+    deadline (milliseconds from submit, on the engine's modeled clock)."""
 
     request_id: int
     tokens: Any                   # [S] int prompt tokens (array-like)
     max_new_tokens: int
+    deadline_ms: float | None = None
 
     @property
     def prompt_len(self) -> int:
@@ -76,6 +112,41 @@ class Completion:
     admitted_step: int            # engine step index at admission
     finished_step: int            # engine step index after the last token
     logits: torch.Tensor | None = None   # [gen, V] when collect_logits
+    slo_met: bool | None = None   # None when the request had no deadline
+    shed: bool = False            # dropped by the SLO policy / shed_request
+
+
+@dataclasses.dataclass
+class SLOConfig:
+    """Admission policy for requests with deadlines.
+
+    ``step_time_ms`` overrides the modeled per-step time of the virtual
+    clock; by default it is the session's placement rate model
+    (``step_seconds`` at the engine's batch size), else
+    ``DEFAULT_STEP_MS``.  A modeled clock keeps the policy deterministic
+    and independent of host jitter.
+    """
+
+    default_deadline_ms: float | None = None  # for requests without one
+    step_time_ms: float | None = None         # virtual-clock override
+    shed_on_admit: bool = True                # shed hopeless requests
+    shed_admitted: bool = True                # evict expired in-flight ones
+
+
+@dataclasses.dataclass
+class _PrefillState:
+    """A slot's chunked-prefill progress (phase "prefill")."""
+
+    tokens: torch.Tensor          # [bucket] int32 prompt, zero-padded
+    prompt: np.ndarray            # [prompt_len] int32 host copy
+    bucket: int                   # pow2 prefill length (kv rows attended)
+    chunk: int                    # chunk length (divides the bucket)
+    pos: int                      # positions < pos are in the cache
+    cache: Any                    # private batch-1 KV tree [L,1,max_len,..]
+
+    @property
+    def prompt_len(self) -> int:
+        return int(self.prompt.shape[0])
 
 
 @dataclasses.dataclass
@@ -84,6 +155,9 @@ class _Slot:
     admitted_step: int
     generated: list[int]
     logits: list[torch.Tensor]
+    phase: str = "decode"         # "prefill" | "decode"
+    pf: _PrefillState | None = None
+    deadline_vms: float | None = None   # virtual-clock deadline
 
 
 def _tree_device(tree) -> torch.device | None:
@@ -97,22 +171,47 @@ def _tree_device(tree) -> torch.device | None:
     return None
 
 
+def _map_cache(fn, cache: dict) -> dict:
+    """``fn`` over every leaf of a {group: {"k", "v": tensor}} cache."""
+    return {g: {n: fn(c) for n, c in kv.items()} for g, kv in cache.items()}
+
+
 class ServingEngine:
     """Continuous-batching decode engine for one model + serving params.
 
     ``params`` is the serving tree (``PackedModel.params`` for the PUD path
     or a bf16 tree); ``session`` is the ``PUDSession`` whose packed model is
-    served: it gives the default batch size and the DRAM-side rate models
-    of ``perf_report``.  The model must expose ``prefill(params, tokens,
-    max_len=, last_idx=)`` and ``decode_step(params, cache, tokens,
-    cur_len)`` taking a [B] ``cur_len`` (the dense transformer does).
+    served: it gives the default batch size, the DRAM-side rate models of
+    ``perf_report`` and the SLO clock's step time.  The model must expose
+    ``prefill(params, tokens, max_len=, last_idx=)`` and ``decode_step(
+    params, cache, tokens, cur_len)`` taking a [B] ``cur_len``; chunked
+    prefill also needs ``prefill_chunk`` and ``cache_defs`` (the dense
+    transformer has all of them).
+
+    Scheduler extensions, all off by default (the default is the
+    step-granular FIFO engine):
+
+    ``chunk_prefill``     chunk length in tokens (rounded up to a power of
+                          two); prompts prefill one chunk per step.
+    ``prefill_budget``    at most this many prefill tokens per step across
+                          slots (None: one chunk per prefilling slot).
+    ``prefix_cache``      True (a default ``PrefixCache``) or an instance.
+    ``slo``               ``SLOConfig``, or a float: its
+                          ``default_deadline_ms``; EDF admission, shedding.
+    ``heartbeat``         a ``Heartbeat`` told the step index after every
+                          working step.
     """
 
     def __init__(self, model, params, *, max_len: int, session=None,
                  batch_size: int | None = None,
                  max_batch: int = DEFAULT_MAX_BATCH,
                  collect_logits: bool = False,
-                 watchdog: StepWatchdog | None = None):
+                 watchdog: StepWatchdog | None = None,
+                 heartbeat=None,
+                 chunk_prefill: int | None = None,
+                 prefill_budget: int | None = None,
+                 prefix_cache: bool | PrefixCache = False,
+                 slo: SLOConfig | float | None = None):
         if batch_size is None:
             batch_size = self._default_batch_size(session, max_batch)
         if batch_size < 1:
@@ -128,6 +227,26 @@ class ServingEngine:
             raise ValueError("parameter tree holds no tensor")
         self._bucketed = bool(getattr(model, "supports_chunked_prefill",
                                       False))
+        if chunk_prefill is not None:
+            if not self._bucketed:
+                raise ValueError(
+                    "chunk_prefill requires a model with bit-exact chunked "
+                    "prefill (supports_chunked_prefill); MoE routing is "
+                    "sequence-global")
+            if chunk_prefill < 1:
+                raise ValueError(
+                    f"chunk_prefill must be >= 1, got {chunk_prefill}")
+            chunk_prefill = min(_next_pow2(int(chunk_prefill)), self.max_len)
+        self.chunk_prefill = chunk_prefill
+        self.prefill_budget = prefill_budget
+        if prefix_cache is True:
+            prefix_cache = PrefixCache()
+        elif prefix_cache is False:
+            prefix_cache = None
+        self._prefix_cache = prefix_cache
+        if isinstance(slo, (int, float)):
+            slo = SLOConfig(default_deadline_ms=float(slo))
+        self._slo = slo
 
         self._queue: collections.deque[Request] = collections.deque()
         self._slots: list[_Slot | None] = [None] * self.batch_size
@@ -139,13 +258,33 @@ class ServingEngine:
         self._step_idx = 0
         self._active_slot_steps = 0              # sum of live slots per step
         self._decode_wall_s = 0.0
-        self._prefill_buckets: set[int] = set()  # distinct prefill shapes
+
+        # SLO virtual clock: modeled milliseconds, one modeled step time
+        # per working step.
+        self._vtime_ms = 0.0
+        self._step_ms = self._resolve_step_ms()
+        self._deadlines: dict[int, float | None] = {}
+        self._slo_stats = {"shed_on_admit": 0, "shed_admitted": 0,
+                           "met": 0, "missed": 0}
+        self._last_step_worked = False
+
+        # Prefix-cache keys carry the params version, bumped on every hot
+        # swap (which also drops every entry).
+        self._params_version = 0
+        self._prefix_invalidated_entries = 0
+
+        # Distinct prefill shapes run (the reference counts its compiled
+        # variants: the same numbers for a fresh engine).
+        self._prefill_buckets: set[int] = set()
+        self._chunk_shapes: set[tuple[int, int]] = set()
+        self._prefill_chunks = 0                 # chunk calls run
         self._prefilled_tokens = 0               # kv rows computed
 
         # Every decode step is bracketed by the watchdog (EMA step time,
         # stragglers, optional hang callback; none by default, so no
-        # monitor thread starts).
+        # monitor thread starts) and, with a heartbeat, announced after it.
         self.watchdog = watchdog if watchdog is not None else StepWatchdog()
+        self.heartbeat = heartbeat
         self._hangs = 0
         user_hang = self.watchdog.on_hang
         if user_hang is not None:
@@ -160,6 +299,8 @@ class ServingEngine:
         self._staged_params = None
         self._swap_steps: list[int] = []
 
+    # -- construction helpers ------------------------------------------------
+
     @staticmethod
     def _default_batch_size(session, max_batch: int) -> int:
         """The session's rate-model optimum, else a small fixed default."""
@@ -168,6 +309,19 @@ class ServingEngine:
             if hasattr(pm, "optimal_batch_size"):
                 return max(1, pm.optimal_batch_size(max_batch))
         return max(1, min(4, max_batch))
+
+    def _resolve_step_ms(self) -> float:
+        """Modeled decode-step milliseconds of the SLO virtual clock."""
+        if self._slo is not None and self._slo.step_time_ms is not None:
+            return float(self._slo.step_time_ms)
+        if self.session is not None:
+            pm = (self.session.placement_perf_model()
+                  or self.session.tuned_perf_model())
+            if pm is not None and hasattr(pm, "step_seconds"):
+                fpt = self.session.flops_per_token()
+                if fpt:
+                    return pm.step_seconds(fpt, self.batch_size) * 1e3
+        return DEFAULT_STEP_MS
 
     def _bucket(self, s: int) -> int:
         """pow2 prompt-length bucket, clamped to the cache length (the
@@ -186,6 +340,11 @@ class ServingEngine:
                 f"{request.max_new_tokens} exceeds max_len {self.max_len}")
         if request.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        deadline = request.deadline_ms
+        if deadline is None and self._slo is not None:
+            deadline = self._slo.default_deadline_ms
+        self._deadlines[request.request_id] = (
+            None if deadline is None else self._vtime_ms + float(deadline))
         self._queue.append(request)
 
     def submit_all(self, requests) -> None:
@@ -206,79 +365,332 @@ class ServingEngine:
 
     @property
     def prefill_trace_count(self) -> int:
-        """Distinct prefill shapes run (the reference counts compiled
-        variants: the same number for a fresh engine)."""
-        return len(self._prefill_buckets)
+        """Distinct prefill shapes run: whole buckets plus (chunk, bucket)
+        pairs."""
+        return len(self._prefill_buckets) + len(self._chunk_shapes)
 
-    def _admit(self) -> None:
-        """Fill free slots from the queue, FIFO."""
-        for slot in self.free_slots:
-            if not self._queue:
+    # -- batch-1 caches ------------------------------------------------------
+
+    def _zero_cache1(self) -> dict:
+        """A fresh batch-1 KV cache for a prefilling slot."""
+        defs = self.model.cache_defs(1, self.max_len)
+        return _map_cache(lambda d: torch.zeros(d.shape, dtype=d.dtype,
+                                                device=self.device), defs)
+
+    @staticmethod
+    def _trim_cache1(cache1: dict, length: int) -> dict:
+        """A copy of the first ``length`` sequence rows (leaf axis 2)."""
+        return _map_cache(lambda c: c[:, :, :length].clone(), cache1)
+
+    def _pad_cache1(self, cache1: dict) -> dict:
+        """A trimmed batch-1 cache zero-padded back to ``max_len`` rows."""
+        def pad(c):
+            out = torch.zeros(c.shape[:2] + (self.max_len,) + c.shape[3:],
+                              dtype=c.dtype, device=c.device)
+            out[:, :, :c.shape[2]] = c
+            return out
+        return _map_cache(pad, cache1)
+
+    # -- prefix cache --------------------------------------------------------
+
+    def _candidate_lengths(self, s: int) -> list[int]:
+        """Reusable prefix lengths of an ``s``-token prompt, longest first:
+        the whole prompt, then (with chunking, which resumes the suffix)
+        the chunk-aligned proper prefixes."""
+        lengths = [s]
+        if self.chunk_prefill is not None:
+            c = self.chunk_prefill
+            lengths += list(range((s - 1) // c * c, 0, -c))
+        return lengths
+
+    def prefix_probe(self, tokens) -> int:
+        """Longest cached prefix of ``tokens`` (0 without a cache); does
+        not change the cache's state or counters."""
+        if self._prefix_cache is None:
+            return 0
+        tokens = _prompt_np(tokens)
+        return self._prefix_cache.probe(
+            self._params_version, tokens,
+            self._candidate_lengths(int(tokens.shape[0])))
+
+    def _prefix_insert(self, tokens_np: np.ndarray, cache1: dict,
+                       logits_row: torch.Tensor) -> None:
+        """Store a completed prefill: the whole prompt with its logits row,
+        and every chunk-aligned proper prefix, each trimmed to its exact
+        length so that bucket-padding rows are never reused."""
+        if self._prefix_cache is None:
+            return
+        s = int(tokens_np.shape[0])
+        v = self._params_version
+        self._prefix_cache.insert(v, tokens_np, self._trim_cache1(cache1, s),
+                                  logits_row)
+        if self.chunk_prefill is not None:
+            for length in range((s - 1) // self.chunk_prefill
+                                * self.chunk_prefill, 0,
+                                -self.chunk_prefill):
+                self._prefix_cache.insert(
+                    v, tokens_np[:length],
+                    self._trim_cache1(cache1, length), None)
+
+    def _probe_resume_point(self, req: Request) -> int:
+        if self._prefix_cache is None:
+            return 0
+        return self.prefix_probe(req.tokens)
+
+    # -- admission -----------------------------------------------------------
+
+    def _estimate_steps(self, req: Request, resume_from: int = 0) -> int:
+        """Modeled scheduling steps to finish ``req`` from admission."""
+        if self.chunk_prefill is not None:
+            remaining = max(0, req.prompt_len - resume_from)
+            prefill_steps = -(-remaining // self.chunk_prefill)
+        else:
+            prefill_steps = 1
+        return prefill_steps + req.max_new_tokens - 1
+
+    def _shed_completion(self, req: Request, slot: int = -1,
+                         generated=None, logits=None) -> None:
+        self._completions.append(Completion(
+            request_id=req.request_id, tokens=list(generated or []),
+            slot=slot, admitted_step=self._step_idx,
+            finished_step=self._step_idx, logits=logits, slo_met=False,
+            shed=True))
+        self._slo_stats["missed"] += 1
+
+    def _admission_order(self) -> list[Request]:
+        """The queue in admission order: FIFO, or earliest deadline first
+        (stable; requests without a deadline last) under an SLO policy."""
+        q = list(self._queue)
+        if self._slo is None:
+            return q
+
+        def key(pair):
+            i, r = pair
+            d = self._deadlines.get(r.request_id)
+            return (d if d is not None else float("inf"), i)
+        return [r for _, r in sorted(enumerate(q), key=key)]
+
+    def _admit(self) -> int:
+        """Fill free slots from the queue; returns how many were admitted.
+
+        Per candidate, in admission order: shed it when its deadline is
+        already out of reach at the modeled step time
+        (``SLOConfig.shed_on_admit``), else admit it (``_admit_slot``).
+        """
+        free = self.free_slots
+        if not free or not self._queue:
+            return 0
+        candidates = self._admission_order()
+        taken: list[Request] = []      # leaving the queue: admitted or shed
+        admitted = 0
+        ci = 0
+        for slot in free:
+            while ci < len(candidates):
+                req = candidates[ci]
+                ci += 1
+                taken.append(req)
+                if self._slo is not None and self._slo.shed_on_admit:
+                    deadline = self._deadlines.get(req.request_id)
+                    resume = self._probe_resume_point(req)
+                    eta = (self._vtime_ms
+                           + self._estimate_steps(req, resume) * self._step_ms)
+                    if deadline is not None and eta > deadline:
+                        self._slo_stats["shed_on_admit"] += 1
+                        self._shed_completion(req)
+                        continue
+                self._admit_slot(slot, req)
+                admitted += 1
                 break
-            self._admit_slot(slot, self._queue.popleft())
+        if taken:
+            # by identity: a Request holding a tensor has no usable __eq__
+            taken_ids = {id(r) for r in taken}
+            self._queue = collections.deque(
+                r for r in self._queue if id(r) not in taken_ids)
+        return admitted
 
     def _admit_slot(self, slot: int, req: Request) -> None:
-        """Batch-1 prefill (bucketed), inserted into lane ``slot``."""
-        prompt = torch.as_tensor(req.tokens).reshape(-1).to(
-            device=self.device, dtype=torch.int32)
+        """A full prefix hit starts decoding at once; with chunking the slot
+        enters the prefilling phase (resumed after a partial hit);
+        otherwise a batch-1 whole prefill (bucketed) runs now."""
+        tokens_np = _prompt_np(req.tokens)
         s = req.prompt_len
+        entry = None
+        if self._prefix_cache is not None:
+            entry = self._prefix_cache.lookup(
+                self._params_version, tokens_np, self._candidate_lengths(s))
+        if entry is not None and entry.n_tokens == s and \
+                entry.logits is not None:
+            self._start_decode(slot, req, self._pad_cache1(entry.cache),
+                               entry.logits)
+            return
+
         sb = self._bucket(s)
-        padded = torch.zeros((1, sb), dtype=torch.int32, device=self.device)
-        padded[0, :s] = prompt
-        logits, cache1 = self.model.prefill(self.params, padded,
-                                            max_len=self.max_len,
-                                            last_idx=s - 1)
+        padded = torch.zeros((sb,), dtype=torch.int32, device=self.device)
+        padded[:s] = torch.from_numpy(tokens_np).to(self.device)
+        if self.chunk_prefill is not None:
+            if entry is not None and entry.n_tokens < s:   # partial hit
+                resume, cache1 = entry.n_tokens, self._pad_cache1(entry.cache)
+            else:
+                resume, cache1 = 0, self._zero_cache1()
+            self._slots[slot] = _Slot(
+                request=req, admitted_step=self._step_idx, generated=[],
+                logits=[], phase="prefill",
+                pf=_PrefillState(tokens=padded, prompt=tokens_np, bucket=sb,
+                                 chunk=min(self.chunk_prefill, sb),
+                                 pos=resume, cache=cache1),
+                deadline_vms=self._deadlines.get(req.request_id))
+            return
+
+        logits, cache1 = self.model.prefill(
+            self.params, padded[None], max_len=self.max_len, last_idx=s - 1)
         self._prefill_buckets.add(sb)
         self._prefilled_tokens += sb
+        row = logits[0]
+        self._prefix_insert(tokens_np, cache1, row)
+        self._start_decode(slot, req, cache1, row)
+
+    def _start_decode(self, slot: int, req: Request, cache1: dict,
+                      logits_row: torch.Tensor) -> None:
+        """Install a completed batch-1 prefill into lane ``slot`` and begin
+        decoding with its first token."""
         if self._cache is None:
-            self._cache = {
-                g: {n: torch.zeros(c.shape[:1] + (self.batch_size,)
-                                   + c.shape[2:], dtype=c.dtype,
-                                   device=c.device)
-                    for n, c in kv.items()}
-                for g, kv in cache1.items()}
+            self._cache = _map_cache(
+                lambda c: torch.zeros(c.shape[:1] + (self.batch_size,)
+                                      + c.shape[2:], dtype=c.dtype,
+                                      device=c.device), cache1)
         for g, kv in cache1.items():
             for n, c in kv.items():
                 self._cache[g][n][:, slot] = c[:, 0]
-        row = logits[0]
-        first = int(torch.argmax(row))
-        st = _Slot(request=req, admitted_step=self._step_idx,
-                   generated=[first], logits=[])
+        first = int(torch.argmax(logits_row))
+        st = self._slots[slot]
+        if st is None:                 # whole-prefill / full-hit admission
+            st = _Slot(request=req, admitted_step=self._step_idx,
+                       generated=[], logits=[],
+                       deadline_vms=self._deadlines.get(req.request_id))
+            self._slots[slot] = st
+        st.phase, st.pf = "decode", None
+        st.generated.append(first)
         if self.collect_logits:
-            st.logits.append(row)
-        self._slots[slot] = st
+            st.logits.append(logits_row)
         self._tokens[slot, 0] = first
-        self._lens[slot] = s
+        self._lens[slot] = req.prompt_len
         if len(st.generated) >= req.max_new_tokens:
             # degenerate budget: the prefill token already finishes it
             self._evict(slot)
 
-    def _evict(self, slot: int) -> None:
+    # -- chunked prefill -----------------------------------------------------
+
+    def _advance_chunks(self) -> int:
+        """One prefill chunk per prefilling slot, at most
+        ``prefill_budget`` tokens per step; returns the tokens prefilled."""
+        if self.chunk_prefill is None:
+            return 0
+        budget = self.prefill_budget
+        progressed = 0
+        for slot, st in enumerate(self._slots):
+            if st is None or st.phase != "prefill":
+                continue
+            pf = st.pf
+            c = pf.chunk
+            if budget is not None and budget - progressed < c:
+                continue               # out of budget: hold, no progress
+            start = pf.pos
+            is_last = start + c >= pf.prompt_len
+            last_local = (pf.prompt_len - 1 - start) if is_last else c - 1
+            logits, pf.cache = self.model.prefill_chunk(
+                self.params, pf.tokens[None, start:start + c], pf.cache,
+                start, kv_len=pf.bucket, last_idx=last_local)
+            self._chunk_shapes.add((c, pf.bucket))
+            pf.pos = start + c
+            progressed += c
+            self._prefill_chunks += 1
+            self._prefilled_tokens += c
+            if is_last:
+                row = logits[0]
+                self._prefix_insert(pf.prompt, pf.cache, row)
+                self._start_decode(slot, st.request, pf.cache, row)
+        return progressed
+
+    # -- eviction / shedding -------------------------------------------------
+
+    def _evict(self, slot: int, shed: bool = False) -> None:
         st = self._slots[slot]
+        deadline = st.deadline_vms
+        slo_met: bool | None = None
+        if shed:
+            slo_met = False
+            self._slo_stats["missed"] += 1
+        elif deadline is not None:
+            slo_met = self._vtime_ms <= deadline
+            self._slo_stats["met" if slo_met else "missed"] += 1
         self._completions.append(Completion(
             request_id=st.request.request_id,
             tokens=list(st.generated),
             slot=slot,
             admitted_step=st.admitted_step,
             finished_step=self._step_idx,
-            logits=torch.stack(st.logits) if st.logits else None))
+            logits=torch.stack(st.logits) if st.logits else None,
+            slo_met=slo_met,
+            shed=shed))
         self._slots[slot] = None
         self._lens[slot] = 0
+
+    def _shed_expired(self) -> int:
+        """Evict in-flight requests whose deadline has passed on the virtual
+        clock (``SLOConfig.shed_admitted``); a prefilling slot's private
+        cache is dropped."""
+        if self._slo is None or not self._slo.shed_admitted:
+            return 0
+        shed = 0
+        for slot, st in enumerate(self._slots):
+            if st is None or st.deadline_vms is None:
+                continue
+            if self._vtime_ms > st.deadline_vms:
+                self._slo_stats["shed_admitted"] += 1
+                self._evict(slot, shed=True)
+                shed += 1
+        return shed
+
+    def shed_request(self, request_id: int) -> bool:
+        """Drop a request wherever it is: queued, prefilling or decoding.
+
+        Returns True when found.  An in-flight request completes with its
+        tokens so far and ``shed=True``; a prefilling slot's private cache
+        is dropped (nothing of it reached the batch cache).
+        """
+        for req in self._queue:
+            if req.request_id == request_id:
+                self._queue = collections.deque(
+                    r for r in self._queue if r is not req)
+                self._shed_completion(req)
+                return True
+        for slot, st in enumerate(self._slots):
+            if st is not None and st.request.request_id == request_id:
+                self._evict(slot, shed=True)
+                return True
+        return False
 
     # -- params hot swap -----------------------------------------------------
 
     def stage_params(self, params) -> None:
         """Stage a replacement serving tree; the next ``step()`` swaps it in
         before admission, so every request sees a consistent pack.  Staging
-        again before the swap replaces the staged tree."""
+        again before the swap replaces the staged tree.  The swap bumps the
+        params version and drops every prefix-cache entry: a prefix computed
+        under the old pack is stale."""
         self._staged_params = params
+
+    @property
+    def swap_pending(self) -> bool:
+        return self._staged_params is not None
 
     # -- step loop -----------------------------------------------------------
 
     @torch.inference_mode()
     def step(self) -> list[Completion]:
-        """One scheduling step: swap staged params, admit, run one batched
-        decode wave over all slots, evict finished requests.
+        """One scheduling step: swap staged params, shed expired requests,
+        admit, advance prefill chunks, run one batched decode wave over the
+        decoding slots, evict finished requests.
 
         Returns the requests that finished on this step.
         """
@@ -287,8 +699,15 @@ class ServingEngine:
             self.params = self._staged_params
             self._staged_params = None
             self._swap_steps.append(self._step_idx)
+            self._params_version += 1
+            if self._prefix_cache is not None:
+                self._prefix_invalidated_entries += \
+                    self._prefix_cache.invalidate()
+        self._shed_expired()
         self._admit()
-        live = [i for i, s in enumerate(self._slots) if s is not None]
+        chunked = self._advance_chunks()
+        live = [i for i, s in enumerate(self._slots)
+                if s is not None and s.phase == "decode"]
         if live:
             self._active_slot_steps += len(live)
             self.watchdog.start_step(self._step_idx)
@@ -307,31 +726,52 @@ class ServingEngine:
                     st.logits.append(logits[i])
                 self._tokens[i, 0] = nxt[i]
                 self._lens[i] += 1
-            for i in live:
-                if len(self._slots[i].generated) >= \
-                        self._slots[i].request.max_new_tokens:
-                    self._evict(i)
+        worked = bool(live) or chunked > 0 or \
+            len(self._completions) > done_before
+        if worked:
+            self._vtime_ms += self._step_ms
+        for i in live:
+            st = self._slots[i]
+            if st is not None and \
+                    len(st.generated) >= st.request.max_new_tokens:
+                self._evict(i)
+        self._last_step_worked = worked
+        # beat after the evictions: a supervisor reads end-of-step state
+        if worked and self.heartbeat is not None:
+            self.heartbeat.beat(self._step_idx, active=self.n_active,
+                                completed=len(self._completions))
         return self._completions[done_before:]
 
     def run(self, requests=None) -> list[Completion]:
         """Drain the queue (plus ``requests``, if given) to completion;
-        returns all completions sorted by request_id."""
+        returns all completions sorted by request_id.  Raises when the
+        scheduler stalls: queued or active work but no progress for
+        ``_STALL_LIMIT`` steps in a row (a ``prefill_budget`` below the
+        chunk size)."""
         if requests is not None:
             self.submit_all(requests)
+        stalls = 0
         while self._queue or self.n_active:
             self.step()
+            stalls = 0 if self._last_step_worked else stalls + 1
+            if stalls >= _STALL_LIMIT:
+                raise RuntimeError(
+                    f"scheduler stalled: {self.n_pending} pending / "
+                    f"{self.n_active} active but no progress for "
+                    f"{stalls} steps (prefill_budget "
+                    f"{self.prefill_budget} < chunk {self.chunk_prefill}?)")
         return sorted(self._completions, key=lambda c: c.request_id)
 
     # -- reporting -----------------------------------------------------------
 
     def scheduler_report(self) -> dict:
         """Scheduler counters: slot occupancy, steps, measured decode rate,
-        watchdog and prefill counters."""
+        watchdog, prefill, prefix-cache and SLO counters."""
         steps = self._step_idx
         gen_tokens = sum(len(c.tokens) for c in self._completions)
         occ = (self._active_slot_steps / (steps * self.batch_size)
                if steps else 0.0)
-        return {
+        rep = {
             "batch_size": self.batch_size,
             "steps": steps,
             "completed": len(self._completions),
@@ -347,9 +787,18 @@ class ServingEngine:
             "hangs": self._hangs,
             "swaps": len(self._swap_steps),
             "swap_steps": list(self._swap_steps),
-            "prefill_traces": self.prefill_trace_count,
+            "prefill_traces": len(self._prefill_buckets),
+            "chunk_traces": len(self._chunk_shapes),
+            "prefill_chunks": self._prefill_chunks,
             "prefilled_tokens": self._prefilled_tokens,
         }
+        if self._prefix_cache is not None:
+            pc = self._prefix_cache.stats()
+            pc["invalidated_entries"] = self._prefix_invalidated_entries
+            rep["prefix_cache"] = pc
+        if self._slo is not None:
+            rep["slo"] = dict(self._slo_stats, step_ms=self._step_ms)
+        return rep
 
     def perf_report(self, flops_per_token: float | None = None) -> dict:
         """Scheduler counters + the session's batch-aware DRAM-side rates."""

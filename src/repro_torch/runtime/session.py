@@ -373,15 +373,26 @@ class PUDSession:
         return 1
 
     def serving_engine(self, model, *, max_len: int,
-                       batch_size: int | None = None, **kw):
+                       batch_size: int | None = None,
+                       chunk_prefill: int | None = None,
+                       prefix_cache=False, slo=None, **kw):
         """A continuous-batching ``ServingEngine`` over this session's
         packed model (``pack`` must have run); ``batch_size`` defaults to
-        ``optimal_batch_size()``."""
+        ``optimal_batch_size()``.
+
+        The scheduler extensions pass through (``runtime/engine.py``):
+        ``chunk_prefill`` interleaves fixed-size prefill chunks with decode
+        waves, ``prefix_cache`` reuses completed prefills across requests,
+        ``slo`` admits by deadline on this session's modeled step time;
+        ``**kw`` (``collect_logits``, ``heartbeat``, ``prefill_budget``,
+        ...) too."""
         from repro_torch.runtime.engine import ServingEngine
         if self._packed is None:
             raise RuntimeError("no packed model: call session.pack() first")
         return ServingEngine(model, self._packed.params, session=self,
-                             max_len=max_len, batch_size=batch_size, **kw)
+                             max_len=max_len, batch_size=batch_size,
+                             chunk_prefill=chunk_prefill,
+                             prefix_cache=prefix_cache, slo=slo, **kw)
 
     def perf_report(self, flops_per_token: float | None = None,
                     batch_size: int | None = None) -> dict:

@@ -235,7 +235,10 @@ def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
                  fleet_argv=["--subarrays", "4", "--n-cols", "256",
                              "--n-trials", "256", "--check-full",
                              "--device", "cpu"],
-                 recal=(3, 5))
+                 recal=(3, 5),
+                 gemma=dict(cs.GEMMA, preset="smoke",
+                            grid=dict(n_channels=1, n_banks=1,
+                                      n_subarrays=8, n_cols=512)))
     names = [r["name"] for r in out["rows"]]
     assert names == ["calib_iter", "gemm_placed", "gemv_placed", "gemm",
                      "gemv", "majx_sense"]
@@ -260,6 +263,12 @@ def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
     assert set(out["archive"]) == {"placed", "unplaced"}
     assert "#csv fleet_calibration" in text and "#csv table1" in text
     assert "main leg == reference on the same inputs" in text
+    gem = out["gemma"]                   # the gemma phase's scheduler runs
+    assert gem["hits"] == (2, 7)
+    assert gem["prefilled"][0] < gem["prefilled"][1]
+    assert gem["slo"]["shed_on_admit"] >= 1 and gem["slo"]["met"] >= 1
+    assert "gemma-7b (smoke)" in text and "bit for bit" in text
+    assert [len(r["extra_shapes"]) for r in out["rows"][:3]] == [3, 8, 3]
 
 
 def test_chip_smoke_fails_without_gpu_or_sources(tmp_path):
