@@ -53,7 +53,18 @@ Phases (any failure exits nonzero and prints no result line):
      with ``save_packed_npz`` and loaded with ``load_packed_npz``; greedy
      decode at batch 4 and batch 1 from the loaded packs equal to the
      in-memory packs', bit for bit, and a loaded layer's ``to_dense``
-     form through the GEMM kernel equal to its bit-packed form; then the
+     form through the GEMM kernel equal to its bit-packed form; then
+     monitored serving through the entry point (``--pud-gemv --engine
+     --monitor --drift-sim`` on a copy of the main run's cache, ``MONITOR``:
+     8 prompts on 4 slots, subarrays 1 and 5 drift at engine step 3 at
+     3000 C, a canary probe every 2 steps): a table hit and a new
+     canary-aware placement, critical events on 1 and 5 only, a recovery
+     of exactly [1, 5] (12 ``calib_iter`` launches), the other 14 rows of
+     the persisted table unchanged, a repacked placement on no refreshed
+     fault or canary, tokens on every step, post-swap decode equal to a
+     fresh pack's; detection step and latency, canary and table ECR,
+     recalibrate and repack walls, modeled probe overhead, and one probe
+     round's host wall and device time by kernel; then the
      paper's Table I at its own scales through
      ``repro_torch.benchmarks.table1.run`` for B300 and T210 (Algorithm 1
      on a 65,536-column subarray, 8,192 MAJ5 trials, ADD8 / MUL8 graph ECR
@@ -61,7 +72,11 @@ Phases (any failure exits nonzero and prints no result line):
      and each stage's wall time; ``benchmarks.fleet_calibration --full
      --check-full`` (its parity leg and its main leg, 20 ``calib_iter``
      launches at [16, 512, 5, 65,536], bit-exact against the plain
-     version on the same inputs; its ``#csv`` block);
+     version on the same inputs; its ``#csv`` block); the paper's other
+     figures through ``repro_torch.benchmarks.run`` at ``--full`` scale
+     (``FIGURES``: Fig. 3 with its asserts, Fig. 5, Fig. 6, convergence,
+     the drift-recovery and MAJX benchmarks, placement; each ``#csv``
+     block, validation lines and wall; any raising benchmark fails);
      then the quickstart's ``PUDSession.baseline_ecr()`` and
      ``calibrate()``;
  10. the command-level simulator at paper width: 256 MAJ5 events on one
@@ -122,6 +137,8 @@ import tempfile
 import time
 import types
 
+import numpy as np
+
 ROOT = pathlib.Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
@@ -149,15 +166,31 @@ SENSE_SHAPES = [(1, 8, SIMRA["n_cols"], 3), (256, 8, 65536, 3),
                 (256, 8, 65536, 0), (16, 8, 4096, 0), (16, 8, 4096, 3),
                 (13, 8, 65000, 3)]
 # calib_iter rows beside the main path's grid: the fleet benchmark's main
-# leg (--full: 16 subarrays, CalibrationConfig's 512 samples) and a ragged
-# one (C not a multiple of 4, the kernel's byte path)
-CALIB_SHAPES = [(16, 512, 5, 65536), (3, 64, 5, 1001)]
+# leg (--full: 16 subarrays, CalibrationConfig's 512 samples), a ragged one
+# (C not a multiple of 4, the kernel's byte path), the partial
+# recalibration of two subarrays (the recalibration and monitored phases),
+# and the figures phase's own grids (placement; drift_recovery's
+# calibration and its recovery of two subarrays)
+CALIB_SHAPES = [(16, 512, 5, 65536), (3, 64, 5, 1001), (2, 256, 5, 65536),
+                (8, 128, 5, 512), (8, 128, 5, 1024), (2, 128, 5, 1024)]
 RECAL = (3, 11)              # the drifted subarrays of the recalibration
 FAULT_STEPS = 4              # decode steps of the fault-injection phase
 ARCHIVE_STEPS = 4            # decode steps from the loaded archives
 # benchmarks.fleet_calibration on the card; --check-full holds its main
 # leg's calib_iter launches against the plain version on the same inputs
 FLEET_ARGV = ["--full", "--check-full"]
+# monitored serving at full width (``--monitor --drift-sim``): 8 prompts on
+# 4 slots, drift at engine step 3 on subarrays 1 and 5 at the reference's
+# 3000 C stress, a canary probe every 2 steps, 16 canaries per subarray
+MONITOR = dict(batch=8, slots=4, drift_at=3, subarrays=(1, 5),
+               probe_every=2, n_canary=16)
+# the paper's figures through ``benchmarks.run`` at ``--full`` (Table I and
+# the fleet benchmark run in their own phases, so the harness skips them);
+# ``check_plain`` reruns drift_recovery and placement, whose kernel
+# launches join the kernels line, on the plain versions and requires equal
+# results
+FIGURES = dict(n_cols=65536, n_trials_maj5=8192, n_cols_arith=4096,
+               full=True, check_plain=True)
 # gemma-7b at full width through the engine's scheduler: 1,718,272 placed
 # columns need 32 subarrays of 65,536 (16 hold ~1.01 M error-free).  The
 # traffic: 8 prompts sharing a 64-token system prompt (own tails of 8-64
@@ -717,6 +750,157 @@ def archive_phase(torch, dev, model, runs, kernels, sync) -> dict:
                               launches=counts)
             del loaded, tree
     return res
+
+
+def monitored_phase(torch, dev, preset: str, grid: dict, cache_dir: str,
+                    cfg: dict, kernels, sync) -> dict:
+    """``serve --monitor --drift-sim`` at ``preset`` on a copy of the main
+    run's cache (the recovery rewrites the table and drops its
+    placements): a table hit, a new canary-aware placement, critical events
+    on the drifted subarrays only, a recovery of exactly those (its
+    ``calib_iter`` launches counted), the other rows of the persisted table
+    unchanged, a repacked placement off every refreshed fault and canary,
+    tokens on every step, post-swap decode equal to a fresh pack's; then
+    one probe round profiled by kernel."""
+    import shutil
+    from repro_torch.core.canary import probe_ecr
+    from repro_torch.core.rng import derive_seed
+    from repro_torch.launch import serve
+    from repro_torch.runtime.calib_cache import CalibrationTableCache
+    subs = sorted(cfg["subarrays"])
+    phase(f"monitored serving: --monitor --drift-sim, drift at step "
+          f"{cfg['drift_at']} on subarrays {subs}")
+    tmp = tempfile.TemporaryDirectory(prefix="pud-monitor-")
+    shutil.copytree(cache_dir, tmp.name, dirs_exist_ok=True)
+    argv = ["--arch", ARCH, "--preset", preset, "--pud-gemv", "--engine",
+            "--batch", str(cfg["batch"]), "--batch-size", str(cfg["slots"]),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN),
+            "--fleet-subarrays", str(grid["n_subarrays"]),
+            "--fleet-cols", str(grid["n_cols"]), "--calib-cache", tmp.name,
+            "--monitor", "--drift-sim", "--drift-at", str(cfg["drift_at"]),
+            "--drift-subarrays", ",".join(map(str, subs)),
+            "--probe-every", str(cfg["probe_every"]),
+            "--n-canary", str(cfg["n_canary"]), "--seed", str(SEED),
+            "--device", str(dev)]
+    print("  serve " + " ".join(a if a != tmp.name else "<cache copy>"
+                                for a in argv))
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    res = serve.run(serve.parse_args(argv))
+    sync()
+    wall = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    s, mon = res["session"], res["monitor"]
+    rep = mon["report"]
+    print(f"  launches: {counts}; serve wall {wall:.1f}s")
+    need(s.calibration is not None and res["placement"][0] == "planned",
+         f"placement {res['placement']}")
+    fp = s.canaries.fingerprint()
+    need(res["placement"][1].endswith(f"-c{fp}"),
+         f"placement name {res['placement'][1]} lacks the canary set {fp}")
+    cache = CalibrationTableCache(cache_dir)
+    t_old = cache.load(s.device_id, s.fleet_cfg, s.physics)
+    need(t_old is not None, "the main run's table is missing")
+    events = mon["monitor"].detector.events
+    crit = sorted({e.subarray for e in events if e.severity == "critical"})
+    need(crit == subs, f"critical events on {crit}, drifted {subs}")
+    need(len(rep["recoveries"]) == 1
+         and rep["recoveries"][0]["subarrays"] == subs,
+         f"recoveries {[r['subarrays'] for r in rep['recoveries']]}")
+    n_it = s.calib_cfg.n_iterations
+    need(counts["calib_iter"] == n_it or dev.type != "cuda",
+         f"the recovery launched calib_iter {counts['calib_iter']} times, "
+         f"not {n_it}")
+    need(counts["gemm_placed"] > 0 or dev.type != "cuda",
+         "the monitored engine never launched gemm_placed")
+    t_new = s.cache.load(s.device_id, s.fleet_cfg, s.physics)
+    keep = [g for g in range(s.fleet_cfg.n_subarrays_total) if g not in subs]
+    need(t_new.metadata.get("recalibrated_subarrays") == subs,
+         "the recovered table was not persisted")
+    need(all(np.array_equal(getattr(t_new, f)[keep], getattr(t_old, f)[keep])
+             for f in ("levels", "ecr", "masks")),
+         "the recovery changed a persisted row it was not given")
+    bad = (s.calibration.masks.cpu().numpy() | s.canaries.mask()).reshape(-1)
+    placed = np.concatenate([np.asarray(tp.phys_cols).ravel()
+                             for tp in s.placement.entries.values()])
+    need(not bad[placed].any(), "the repacked placement uses a refreshed "
+         "fault or a canary")
+    need(rep["min_tokens_per_step"] > 0 and rep["swap_step_tokens"]
+         and min(rep["swap_step_tokens"]) > 0, "a step stalled")
+    need(mon["spot_ok"] == mon["spot_n"] > 0,
+         "post-swap decode differs from a fresh pack's")
+    comps = mon["completions"]
+    need(len(comps) == cfg["batch"] + mon["spot_n"]
+         and all(len(c.tokens) == GEN for c in comps),
+         "the monitored engine did not complete every request")
+    rec = rep["recoveries"][0]
+    lat = rec["detected_step"] - mon["drift_step"]
+    print(f"  canary set {fp}; placement {res['placement'][1]} planned; "
+          f"{len(keep)} other rows of the persisted table unchanged; "
+          f"{len(placed):,} placed columns, none on a refreshed fault or "
+          "canary")
+    print(f"  drift at engine step {mon['drift_step']}, detected at step "
+          f"{rec['detected_step']} (latency {lat} steps, probe round "
+          f"{rec['detected_round']}); canary ECR at detection "
+          + ", ".join(f"{g}: {e:.4f}"
+                      for g, e in rec["canary_ecr_at_detection"].items()))
+    print("  table ECR " + ", ".join(
+        f"subarray {g}: {mon['ecr_before'][g]:.4f} -> "
+        f"{mon['ecr_after'][g]:.4f}" for g in subs)
+          + f"; recalibrate {rec['recalibrate_wall_s'] * 1e3:.1f} ms, "
+          f"repack {rec['repack_wall_s'] * 1e3:.1f} ms (synchronised)")
+    print(f"  swap at steps {rep['swap_steps']}, tokens on swap steps "
+          f"{rep['swap_step_tokens']}, min tokens per step "
+          f"{rep['min_tokens_per_step']}; modeled probe overhead "
+          f"{rep['probe_overhead']:.4%} of DRAM time; spot check "
+          f"{mon['spot_ok']}/{mon['spot_n']} bit-identical")
+    sim, m = mon["sim"], mon["monitor"]
+    probe = profile_calls(torch, "one probe round (16 subarrays x "
+                          f"{cfg['n_canary']} canaries, "
+                          f"{m.config.probe_trials} trials)",
+                          lambda: probe_ecr(
+                              derive_seed(m.seed, 0), sim.sense_offsets(),
+                              m._charges(), s.physics, s.n_fracs,
+                              cols=s.canaries.cols,
+                              n_trials=m.config.probe_trials), sync)
+    out = dict(launches=counts, wall_s=wall, detected_step=rec[
+        "detected_step"], latency_steps=lat,
+        canary_ecr=rec["canary_ecr_at_detection"],
+        ecr_before=[float(mon["ecr_before"][g]) for g in subs],
+        ecr_after=[float(mon["ecr_after"][g]) for g in subs],
+        recalibrate_ms=rec["recalibrate_wall_s"] * 1e3,
+        repack_ms=rec["repack_wall_s"] * 1e3,
+        overhead=rep["probe_overhead"], probe=probe,
+        events=[(e.subarray, e.severity) for e in events])
+    del res, s, mon
+    tmp.cleanup()
+    return out
+
+
+def figures_phase(torch, dev, scale: dict, kernels, sync) -> dict:
+    """The paper's figures through ``repro_torch.benchmarks.run`` at
+    ``scale`` (Table I and the fleet benchmark ran in their own phases):
+    each prints its ``#csv`` block and its validation lines beside the
+    paper's numbers; any raising benchmark fails the phase.  The phase's
+    kernel launches (drift_recovery's and placement's) are held against
+    the plain versions on the same inputs (``check_plain``, required)."""
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.benchmarks.common import BenchScale
+    need(scale.get("check_plain"), "drift_recovery's and placement's "
+         "kernel launches would run unchecked: set check_plain")
+    names = [n for n in bench_run.BENCHES if n not in ("table1", "fleet")]
+    phase(f"the paper's figures: benchmarks.run {names} at {scale}")
+    reset_counts(kernels)
+    walls = bench_run.run_benches(names, BenchScale(**scale), dev)
+    sync()
+    counts = read_counts(kernels)
+    failed = [n for n, (_, f) in walls.items() if f]
+    print("  walls: " + ", ".join(f"{n} {w:.2f}s"
+                                  for n, (w, _) in walls.items())
+          + f"; launches {counts}")
+    need(not failed, f"benchmarks failed: {failed}")
+    return dict(walls_s={n: w for n, (w, _) in walls.items()},
+                launches=counts)
 
 
 def fleet_calibration_phase(torch, dev, argv, counter) -> dict:
@@ -1310,7 +1494,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         quickstart: dict = QUICKSTART, simra: dict = SIMRA,
         dense_cfg: dict = DENSE, sense_shapes=SENSE_SHAPES,
         calib_shapes=CALIB_SHAPES, fleet_argv=FLEET_ARGV,
-        recal=RECAL, gemma: dict = GEMMA) -> dict:
+        recal=RECAL, gemma: dict = GEMMA, monitor: dict = MONITOR,
+        figures: dict = FIGURES) -> dict:
     """All phases on ``dev``.  ``main`` runs them on the GPU at full
     width; a CPU rehearsal (``dev`` cpu, smoke preset, small grid and
     Table-I scales) runs the same control flow through the plain versions,
@@ -1550,6 +1735,11 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         for k in ("gemm_placed", "gemv_placed", "gemm", "gemv"):
             launches[k] += counts_[k]
 
+    mon = monitored_phase(torch, dev, preset, grid, cache.name, monitor,
+                          kernels, sync)
+    for k in ("calib_iter", "gemm_placed", "gemv_placed"):
+        launches[k] += mon["launches"][k]
+
     del res, ures
     cache.cleanup()
 
@@ -1557,6 +1747,9 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
     fleet = fleet_calibration_phase(torch, dev, fleet_argv,
                                     calib_iter.calib_iter)
     launches["calib_iter"] += fleet["launches"]
+    figs = figures_phase(torch, dev, figures, kernels, sync)
+    for k in ("calib_iter", "gemm_placed", "gemv_placed"):
+        launches[k] += figs["launches"][k]
     qs = quickstart_phase(torch, dev, quickstart)
     sim = simra_phase(torch, dev, simra, sense.majx_sense)
     launches["majx_sense"] = sim["launches"]
@@ -1814,7 +2007,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
     return {"rows": rows, "mean_ecr": mean_ecr, "occupancy": occupancy,
             "calibration_walls": walls, "table1": t1, "quickstart": qs,
             "simra": sim, "recalibration": recal, "faults": fault,
-            "archive": archive, "fleet_calibration": fleet, "gemma": gem}
+            "archive": archive, "fleet_calibration": fleet, "gemma": gem,
+            "monitor": mon, "figures": figs}
 
 
 def main() -> int:

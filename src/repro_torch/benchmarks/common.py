@@ -26,6 +26,10 @@ class BenchScale:
     n_cols_arith: int = 2048
     n_trials_arith: int = 512
     full: bool = False
+    # the benchmarks that launch kernels on their own configurations
+    # (drift_recovery, placement) run again on the plain PyTorch versions
+    # and raise unless every result is equal (``hold_to_plain``)
+    check_plain: bool = False
 
 
 def add_device_arg(ap: argparse.ArgumentParser) -> None:
@@ -50,6 +54,38 @@ def parse_scale(argv=None, description: str = ""
     if args.n_cols:
         s = dataclasses.replace(s, n_cols=args.n_cols)
     return s, args.device
+
+
+def plain_backend(plain: bool) -> dict:
+    """``PUDSession.open``'s keywords for a run on the plain PyTorch
+    versions (the ``reference`` backend and calibration method); none for
+    the kernels."""
+    return dict(backend="reference", method="reference") if plain else {}
+
+
+def _same(a, b) -> bool:
+    import torch
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.shape == b.shape
+                and a.dtype == b.dtype and torch.equal(a, b))
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and a.keys() == b.keys()
+                and all(_same(a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (type(a) is type(b) and len(a) == len(b)
+                and all(_same(x, y) for x, y in zip(a, b)))
+    return a == b
+
+
+def hold_to_plain(name: str, kernels, plain) -> None:
+    """Raise unless a benchmark's results on the kernels equal its rerun on
+    the plain versions with the same inputs: rows, tables and tensors, bit
+    for bit."""
+    if not _same(kernels, plain):
+        raise RuntimeError(f"{name}: the kernels' run differs from the "
+                           "plain versions' on the same inputs")
+    print(f"  {name}: kernels == plain versions on the same inputs, bit "
+          "for bit", flush=True)
 
 
 @contextlib.contextmanager

@@ -23,9 +23,16 @@ whose tokens equal the lockstep decode's; ``--chunk-prefill N``,
 ``--prefix-cache`` and ``--slo-ms X`` turn on its scheduler extensions and
 print their counters.
 
+``--monitor`` (with ``--pud-gemv --engine``) reserves canary columns
+before packing and serves the requests under the drift monitor
+(``runtime/drift.py``); ``--drift-sim`` drifts the simulated device at
+step ``--drift-at`` and corrupts the live pack to match, so the loop
+detects, recalibrates the drifted subarrays, repacks and hot-swaps while
+tokens flow, then checks post-swap decode against a fresh pack.
+
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions instead.
-The drift monitor, mesh and tuning paths, attention packing and other
-weight widths are not ported yet.
+The mesh and tuning paths, attention packing and other weight widths are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -110,6 +117,29 @@ def parse_args(argv=None) -> argparse.Namespace:
                     action="store_false", default=True,
                     help="with --calib-cache: skip column placement and "
                          "pack onto logical columns (faulty ones included)")
+    ap.add_argument("--monitor", action="store_true",
+                    help="with --pud-gemv --engine: reserve canary columns, "
+                         "probe them between decode steps (runtime/drift.py) "
+                         "and recover from detected drift by a partial "
+                         "recalibration and a between-steps hot swap")
+    ap.add_argument("--drift-sim", action="store_true",
+                    help="with --monitor: drift the simulated device "
+                         "(core/reliability.DriftSimulator) mid-serve and "
+                         "run the whole detect / recalibrate / swap loop")
+    ap.add_argument("--drift-at", type=int, default=3,
+                    help="engine step at which --drift-sim drifts")
+    ap.add_argument("--drift-temp", type=float, default=3000.0,
+                    help="simulated operating temperature in C; the default "
+                         "is a stress far beyond the paper's envelope, so "
+                         "one probe round detects it")
+    ap.add_argument("--drift-days", type=float, default=0.0,
+                    help="simulated days since calibration (time-drift leg)")
+    ap.add_argument("--drift-subarrays", default="1,5",
+                    help="comma-separated subarray ids hit by --drift-sim")
+    ap.add_argument("--probe-every", type=int, default=4,
+                    help="canary probe cadence in engine steps")
+    ap.add_argument("--n-canary", type=int, default=16,
+                    help="reserved canary columns per subarray")
     ap.add_argument("--calib-cache", default=None, metavar="DIR",
                     help="persistent calibration-table cache")
     ap.add_argument("--device-id", default="dimm0")
@@ -121,7 +151,12 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain PyTorch versions)")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.monitor and not (args.pud_gemv and args.engine):
+        ap.error("--monitor requires --pud-gemv and --engine")
+    if args.drift_sim and not args.monitor:
+        ap.error("--drift-sim requires --monitor")
+    return args
 
 
 def run(args: argparse.Namespace) -> dict:
@@ -189,11 +224,24 @@ def _pud_path(args, spec, model, params, tokens, max_len, ref_toks,
               f"{session.fleet_cfg.n_subarrays_total} subarrays, "
               f"mean ECR {st.mean_ecr:.3f}")
         res["wall_s"]["calibrate"] = st.wall_s
+    if args.monitor:
+        # canaries are carved out before packing so placement avoids
+        # them; a cache-less session calibrates here
+        if session.calibration is None:
+            st = session.calibrate()
+            print(f"  calibration (for --monitor): identified "
+                  f"{session.fleet_cfg.n_subarrays_total} subarrays "
+                  f"in {st.wall_s:.2f}s")
+        session.reserve_canaries(args.n_canary)
+        print(f"  canaries: {args.n_canary}/subarray reserved "
+              f"(set {session.canaries.fingerprint()}), excluded "
+              "from placement")
 
     packed, t_pack = _timed(
         device, lambda: session.pack(params, cfg,
                                      name=f"{args.arch}-{args.preset}"))
     res["packed"], res["wall_s"]["pack"] = packed, t_pack
+    res["placement"] = (session.placement_status, session.placement_name)
     if session.placement_status == "skipped":
         print(f"  placement: SKIPPED ({session.placement_error}); "
               "serving on logical columns")
@@ -280,6 +328,12 @@ def _engine_path(args, spec, model, serve_params, session, tokens, max_len,
     requests = [Request(request_id=i, tokens=tokens[i],
                         max_new_tokens=args.gen)
                 for i in range(args.batch)]
+    if args.monitor:
+        _, t_mon = _timed(tokens.device, _monitored_serve, args, session,
+                          engine, model, res["params"], requests, tokens,
+                          max_len, res)
+        res["wall_s"]["monitor"] = t_mon
+        return
     completions, t_eng = _timed(tokens.device, engine.run, requests)
     sched = engine.scheduler_report()
     print(f"  engine: {sched['completed']} requests, "
@@ -311,6 +365,100 @@ def _engine_path(args, spec, model, serve_params, session, tokens, max_len,
                   f"batch {perf['batch_size']} "
                   f"({perf['batch_speedup']:.2f}x over batch-1; "
                   f"occupancy-derived optimum {perf['optimal_batch']})")
+
+
+def _monitored_serve(args, session, engine, model, params, requests,
+                     tokens, max_len, res) -> None:
+    """Serve ``requests`` under the drift monitor (--monitor); fills
+    ``res["monitor"]``.
+
+    With ``--drift-sim`` the simulator drifts the device's sense offsets at
+    step ``--drift-at`` and the live pack is corrupted to match (faults
+    re-derived from the drifted offsets, injected into the serving tree), so
+    the canary probes detect a real numeric failure.  The controller then
+    drives detection -> partial recalibration -> repack -> hot swap between
+    steps, and a spot check holds post-swap decode equal to a fresh decode
+    on the recovered pack (raises otherwise).
+    """
+    from repro_torch.core.reliability import DriftSimulator
+    from repro_torch.runtime.drift import (DriftConfig, DriftController,
+                                           DriftMonitor, run_with_drift,
+                                           sim_read_faults)
+    from repro_torch.runtime.engine import Request
+
+    sim = DriftSimulator.for_session(session)
+    mon = DriftMonitor(session, sim, config=DriftConfig(
+        n_canary=args.n_canary, probe_every=args.probe_every))
+    ecr_before = session.calibration.ecr.cpu().numpy().copy()
+    ctl = DriftController(
+        engine, mon, params, pack_name=f"{args.arch}-{args.preset}",
+        read_faults=sim_read_faults(session, sim) if args.drift_sim else None)
+    overhead = mon.probe_overhead()
+    print(f"  monitor: probing {args.n_canary} canaries/subarray every "
+          f"{args.probe_every} steps (amortized overhead "
+          + (f"{overhead:.2%}" if overhead is not None else "n/a")
+          + " of decode)")
+
+    subs = [int(s) for s in args.drift_subarrays.split(",") if s]
+    drift_step = run_with_drift(
+        ctl, requests, sim, at=args.drift_at if args.drift_sim else None,
+        temp_c=args.drift_temp, days=args.drift_days, subarrays=subs,
+        seed=args.seed, n_trials=128, max_ticks=64 * (len(requests) + 8))
+    if drift_step is not None:
+        print(f"  drift-sim: offsets drifted at step {args.drift_at} "
+              f"(temp {args.drift_temp:.0f}C, {args.drift_days:g} "
+              f"days, subarrays {subs}); live pack corrupted")
+
+    rep = ctl.report()
+    for ev in mon.detector.events:
+        print(f"    drift event: subarray {ev.subarray} {ev.severity} "
+              f"(canary ECR {ev.new_ecr:.3f}, probe round "
+              f"{ev.probe_round})")
+    for rec in rep["recoveries"]:
+        ecr = ", ".join(f"{g}: {e:.3f}"
+                        for g, e in rec["recalibrated_ecr"].items())
+        print(f"    recovery: detected step {rec['detected_step']}, "
+              f"recalibrated subarrays {rec['subarrays']} "
+              f"(post-recal table ECR {{{ecr}}}), hot swap staged at "
+              f"step {rec['swap_staged_step']}; recalibrate "
+              f"{rec['recalibrate_wall_s'] * 1e3:.1f} ms, repack "
+              f"{rec['repack_wall_s'] * 1e3:.1f} ms")
+    print(f"    swaps at steps {rep['swap_steps']}, tokens on swap steps "
+          f"{rep['swap_step_tokens']}, min tokens/step "
+          f"{rep['min_tokens_per_step']} (zero-downtime: no stalled step)")
+    sched = engine.scheduler_report()
+    print(f"  engine: {sched['completed']} requests, "
+          f"{sched['generated_tokens']} tokens in {sched['steps']} steps "
+          f"({sched['batch_size']} slots, "
+          f"occupancy {sched['slot_occupancy']:.1%})")
+
+    n_ok, post = None, []
+    if rep["recoveries"]:
+        # post-swap decode must equal a fresh decode on the recovered pack
+        post = [Request(request_id=1000 + i, tokens=tokens[i],
+                        max_new_tokens=args.gen)
+                for i in range(min(2, len(requests)))]
+        comps = {c.request_id: c for c in ctl.run(post)}
+        fresh = session.packed.params
+        n_ok = 0
+        for r in post:
+            want, _ = greedy_generate(model, fresh, r.tokens[None, :],
+                                      args.gen, max_len)
+            n_ok += comps[r.request_id].tokens == want[0].tolist()
+        print(f"    post-swap spot check: {n_ok}/{len(post)} requests "
+              "bit-identical to fresh decode on the recovered pack")
+        if n_ok != len(post):
+            raise RuntimeError("post-swap decode diverged from fresh pack")
+    age = session.calibration_age()
+    if age is not None:
+        print(f"    table age: {age['age_days']:.4f} days "
+              f"(assumed temp {age['assumed_temp_c']:.0f}C)")
+    res["monitor"] = dict(report=rep, sim=sim, monitor=mon, controller=ctl,
+                          drift_step=drift_step, ecr_before=ecr_before,
+                          ecr_after=session.calibration.ecr.cpu().numpy(),
+                          spot_ok=n_ok, spot_n=len(post),
+                          completions=sorted(engine._completions,
+                                             key=lambda c: c.request_id))
 
 
 def main(argv=None) -> int:

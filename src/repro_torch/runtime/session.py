@@ -13,15 +13,17 @@ Calibration tables and placements persist in the reference's on-disk
 formats, so either package reads what the other wrote.  The session runs
 on ``cuda`` unless ``device="cpu"`` is passed; without a GPU it raises.
 ``recalibrate_subarrays`` re-identifies a few subarrays against their
-current offsets and merges them into the state.  Per-call execution
-(``linear``), pinned operating points, canaries, tuning and the
-multi-device fleet session are not ported yet.
+current offsets and merges them into the state; ``reserve_canaries``
+withholds per-subarray canary columns from placement for the drift monitor
+(``runtime/drift.py``).  Per-call execution (``linear``), pinned operating
+points, tuning and the multi-device fleet session are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.core.calibrate import CalibrationConfig
@@ -103,7 +105,9 @@ class PUDSession:
         self.device = device
 
         self._state: CalibrationState | None = None
+        self._canaries = None                     # core/canary.CanarySet
         self._packed: PackedModel | None = None
+        self._pack_cfg: PUDGemvConfig | None = None
         self._placement: Placement | None = None
         self._placement_name: str | None = None
         self._placement_status: str | None = None   # hit | planned | skipped
@@ -194,6 +198,28 @@ class PUDSession:
             self.physics, 3, n_trials=n_trials or self.n_trials_ecr)
         return float(ecr.mean())
 
+    # -- canaries + live recalibration --------------------------------------
+
+    @property
+    def canaries(self):
+        """The reserved ``core/canary.CanarySet``, or None."""
+        return self._canaries
+
+    def reserve_canaries(self, n_per_subarray: int = 16):
+        """Reserve per-subarray canary columns for the drift monitor.
+
+        Canaries come out of the calibration-time error-free set (evenly
+        spread over each subarray) and are OR-ed into the planning masks, so
+        no tensor is placed on them.  Call after ``calibrate`` and before
+        ``pack``; the reservation also keys persisted placement names.
+        """
+        if self._state is None:
+            raise RuntimeError("reserve_canaries requires calibrate() first")
+        from repro_torch.core.canary import CanarySet, reserve_canaries
+        cols = reserve_canaries(self._state.masks, n_per_subarray)
+        self._canaries = CanarySet(cols=cols, n_cols=self.fleet_cfg.n_cols)
+        return self._canaries
+
     def recalibrate_subarrays(self, subarrays, sense_offsets: torch.Tensor,
                               *, assumed_temp_c: float | None = None
                               ) -> CalibrationState:
@@ -283,8 +309,13 @@ class PUDSession:
     def _plan_requests(self, reqs, base_name: str) -> Placement | None:
         """Cache-aware placement planning for an explicit request list:
         a persisted plan of the same name is a hit; otherwise plan from the
-        masks and persist.  A plan that does not fit is "skipped"."""
+        masks and persist.  A plan that does not fit is "skipped".  Reserved
+        canaries plan as unusable and their fingerprint suffixes the name."""
         pname = f"{base_name}-{requests_fingerprint(reqs)}"
+        masks = self._state.masks.cpu().numpy()
+        if self._canaries is not None:
+            masks = np.asarray(masks, bool) | self._canaries.mask()
+            pname += f"-c{self._canaries.fingerprint()}"
         self._placement_name = pname
         placement = None
         if self.cache is not None:
@@ -294,7 +325,6 @@ class PUDSession:
             self._placement_status = "hit"
             self._placement = placement
             return placement
-        masks = self._state.masks.cpu().numpy()
         try:
             placement = plan_for_grid(masks, reqs, self.fleet_cfg.grid_shape)
         except PlacementError as e:
@@ -326,7 +356,7 @@ class PUDSession:
                 name or self.arch or "model")
         pm = pack_model(params, cfg, include_unembed=include_unembed,
                         placement=self._placement)
-        self._packed = pm
+        self._packed, self._pack_cfg = pm, cfg
         return pm
 
     # -- rate models and serving ---------------------------------------------

@@ -1,8 +1,11 @@
-"""The port's paper benchmarks (``repro_torch.benchmarks.table1`` and
-``fleet_calibration``) at their smallest scale on the CPU: each prints a
-``#csv`` block whose columns are the reference benchmark's (read from the
-reference's source, which would take a minute to run here), and its
-checks pass (the fused-vs-plain parity leg bit for bit)."""
+"""The port's paper benchmarks (``repro_torch.benchmarks``) at small scales
+on the CPU: each prints a ``#csv`` block whose columns are the reference
+benchmark's (read from the reference's source), and its checks pass (the
+fused-vs-plain parity leg bit for bit).  Fig. 3 is deterministic and held
+to the reference's rows field for field; ``placement`` and
+``drift_recovery`` run at their own smoke configurations; the ``run``
+harness lists, selects and fails as the reference's does.  The figures'
+numbers beside the reference's runs are in ``test_torch_figures.py``."""
 import ast
 import pathlib
 
@@ -10,7 +13,10 @@ import pytest
 
 pytest.importorskip("torch")
 
-from repro_torch.benchmarks import common, fleet_calibration, table1  # noqa: E402
+from repro_torch.benchmarks import (common, drift_recovery,  # noqa: E402
+                                    fig3_offsets, fig6_reliability,
+                                    fleet_calibration, placement, run,
+                                    table1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -130,3 +136,165 @@ def test_benchmarks_need_a_device_without_cpu():
         fleet_calibration.main(["--subarrays", "4", "--n-cols", "64"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         table1.main(["--n-cols", "64"])
+
+
+# ---------------------------------------------------------------------------
+# The paper's figures (their rows beside the reference's runs are in
+# test_torch_figures.py; every report runs in the chip script's CPU
+# rehearsal, test_torch_serve.py)
+# ---------------------------------------------------------------------------
+
+TINY = common.BenchScale(n_cols=128, n_trials_maj5=64)
+
+
+def test_fig3_rows_equal_reference(capsys):
+    from benchmarks import fig3_offsets as ref
+    assert fig3_offsets.run() == ref.run()
+    assert fig3_offsets.main([]) == 0
+    out = capsys.readouterr().out
+    rows = _csv_block(out, "fig3_offsets")
+    assert rows[0] == list(ref.run()[0])
+    by = {r[0]: r for r in rows[1:]}
+    assert by["T210"][1:4] == ["8", "1.59353", "0.17509"]
+    assert by["T000"][1:4] == ["4", "3", "1"]
+    assert "Fig. 3 structure checks:" in out
+
+
+def test_fig6_report_prints_both_blocks(capsys):
+    fig6_reliability.report(TINY, "cpu")
+    out = capsys.readouterr().out
+    assert _csv_block(out, "fig6_temperature")[0] == ["temp_c", "ecr_pct",
+                                                      "new_ecr_pct"]
+    assert _csv_block(out, "fig6_time")[0] == ["days", "ecr_pct",
+                                               "new_ecr_pct"]
+    assert "(paper < 0.14%)" in out and "(paper < 0.27%)" in out
+
+
+def test_placement_at_its_smoke_config(capsys):
+    placement.report(device="cpu")
+    out = capsys.readouterr().out
+    rows = _csv_block(out, "placement")
+    assert rows[0] == _reference_columns("placement", "arch")
+    row = dict(zip(rows[0], rows[1]))
+    assert row["arch"] == "qwen3-1.7b" and row["subarrays"] == "8"
+    assert 0 < float(row["occupancy"]) <= 1
+    assert 0 < float(row["unplaced_faulty_frac"]) < 0.2
+    # the demand is the reference's: the same smoke model's requests
+    import jax
+    from repro.configs import get as j_get
+    from repro.models.params import init_params as j_init
+    from repro.pud.gemv import (ATTN_PACKABLE, FFN_PACKABLE,
+                                PUDGemvConfig as JCfg)
+    from repro.pud.packer import packing_requests as j_reqs
+    jm = j_get("qwen3-1.7b").make_smoke()
+    reqs = j_reqs(j_init(jm.param_defs(), jax.random.key(0)),
+                  JCfg(packable=FFN_PACKABLE + ATTN_PACKABLE))
+    assert int(row["demand_cols"]) == sum(r.total_cols for r in reqs)
+
+
+def test_drift_recovery_at_its_smoke_config(capsys, tmp_path):
+    import json
+    drift_recovery.report(device="cpu")
+    out = capsys.readouterr().out
+    rows = _csv_block(out, "drift_recovery")
+    assert rows[0] == _reference_columns("drift_recovery", "drift_step")
+    assert "post-swap decode bit-identical to fresh pack: OK" in out
+    row = json.loads((tmp_path / "drift_recovery.json").read_text())[0]
+    row["ecr_before"] = {int(g): e for g, e in row["ecr_before"].items()}
+    row["ecr_after"] = {int(g): e for g, e in row["ecr_after"].items()}
+    assert row["drift_subarrays"] == [1, 5]
+    assert row["detection_latency_steps"] >= 0
+    assert all(row["ecr_after"][g] > row["ecr_before"][g] for g in (1, 5))
+
+
+def test_drift_recovery_fails_without_a_recovery(monkeypatch):
+    # at the nominal temperature nothing drifts, so nothing recovers
+    monkeypatch.setattr(drift_recovery, "DRIFT_TEMP_C", 50.0)
+    with pytest.raises(AssertionError, match="no recovery happened"):
+        drift_recovery.run(device="cpu")
+
+
+@pytest.mark.parametrize("name", ["drift_recovery", "placement"])
+def test_check_plain_holds_the_kernel_launches(capsys, name):
+    mod = {"drift_recovery": drift_recovery, "placement": placement}[name]
+    mod.report(common.BenchScale(check_plain=True), "cpu")
+    out = capsys.readouterr().out
+    assert (f"{name}: kernels == plain versions on the same inputs, bit "
+            "for bit") in out
+    assert f"#csv {name}" in out
+
+
+def test_check_plain_fails_on_a_differing_kernel_leg(monkeypatch):
+    real = placement._run
+
+    def off_by_one(device, plain):
+        rows, computed = real(device, plain)
+        if not plain:
+            computed["levels"][0, 0] += 1
+        return rows, computed
+
+    monkeypatch.setattr(placement, "_run", off_by_one)
+    with pytest.raises(RuntimeError, match="placement: the kernels' run "
+                       "differs from the plain versions'"):
+        placement.report(common.BenchScale(check_plain=True), "cpu")
+
+
+def test_hold_to_plain_compares_bit_for_bit():
+    import torch
+    t = torch.arange(4, dtype=torch.int32)
+    row = {"a": 1, "b": [0.5, {"c": t}]}
+    common.hold_to_plain("x", (row, [t]), ({"a": 1, "b": [0.5, {"c": t}]},
+                                           [t.clone()]))
+    for other in ({"a": 1, "b": [0.5, {"c": t + 1}]},
+                  {"a": 1, "b": [0.5, {"c": t.to(torch.int64)}]},
+                  {"a": 1, "b": [0.25, {"c": t}]},
+                  {"a": 1, "b": (0.5, {"c": t})},
+                  {"a": 1}):
+        with pytest.raises(RuntimeError, match="x: the kernels' run"):
+            common.hold_to_plain("x", row, other)
+
+
+# ---------------------------------------------------------------------------
+# The harness
+# ---------------------------------------------------------------------------
+
+def test_run_lists_only_what_the_port_has(capsys):
+    assert run.main(["--list"]) == 0
+    names = [line.split()[0] for line in
+             capsys.readouterr().out.splitlines() if line and
+             not line.startswith(" ")]
+    assert names == ["fig3", "table1", "fig5", "fig6", "convergence",
+                     "fleet", "drift", "majx", "placement"]
+    from benchmarks.run import BENCHES as REF
+    assert [n for n in REF if n in names] == names
+
+
+def test_run_only_one(capsys):
+    assert run.main(["--only", "fig3", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "#csv fig3_offsets" in out
+    assert "1 benchmark(s) in" in out and "all passed" in out
+    with pytest.raises(SystemExit):
+        run.main(["--only", "kernels"])
+
+
+def test_a_raising_benchmark_fails_the_run_and_the_rest_still_run(
+        capsys, monkeypatch):
+    seen = []
+
+    def boom(scale, device):
+        raise AssertionError("boom")
+
+    monkeypatch.setattr(run, "BENCHES", {
+        "fig3": run.BENCHES["fig3"], "boom": boom,
+        "after": lambda scale, device: seen.append(device)})
+    assert run.main(["--device", "cpu"]) == 1
+    out = capsys.readouterr().out
+    assert "#csv fig3_offsets" in out and seen == ["cpu"]
+    assert "benchmark 'boom' FAILED" in out
+    assert "3 benchmark(s) in" in out and "1 FAILED (boom)" in out
+
+
+def test_run_benches_reports_walls():
+    walls = run.run_benches(["fig3"], common.BenchScale(), "cpu")
+    assert list(walls) == ["fig3"] and walls["fig3"][1] is False

@@ -35,7 +35,8 @@ def test_sources_exist():
 
 #: The modules of the Table-I slice and the SiMRA sensing kernel, then of
 #: partial recalibration, the noise fit, the pack archive, fault injection
-#: and the paper's benchmarks: each is among the scanned sources (its CUDA
+#: and the paper's benchmarks, then of the drift-reliability loop and the
+#: paper's remaining figures: each is among the scanned sources (its CUDA
 #: source among the built ones).
 SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "pud/bitserial.py", "core/calibrate.py", "core/fleet.py",
@@ -44,7 +45,15 @@ SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "pud/packed.py", "pud/placement.py", "pud/packer.py",
                  "pud/gemv.py", "kernels/ref.py", "benchmarks/__init__.py",
                  "benchmarks/common.py", "benchmarks/table1.py",
-                 "benchmarks/fleet_calibration.py")
+                 "benchmarks/fleet_calibration.py", "core/canary.py",
+                 "core/reliability.py", "runtime/drift.py",
+                 "launch/serve.py", "benchmarks/run.py",
+                 "benchmarks/fig3_offsets.py",
+                 "benchmarks/fig5_frac_sensitivity.py",
+                 "benchmarks/fig6_reliability.py",
+                 "benchmarks/calibration_convergence.py",
+                 "benchmarks/majx_general.py", "benchmarks/placement.py",
+                 "benchmarks/drift_recovery.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

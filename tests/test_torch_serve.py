@@ -160,6 +160,64 @@ def test_serve_cli_miss_then_hit(tmp_path, capsys):
     assert "planned + persisted" in out and "] HIT:" in out
 
 
+def test_serve_monitor_drift_sim_recovers(tmp_path, capsys):
+    argv = ["--preset", "smoke", "--batch", "8", "--prompt-len", "8",
+            "--gen", "4", "--pud-gemv", "--engine", "--batch-size", "2",
+            "--calib-cache", str(tmp_path), "--fleet-subarrays", "8",
+            "--fleet-cols", "1024", "--monitor", "--drift-sim",
+            "--drift-at", "3", "--probe-every", "2", "--device", "cpu"]
+    assert main(argv) == 0
+    out = capsys.readouterr().out
+    assert "canaries: 16/subarray reserved" in out
+    assert "drift event: subarray 1 critical" in out
+    assert "drift event: subarray 5 critical" in out
+    assert "recalibrated subarrays [1, 5]" in out
+    assert "post-swap spot check: 2/2 requests bit-identical" in out
+    assert "assumed temp 3000C" in out
+
+
+@pytest.mark.parametrize("argv", [
+    ["--monitor"],
+    ["--monitor", "--engine"],
+    ["--monitor", "--pud-gemv"],
+    ["--pud-gemv", "--engine", "--drift-sim"],
+    ["--drift-sim"]])
+def test_serve_monitor_flag_errors_match_reference(argv, capsys):
+    from repro.launch.serve import main as j_main
+    from repro_torch.launch.serve import parse_args
+    with pytest.raises(SystemExit) as port:
+        parse_args(argv)
+    port_err = capsys.readouterr().err.strip().splitlines()[-1]
+    with pytest.raises(SystemExit) as ref:
+        j_main(argv)
+    ref_err = capsys.readouterr().err.strip().splitlines()[-1]
+    assert port.value.code == ref.value.code == 2
+    assert port_err.split(": error: ")[1] == ref_err.split(": error: ")[1]
+
+
+def test_serve_monitor_flag_defaults_match_reference():
+    """Every monitor flag's default is the reference's (read from the
+    ``add_argument`` calls of its ``main``)."""
+    import ast
+    import inspect
+
+    from repro.launch import serve as j_serve
+    from repro_torch.launch.serve import parse_args
+    want = {}
+    for node in ast.walk(ast.parse(inspect.getsource(j_serve.main))):
+        if (isinstance(node, ast.Call) and node.args
+                and getattr(node.func, "attr", "") == "add_argument"):
+            kw = {k.arg: k.value for k in node.keywords}
+            if "default" in kw:
+                want[node.args[0].value] = ast.literal_eval(kw["default"])
+    ns = parse_args([])
+    flags = ("--drift-at", "--drift-temp", "--drift-days",
+             "--drift-subarrays", "--probe-every", "--n-canary")
+    for flag in flags:
+        assert getattr(ns, flag[2:].replace("-", "_")) == want[flag], flag
+    assert not ns.monitor and not ns.drift_sim
+
+
 def _open_session():
     return PUDSession.open(ARCH).device
 
@@ -238,7 +296,9 @@ def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
                  recal=(3, 5),
                  gemma=dict(cs.GEMMA, preset="smoke",
                             grid=dict(n_channels=1, n_banks=1,
-                                      n_subarrays=8, n_cols=512)))
+                                      n_subarrays=8, n_cols=512)),
+                 figures=dict(n_cols=128, n_trials_maj5=32,
+                              check_plain=True))
     names = [r["name"] for r in out["rows"]]
     assert names == ["calib_iter", "gemm_placed", "gemv_placed", "gemm",
                      "gemv", "majx_sense"]
@@ -269,6 +329,21 @@ def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
     assert gem["slo"]["shed_on_admit"] >= 1 and gem["slo"]["met"] >= 1
     assert "gemma-7b (smoke)" in text and "bit for bit" in text
     assert [len(r["extra_shapes"]) for r in out["rows"][:3]] == [3, 8, 3]
+    mon = out["monitor"]                 # the monitored serving phase
+    assert {g for g, sev in mon["events"] if sev == "critical"} == {1, 5}
+    assert mon["latency_steps"] >= 0 and mon["recalibrate_ms"] > 0
+    assert "post-swap spot check: 2/2" in text
+    assert "other rows of the persisted table unchanged" in text
+    figs = out["figures"]                # the paper's figures phase
+    assert list(figs["walls_s"]) == ["fig3", "fig5", "fig6", "convergence",
+                                     "drift", "majx", "placement"]
+    for name in ("fig3_offsets", "fig5_frac_sensitivity", "fig6_temperature",
+                 "fig6_time", "calibration_convergence", "drift_recovery",
+                 "majx_general", "placement"):
+        assert f"#csv {name}" in text
+    for name in ("drift_recovery", "placement"):
+        assert (f"{name}: kernels == plain versions on the same inputs"
+                in text)
 
 
 def test_chip_smoke_fails_without_gpu_or_sources(tmp_path):
