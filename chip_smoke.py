@@ -64,7 +64,19 @@ Phases (any failure exits nonzero and prints no result line):
      fault or canary, tokens on every step, post-swap decode equal to a
      fresh pack's; detection step and latency, canary and table ECR,
      recalibrate and repack walls, modeled probe overhead, and one probe
-     round's host wall and device time by kernel; then the
+     round's host wall and device time by kernel; then the tuning phase:
+     ``serve --pud-gemv --pud-attention --tune`` on the main cache (FFN,
+     attention and unembed packs placed; the real occupancy printed; tuned
+     at batch 1 and 4), then ``PUDSession.tune(batches=(1, 4, 32))``
+     (``TUNE_BATCHES``): every key's heuristic and tuned time, speedup,
+     winning plan and candidate count, each winner held to the plain
+     version on the card, the prefill logits through the tuned kernels
+     equal to the plain versions; x [4] x wi / wo at the heuristic plan
+     and at one K split; a reopened session on the same cache hits every
+     key; batch-4 decode with tuned and untuned packs bit-identical, one
+     step of each profiled twice, in turns, and the host microseconds a
+     stamped plan adds per packed call; a pack archive keeps the plans; then ``serve --weight-bits 8`` (placed FFN packs; prefill and
+     decode equal to the plain versions); then the
      paper's Table I at its own scales through
      ``repro_torch.benchmarks.table1.run`` for B300 and T210 (Algorithm 1
      on a 65,536-column subarray, 8,192 MAJ5 trials, ADD8 / MUL8 graph ECR
@@ -88,6 +100,11 @@ Phases (any failure exits nonzero and prints no result line):
  11. the dense plane layout (the reference's default) through the ``ops``
      entries at the reference kernel benchmark's shapes (B 8 and B 1,
      K = N = 2048, 4-bit): every GEMM/GEMV entry launches its kernel;
+     the contract gate ``python -m repro_torch.analysis --sms <the
+     card's>`` (exit 0); ``benchmarks.run --only`` serving, kernels and
+     kernel_microbench (the modules mvdram_serving, kernel_bench and
+     kernel_microbench; each exits 0, the last two hold every kernel
+     result to its plain version);
  12. each kernel at the main path's shapes against its plain version on the
      card (exact equality, both modes), timed with CUDA events (median of 30
      launches, L2 flushed before each, the host's launch time hidden behind
@@ -100,7 +117,8 @@ Phases (any failure exits nonzero and prints no result line):
      GEMM rows; each shape prints its launch plan (GEMM/GEMV: dp4a or
      tensor cores, grid, K split, stage words, stages, shared memory; an
      unplaced dp4a row also the WB its kernel instance is compiled for;
-     made for the card's SM count);
+     made for the card's SM count); the placed GEMM also at the tuning
+     phase's attention wq and the 8-bit wi, at batch 4;
  13. gemma-7b at full width through the engine's scheduler, after the
      qwen3 phases' models, packs and caches are freed: 28 layers, d 3,072,
      d_ff 24,576, vocab 256,000, random weights from the seed, on a 1 x 1 x
@@ -129,6 +147,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import pathlib
 import statistics
 import subprocess
@@ -191,6 +210,13 @@ MONITOR = dict(batch=8, slots=4, drift_at=3, subarrays=(1, 5),
 # results
 FIGURES = dict(n_cols=65536, n_trials_maj5=8192, n_cols_arith=4096,
                full=True, check_plain=True)
+# the tuning phase: qwen3 with attention packs, tuned at the GEMV, the dp4a
+# GEMM and the tensor-core GEMM (a gemma-sized prefill chunk) rows
+TUNE_BATCHES = (1, BATCH, 32)
+WEIGHT_BITS = 8              # the --weight-bits phase's plane count
+# the benchmarks phase: ``benchmarks.run --only`` names of the modules
+# mvdram_serving, kernel_bench and kernel_microbench
+BENCHMARKS = ("serving", "kernels", "kernel_microbench")
 # gemma-7b at full width through the engine's scheduler: 1,718,272 placed
 # columns need 32 subarrays of 65,536 (16 hold ~1.01 M error-free).  The
 # traffic: 8 prompts sharing a 64-token system prompt (own tails of 8-64
@@ -888,7 +914,8 @@ def figures_phase(torch, dev, scale: dict, kernels, sync) -> dict:
     from repro_torch.benchmarks.common import BenchScale
     need(scale.get("check_plain"), "drift_recovery's and placement's "
          "kernel launches would run unchecked: set check_plain")
-    names = [n for n in bench_run.BENCHES if n not in ("table1", "fleet")]
+    names = [n for n in bench_run.BENCHES if n not in (
+        "table1", "fleet", *BENCHMARKS)]
     phase(f"the paper's figures: benchmarks.run {names} at {scale}")
     reset_counts(kernels)
     walls = bench_run.run_benches(names, BenchScale(**scale), dev)
@@ -1175,18 +1202,18 @@ def profile_calls(torch, label: str, fn, sync, was: str = "") -> dict:
 
 
 def profile_step(torch, model, params, tokens, max_len, sync,
-                 placed_was=None) -> None:
+                 placed_was=None) -> dict:
     """``profile_calls`` over one decode step after a prefill of
     ``tokens``; ``placed_was``: the placed GEMM's device time per step
     before its staged redesign (ms), printed beside it."""
     with torch.inference_mode():
         logits, cache = model.prefill(params, tokens, max_len=max_len)
         nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
-    profile_calls(torch, f"decode step (batch {tokens.shape[0]})",
-                  lambda: model.decode_step(params, cache, nxt,
-                                            tokens.shape[1]), sync,
-                  "" if placed_was is None else
-                  f" (before the staged redesign: {placed_was} ms)")
+    return profile_calls(torch, f"decode step (batch {tokens.shape[0]})",
+                         lambda: model.decode_step(params, cache, nxt,
+                                                   tokens.shape[1]), sync,
+                         "" if placed_was is None else
+                         f" (before the staged redesign: {placed_was} ms)")
 
 
 def gemma_traffic(torch, vocab: int, cfg: dict):
@@ -1489,13 +1516,400 @@ def gemma_phase(torch, dev, cfg: dict, kernels, sync) -> dict:
     return out
 
 
+def strip_plans(tree):
+    """The packed tree with every pack's tuned plans dropped (the
+    heuristic launch plans)."""
+    from repro_torch.pud.packed import PackedTensor
+    if isinstance(tree, dict):
+        return {k: strip_plans(v) for k, v in tree.items()}
+    if isinstance(tree, PackedTensor):
+        return tree.replace(tile_plan=None)
+    return tree
+
+
+def stamp_first_candidates(session, batches) -> None:
+    """The CPU rehearsal's stand-in for ``PUDSession.tune``, which needs the
+    card: each pack is stamped, untimed, with its first non-heuristic valid
+    candidate per row class."""
+    from repro_torch.kernels.autotune import (candidate_plans, row_class,
+                                              valid_candidates)
+    stamped = {}
+    for name, pt in session.packed.tensors.items():
+        planes = pt.planes[0] if pt.planes.dim() == 4 else pt.planes
+        plans = {}
+        for b in batches:
+            entry = "gemm" if b > 1 else "gemv"
+            cands = valid_candidates(
+                candidate_plans(entry, b, pt.k, pt.n, layout=pt.layout,
+                                placed_window=(planes.shape[-1] if pt.placed
+                                               else None),
+                                pack_window_block=pt.window_block,
+                                wb=pt.n_bits),
+                entry, (b, pt.k), tuple(planes.shape), layout=pt.layout,
+                logical_k=pt.logical_k, col_ids=pt.n if pt.placed else None,
+                window_block=pt.window_block)
+            plans[row_class(b)] = cands[1]
+        stamped[name] = pt.replace(tile_plan=tuple(sorted(plans.items())))
+    session._restamp_packs(stamped)
+
+
+def layer0_copy(pt):
+    """Layer 0 of a stacked pack as tensors of its own (a view would keep
+    every layer alive)."""
+    pt = pt.layer(0) if pt.planes.dim() == 4 else pt
+    return pt.replace(planes=pt.planes.clone(), scale=pt.scale.clone(),
+                      col_ids=None if pt.col_ids is None
+                      else pt.col_ids.clone())
+
+
+def hold_winner(torch, pt, batch: int, plan, sync) -> None:
+    """A tuned plan's output on the card against the plain version, on the
+    probe the tuner timed (layer 0 of ``pt``)."""
+    from repro_torch.kernels import placed_gemm, plane_gemm
+    pt = pt.layer(0) if pt.planes.dim() == 4 else pt
+    dev = pt.planes.device
+    x = ((torch.arange(batch * pt.k, device=dev) % 255) - 127).to(
+        torch.int8).reshape(batch, pt.k)
+    kw = dict(layout=pt.layout, logical_k=pt.logical_k)
+    tp = None if plan.is_default() else plan
+    if pt.placed:
+        fn = placed_gemm.gemv_placed if batch == 1 else \
+            placed_gemm.gemm_placed
+        got = fn(x, pt.planes, pt.col_ids, window_block=pt.window_block,
+                 tile_plan=tp, **kw)
+        want = placed_gemm.placed_plain(x, pt.planes, pt.col_ids,
+                                        window_block=pt.window_block, **kw)
+    else:
+        fn = plane_gemm.gemv if batch == 1 else plane_gemm.gemm
+        got = fn(x, pt.planes, tile_plan=tp, **kw)
+        want = plane_gemm.plane_plain(x, pt.planes, **kw)
+    sync()
+    need(torch.equal(got, want), f"the tuned plan {plan.to_dict()} of "
+         f"{pt.n_bits}-bit {tuple(pt.planes.shape)} at B={batch} differs "
+         "from the plain version")
+
+
+def single_split(torch, dev, packed, sync) -> dict:
+    """At the decode shapes x [BATCH] x wi / wo (layer 0): the heuristic
+    plan beside the same plan with one K split (no zeroed output, no
+    atomics), each held to the plain version and timed as the kernel rows
+    are."""
+    from repro_torch.kernels import placed_gemm
+    from repro_torch.kernels.autotune import TunedPlan
+    flush = torch.empty((256 if dev.type == "cuda" else 1) * 2**20,
+                        dtype=torch.uint8, device=dev)
+    out = {}
+    for name in ("wi", "wo"):
+        pt = packed.tensor(f"layers_0_dense/mixer/{name}").layer(0)
+        x = ((torch.arange(BATCH * pt.k, device=dev) % 255) - 127).to(
+            torch.int8).reshape(BATCH, pt.k)
+        kw = dict(layout=pt.layout, logical_k=pt.logical_k,
+                  window_block=pt.window_block)
+        want = placed_gemm.placed_plain(x, pt.planes, pt.col_ids, **kw)
+        times = {}
+        for label, plan in (("heuristic", None),
+                            ("one split", TunedPlan(n_split=1))):
+            got = placed_gemm.gemm_placed(x, pt.planes, pt.col_ids,
+                                          tile_plan=plan, **kw)
+            sync()
+            need(torch.equal(got, want), f"{name} ({label}) differs from "
+                 "the plain version")
+            times[label] = time_ms(torch, lambda p=plan: placed_gemm.
+                                   gemm_placed(x, pt.planes, pt.col_ids,
+                                               tile_plan=p, **kw), flush)
+        h = placed_plan(pt, BATCH)
+        print(f"  x [{BATCH}, {pt.k}] x {name}: heuristic "
+              f"{times['heuristic']:.4f} ms ({h.split(', grid')[0]}, K split "
+              f"{h.split('K split ')[1].split(' x')[0]}), one split "
+              f"{times['one split']:.4f} ms (no zeroed output, no atomics)")
+        out[name] = times
+    return out
+
+
+def plan_path_cost(torch, dev, packed, calls: int) -> float:
+    """Host microseconds a stamped plan adds to one packed call (the
+    contract check in ``ops.pud_matmul`` and the wrapper's plan lookup,
+    both cached after the first call), timed over 2,000 calls at x
+    [BATCH] x wi (layer 0) with one K split; printed against ``calls``
+    packed calls per decode step."""
+    from repro_torch import devices
+    from repro_torch.analysis.contracts import check_kernel_args
+    from repro_torch.kernels import placed_gemm
+    from repro_torch.kernels.autotune import TunedPlan
+    pt = packed.tensor("layers_0_dense/mixer/wi").layer(0)
+    x = torch.zeros((BATCH, pt.k), dtype=torch.int8, device=dev)
+    plan = TunedPlan(n_split=1)
+    sms = devices.sm_count(dev) if dev.type == "cuda" else placed_gemm.SMS
+
+    def path():
+        check_kernel_args("gemm", x.shape, pt.planes.shape, layout=pt.layout,
+                          logical_k=pt.logical_k, col_ids=pt.n,
+                          window_block=pt.window_block, tuned=plan, sms=sms)
+        placed_gemm._plan_of("gemm_placed", x, pt.planes, pt.col_ids,
+                             pt.layout, pt.logical_k, pt.window_block, plan)
+
+    for _ in range(100):
+        path()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        path()
+    us = (time.perf_counter() - t0) / 2000 * 1e6
+    print(f"  stamped-plan host path: {us:.1f} us per packed call (the "
+          f"contract check and the plan lookup), {us * calls / 1e3:.2f} ms "
+          f"over a decode step's {calls} packed calls")
+    return us
+
+
+def tuning_phase(torch, dev, preset: str, grid: dict, cache_dir: str,
+                 batches, kernels, sync) -> dict:
+    """qwen3-1.7b at ``preset`` with attention packs through ``serve
+    --pud-gemv --pud-attention --tune`` on the main run's cache (tuned at
+    batch 1 and ``BATCH``), then ``PUDSession.tune(batches)``: every key's
+    heuristic and tuned times, plan and candidates; each winner held to the
+    plain version; the whole model's prefill through the tuned kernels
+    equal to the plain versions; a reopened session on the same cache hits
+    every key; tuned and untuned decode at batch 4 bit-identical, one step
+    of each profiled; a pack archive keeps the plans.  On a CPU rehearsal
+    the tuner (which needs the card) is replaced by untimed stamps and its
+    refusal is checked."""
+    from repro_torch.core.calibrate import CalibrationConfig
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.launch import serve
+    from repro_torch.pud.gemv import ATTN_PACKABLE, FFN_PACKABLE
+    from repro_torch.pud.gemv import PUDGemvConfig
+    from repro_torch.pud.packed import load_packed_npz, save_packed_npz
+    from repro_torch.runtime.session import PUDSession
+    on_card = dev.type == "cuda"
+    t_phase = time.perf_counter()
+    phase(f"tuning: serve --pud-attention{' --tune' if on_card else ''}, "
+          f"then PUDSession.tune(batches={tuple(batches)})")
+    argv = ["--arch", ARCH, "--preset", preset, "--pud-gemv",
+            "--pud-attention", "--calib-cache", cache_dir,
+            "--fleet-subarrays", str(grid["n_subarrays"]),
+            "--fleet-cols", str(grid["n_cols"]), "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN),
+            "--seed", str(SEED), "--device", str(dev)]
+    reset_counts(kernels)
+    res = serve.run(serve.parse_args(argv + (["--tune"] if on_card else [])))
+    session, model = res["session"], res["model"]
+    need(session.calibration.cache_hit, "the tuning run missed the table")
+    need(session.placement_status in ("planned", "hit"),
+         f"attention packs not placed: {session.placement_error}")
+    rep = session.placement.capacity_report()
+    print(f"  placed columns with attention packs: {rep['used_cols']:,} of "
+          f"{rep['usable_cols']:,} error-free (occupancy "
+          f"{rep['occupancy']:.4f}), {len(session.packed.tensors)} packs")
+    if on_card:
+        t0 = time.perf_counter()
+        trep = session.tune(batches=batches)
+        sync()
+        t_tune = time.perf_counter() - t0
+    else:
+        try:
+            session.tune(batches=batches)
+        except RuntimeError as e:
+            print(f"  PUDSession.tune on the CPU raises: {e}")
+        else:
+            need(False, "PUDSession.tune ran on the CPU")
+        stamp_first_candidates(session, batches)
+        trep, t_tune = {"keys": {}}, 0.0
+    packed = session.packed
+    rows = []
+    for key, row in sorted(trep["keys"].items()):
+        pt = packed.tensor(row["name"])
+        plan = pt.tile_plan and dict(pt.tile_plan)[row["row_class"]]
+        need(plan is not None and plan.to_dict() == row["plan"],
+             f"{key}: the stamped plan is not the report's")
+        hold_winner(torch, pt, row["batch"], plan, sync)
+        rows.append(dict(key=key, status=row["status"],
+                         heuristic_ms=1e3 * row["heuristic_s"],
+                         tuned_ms=1e3 * row["tuned_s"],
+                         speedup=row["speedup"], plan=row["plan"],
+                         candidates=row["n_candidates"]))
+        print(f"  {row['status']:<5s} {key}: heuristic "
+              f"{rows[-1]['heuristic_ms']:.4f} ms, tuned "
+              f"{rows[-1]['tuned_ms']:.4f} ms ({row['speedup']:.3f}x), "
+              f"{row['n_candidates']} candidates, plan "
+              f"{row['plan'] or 'heuristic'}")
+    if rows:
+        print(f"  {len(rows)} keys in {t_tune:.2f}s; every winner == the "
+              "plain version on the card")
+    splits = single_split(torch, dev, packed, sync)
+    with torch.inference_mode():
+        got, _ = model.prefill(packed.params, res["tokens"],
+                               max_len=res["max_len"])
+        want, _ = model.prefill(restamp(packed.params, "reference"),
+                                res["tokens"], max_len=res["max_len"])
+    need(torch.equal(got, want), "prefill logits with attention packs "
+         "through the tuned kernels differ from the plain versions")
+    print(f"  prefill logits {list(got.shape)} with attention packs: tuned "
+          "kernels == plain versions, bit for bit")
+
+    phase("tuning: reopen on the same cache (every key a hit)")
+    cfg = PUDGemvConfig(weight_bits=4,
+                        packable=FFN_PACKABLE + ATTN_PACKABLE)
+    again = PUDSession.open(
+        ARCH, grid=FleetConfig(**grid), cache_dir=cache_dir,
+        calib=CalibrationConfig(n_iterations=12, n_samples=256),
+        seed=SEED + 2, device=dev)
+    again.calibrate()
+    again.pack(res["params"], cfg, name=f"{ARCH}-{preset}")
+    if on_card:
+        t0 = time.perf_counter()
+        hits = again.tune(batches=batches)["keys"]
+        t_hit = time.perf_counter() - t0
+        statuses = sorted({r["status"] for r in hits.values()})
+        need(statuses == ["hit"] and set(hits) == set(trep["keys"]),
+             f"reopened tuning: {statuses}")
+        print(f"  {len(hits)} keys, every one a hit, in {t_hit:.3f}s")
+    del again
+
+    phase(f"tuning: decode at batch {BATCH}, tuned vs untuned packs")
+    toks = res["tokens"][:BATCH]
+    before = read_counts(kernels)
+    tuned = serve.greedy_generate(model, packed.params, toks, GEN,
+                                  res["max_len"])
+    untuned = serve.greedy_generate(model, strip_plans(packed.params), toks,
+                                    GEN, res["max_len"])
+    sync()
+    need(torch.equal(tuned[0], untuned[0])
+         and torch.equal(tuned[1], untuned[1]),
+         "tuned and untuned decode differ")
+    print("  tokens and logits bit-identical; launches "
+          f"{ {k: v - before[k] for k, v in read_counts(kernels).items()} }")
+    prof = {"tuned": [], "untuned": []}
+    trees = {"tuned": packed.params, "untuned": strip_plans(packed.params)}
+    for label in ("untuned", "tuned", "tuned", "untuned"):   # in turns
+        phase(f"profile: one batch-{BATCH} decode step, {label} packs")
+        prof[label].append(profile_step(torch, model, trees[label], toks,
+                                        res["max_len"], sync))
+    host_us = plan_path_cost(torch, dev, packed,
+                             7 * model.cfg.n_layers + 1)
+
+    phase("tuning: the pack archive keeps the plans")
+    with tempfile.TemporaryDirectory(prefix="pud-tuned-") as d:
+        path = pathlib.Path(d) / "tuned.npz"
+        save_packed_npz(path, packed)
+        loaded = load_packed_npz(path, device=dev)
+    need(loaded is not None and all(
+        loaded[n].tile_plan == pt.tile_plan and pt.tile_plan is not None
+        for n, pt in packed.tensors.items()),
+        "the archive's plans differ from the packs'")
+    print(f"  {len(loaded)} packs saved and loaded: plans equal")
+    wq = layer0_copy(packed.tensor("layers_0_dense/attn/wq"))
+    counts = read_counts(kernels)
+    wall = time.perf_counter() - t_phase
+    print(f"  tuning phase: {wall:.1f}s wall; launches {counts}")
+    del res, session, packed, loaded
+    return dict(rows=rows, occupancy=rep["occupancy"],
+                used_cols=rep["used_cols"], usable_cols=rep["usable_cols"],
+                tune_s=t_tune, profile=prof, launches=counts, wq=wq,
+                wall_s=wall, single_split=splits, plan_path_us=host_us)
+
+
+def weight_bits_phase(torch, dev, preset: str, grid: dict, cache_dir: str,
+                      bits: int, kernels, sync) -> dict:
+    """``serve --weight-bits`` (placed FFN and unembed packs) on the main
+    run's cache: prefill logits and greedy decode through the kernels equal
+    to the plain versions on the new shapes."""
+    from repro_torch.launch import serve
+    phase(f"weight bits: serve --weight-bits {bits} (placed, FFN packs)")
+    t0 = time.perf_counter()
+    argv = ["--arch", ARCH, "--preset", preset, "--pud-gemv",
+            "--weight-bits", str(bits), "--calib-cache", cache_dir,
+            "--fleet-subarrays", str(grid["n_subarrays"]),
+            "--fleet-cols", str(grid["n_cols"]), "--batch", str(BATCH),
+            "--prompt-len", str(PROMPT), "--gen", str(GEN),
+            "--seed", str(SEED), "--device", str(dev)]
+    reset_counts(kernels)
+    res = serve.run(serve.parse_args(argv))
+    packed, model = res["packed"], res["model"]
+    need(packed.weight_bits == bits and packed.placed,
+         f"packed {packed.weight_bits}-bit, placed {packed.placed}")
+    need(all(pt.n_bits == bits for pt in packed.tensors.values()),
+         "a pack has another plane count")
+    plain = restamp(packed.params, "reference")
+    with torch.inference_mode():
+        got, _ = model.prefill(packed.params, res["tokens"],
+                               max_len=res["max_len"])
+        want, _ = model.prefill(plain, res["tokens"],
+                                max_len=res["max_len"])
+    toks = res["tokens"][:BATCH]
+    dec = serve.greedy_generate(model, packed.params, toks, ARCHIVE_STEPS,
+                                res["max_len"])
+    dec_plain = serve.greedy_generate(model, plain, toks, ARCHIVE_STEPS,
+                                      res["max_len"])
+    sync()
+    need(torch.equal(got, want), f"{bits}-bit prefill logits through the "
+         "kernels differ from the plain versions")
+    need(torch.equal(dec[0], dec_plain[0]) and torch.equal(dec[1],
+                                                           dec_plain[1]),
+         f"{bits}-bit decode through the kernels differs from the plain "
+         "versions")
+    counts = read_counts(kernels)
+    wall = time.perf_counter() - t0
+    print(f"  {len(packed.tensors)} packs of {bits} planes: prefill logits "
+          f"and batch-{BATCH} decode x {ARCHIVE_STEPS} == plain versions, "
+          f"bit for bit; token agreement vs bf16 {res['agreement']:.4f}; "
+          f"launches {counts}; {wall:.1f}s wall")
+    out = dict(launches=counts, wall_s=wall,
+               wi=layer0_copy(packed.tensor("layers_0_dense/mixer/wi")),
+               agreement=res["agreement"])
+    del res, packed, plain
+    return out
+
+
+def contracts_phase(dev) -> dict:
+    """``python -m repro_torch.analysis --sms <the card's>``: the contract
+    gate must exit 0."""
+    from repro_torch import devices
+    from repro_torch.kernels.placed_gemm import SMS
+    sms = devices.sm_count(dev) if dev.type == "cuda" else SMS
+    phase(f"contracts: python -m repro_torch.analysis --sms {sms}")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.analysis",
+                        "--sms", str(sms)], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300,
+                       env={**os.environ, "PYTHONPATH": str(SRC)})
+    for line in (r.stdout + r.stderr).strip().splitlines():
+        print(f"  {line}")
+    need(r.returncode == 0, f"the contract gate exited {r.returncode}")
+    wall = time.perf_counter() - t0
+    print(f"  exit 0 in {wall:.1f}s (a new process)")
+    return dict(sms=sms, wall_s=wall)
+
+
+def benchmarks_phase(torch, dev, kernels, sync) -> dict:
+    """``benchmarks.run --only`` for each of ``BENCHMARKS`` (the modules
+    mvdram_serving, kernel_bench and kernel_microbench): each exits 0, and
+    the two that launch kernels hold every result to the plain versions
+    (they raise otherwise)."""
+    from repro_torch.benchmarks import run as bench_run
+    out = {}
+    for name in BENCHMARKS:
+        phase(f"benchmarks.run --only {name}")
+        argv = ["--only", name] + ([] if dev.type == "cuda"
+                                   else ["--device", str(dev)])
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        rc = bench_run.main(argv)
+        sync()
+        out[name] = dict(rc=rc, wall_s=time.perf_counter() - t0,
+                         launches=read_counts(kernels))
+        print(f"  {name}: exit {rc} in {out[name]['wall_s']:.1f}s, "
+              f"launches {out[name]['launches']}")
+        need(rc == 0, f"benchmarks.run --only {name} exited {rc}")
+    return out
+
+
 def run(torch, dev, preset: str = "full", grid: dict = GRID,
         table1: dict = TABLE1, table1_calib=None,
         quickstart: dict = QUICKSTART, simra: dict = SIMRA,
         dense_cfg: dict = DENSE, sense_shapes=SENSE_SHAPES,
         calib_shapes=CALIB_SHAPES, fleet_argv=FLEET_ARGV,
         recal=RECAL, gemma: dict = GEMMA, monitor: dict = MONITOR,
-        figures: dict = FIGURES) -> dict:
+        figures: dict = FIGURES, tune_batches=TUNE_BATCHES,
+        weight_bits: int = WEIGHT_BITS) -> dict:
     """All phases on ``dev``.  ``main`` runs them on the GPU at full
     width; a CPU rehearsal (``dev`` cpu, smoke preset, small grid and
     Table-I scales) runs the same control flow through the plain versions,
@@ -1739,6 +2153,12 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
                           kernels, sync)
     for k in ("calib_iter", "gemm_placed", "gemv_placed"):
         launches[k] += mon["launches"][k]
+    tun = tuning_phase(torch, dev, preset, grid, cache.name, tune_batches,
+                       kernels, sync)
+    wbits = weight_bits_phase(torch, dev, preset, grid, cache.name,
+                              weight_bits, kernels, sync)
+    for k in launches:
+        launches[k] += tun["launches"][k] + wbits["launches"][k]
 
     del res, ures
     cache.cleanup()
@@ -1754,6 +2174,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
     sim = simra_phase(torch, dev, simra, sense.majx_sense)
     launches["majx_sense"] = sim["launches"]
     dense = dense_phase(torch, dev, dense_cfg, kernels)
+    contr = contracts_phase(dev)
+    benches = benchmarks_phase(torch, dev, kernels, sync)
 
     phase("kernels vs plain versions at the main path's shapes")
     flush = torch.empty((256 if on_card else 1) * 2**20, dtype=torch.uint8,
@@ -1907,7 +2329,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
                    wi, BATCH * PROMPT),
         extra_shapes=[gemm_row(placed_gemm.gemm_placed,
                                placed_gemm.gemm_placed_plain, pt, BATCH)
-                      for pt in (wi, wo, un)]
+                      for pt in (wi, wo, un, tun["wq"], wbits["wi"])]
         + dense_rows("gemm_placed", placed_gemm.gemm_placed,
                      placed_gemm.gemm_placed_plain, BATCH, dun)))
     rows.append(dict(
@@ -2004,11 +2426,14 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
                   f"{r['floor_ms']:.4f} ms")
         if r.get("plan"):
             print(f"      plan: {r['plan']}")
+    tun.pop("wq")
+    wbits.pop("wi")
     return {"rows": rows, "mean_ecr": mean_ecr, "occupancy": occupancy,
             "calibration_walls": walls, "table1": t1, "quickstart": qs,
             "simra": sim, "recalibration": recal, "faults": fault,
             "archive": archive, "fleet_calibration": fleet, "gemma": gem,
-            "monitor": mon, "figures": figs}
+            "monitor": mon, "figures": figs, "tuning": tun,
+            "weight_bits": wbits, "contracts": contr, "benchmarks": benches}
 
 
 def main() -> int:

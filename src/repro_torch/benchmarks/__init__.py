@@ -6,6 +6,7 @@
     python -m repro_torch.benchmarks.<name> [--full] [--device cpu]
 
 Registered: fig3_offsets, table1, fig5_frac_sensitivity, fig6_reliability,
-calibration_convergence, fleet_calibration, drift_recovery, majx_general,
-placement.
+calibration_convergence, fleet_calibration, kernel_bench (``kernels``),
+kernel_microbench, mvdram_serving (``serving``), drift_recovery,
+majx_general, placement.
 """

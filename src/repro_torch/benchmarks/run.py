@@ -6,9 +6,11 @@
 
 Order: offset ladders (Fig. 3) -> Table I -> Frac sensitivity (Fig. 5) ->
 reliability (Fig. 6) -> Algorithm-1 convergence -> fleet calibration ->
-drift recovery (canary detect + hot swap) -> MAJX generalization -> column
-placement.  Only what the port has is registered; the reference's kernel,
-serving and roofline benchmarks are not ported yet.
+CUDA kernels vs plain versions -> kernel microbenchmark (traffic, tuned
+plans) -> MVDRAM serving table -> drift recovery (canary detect + hot
+swap) -> MAJX generalization -> column placement.  Only what the port has
+is registered; the reference's serving-engine and roofline benchmarks are
+not ported yet.
 
 A raising benchmark is reported, the others still run, and the process
 exits 1.
@@ -64,6 +66,26 @@ def _fleet(scale, device):
         raise RuntimeError(f"fleet_calibration exited {rc}")
 
 
+def _kernels(scale, device):
+    """CUDA kernels vs their plain versions (majx_sense, bit-plane GEMM)."""
+    from . import kernel_bench
+    kernel_bench.report(scale, device)
+
+
+def _kernel_microbench(scale, device):
+    """Per-kernel traffic + tokens/s: GEMV/GEMM x unplaced/placed x
+    dense/bit-packed, planes vs folded, tuned plans (writes
+    artifacts/bench_torch/BENCH_kernels_torch.json)."""
+    from . import kernel_microbench
+    kernel_microbench.report(scale, device)
+
+
+def _serving(scale, device):
+    """MVDRAM serving table: per-arch decode rates, baseline vs PUDTune."""
+    from . import mvdram_serving
+    mvdram_serving.report(scale, device)
+
+
 def _drift(scale, device):
     """Online drift recovery: detection latency, partial recal scope,
     hot swap without a stalled step (fails on any stalled step)."""
@@ -90,6 +112,9 @@ BENCHES: dict[str, Callable[[BenchScale, object], None]] = {
     "fig6": _fig6,
     "convergence": _convergence,
     "fleet": _fleet,
+    "kernels": _kernels,
+    "kernel_microbench": _kernel_microbench,
+    "serving": _serving,
     "drift": _drift,
     "majx": _majx,
     "placement": _placement,

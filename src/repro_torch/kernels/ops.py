@@ -8,22 +8,31 @@ default ``cuda`` backend a CUDA tensor launches the hand-written kernel and a
 CPU tensor runs its plain version.  The GEMM entries keep the reference's
 tile keywords (``b_block``, ``n_block``, ``k_block``): they name TPU tiles,
 so they are accepted and ignored, as the reference's own oracle backend
-ignores them; every tile gives the same integers.
+ignores them; every tile gives the same integers.  The port's own launch
+plans travel as ``tile_plan`` (``kernels/autotune.TunedPlan``) through
+``pud_matmul``, which also pre-flights a call through the contract checker
+(``analysis/contracts``) on ``check_contracts=True``.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch import devices
 from repro_torch.pud.physics import PhysicsParams
 
 from . import ref
+from .autotune import (TunedPlan, plan_for_entry, row_class, tune_kernel,
+                       tuning_key)
 from .backends import DEFAULT_BACKEND, get_backend
+from .placed_gemm import SMS
 
 __all__ = [
     "majx_sense", "calib_iter_fused", "bitplane_gemv",
     "bitplane_gemv_placed", "bitplane_gemm", "bitplane_gemm_placed",
     "pud_matmul", "pud_gemv", "pud_gemv_ref", "quantize_activations",
     "N_BLOCK", "largest_divisor",
+    # the autotuner's surface (kernels/autotune.py)
+    "TunedPlan", "plan_for_entry", "row_class", "tune_kernel", "tuning_key",
 ]
 
 #: Logical columns per N tile of the reference kernels; placement blocks
@@ -62,23 +71,49 @@ def pud_matmul(
     layout: str = "dense",
     logical_k: int | None = None,
     window_block: int | None = None,
+    check_contracts: bool = False,
+    tile_plan=None,
 ) -> torch.Tensor:
     """Quantize -> bit-plane GEMM -> dequantize; returns [B, N] float32.
 
     B = 1 runs the GEMV entry, B > 1 the batch-tiled GEMM entry; with
     ``col_ids`` the placed entries.  The dequant is ``acc.float() * x_scale
     * w_scale`` in that order, as in the reference.
+
+    ``tile_plan`` is a pack's stamp (a ``TunedPlan``, or ``(row class,
+    TunedPlan)`` pairs; ``autotune.row_class`` of B picks one): the plan
+    the kernel launches with instead of the heuristic's.  A plan the
+    contract checker rejects for this call raises ``ContractViolation``,
+    on every backend; it never gives way to the heuristic.
+    ``check_contracts=True`` pre-flights every call through the checker,
+    ``col_ids`` values included.
     """
     xq, x_scale = quantize_activations(x)
     be = get_backend(backend or DEFAULT_BACKEND)
     batched = xq.shape[0] > 1
+    plan = plan_for_entry(tile_plan, row_class(xq.shape[0]))
+    if plan is not None and plan.is_default():
+        plan = None
+    if check_contracts or plan is not None:
+        from repro_torch.analysis.contracts import check_kernel_args
+        n_cols = col_ids
+        if col_ids is not None and not check_contracts:
+            n_cols = int(col_ids.shape[-1])     # shapes only: no sync
+        check_kernel_args(
+            "gemm" if batched else "gemv", xq.shape, planes.shape,
+            layout=layout, logical_k=logical_k, col_ids=n_cols,
+            window_block=window_block, mode=mode, tuned=plan,
+            sms=devices.sm_count(x.device) if x.is_cuda else SMS)
     kw = {"layout": layout, "logical_k": logical_k}
+    if plan is not None:
+        kw["tile_plan"] = plan
+        mode = plan.mode or mode
     if col_ids is not None:
-        entry = be.gemm_placed if batched else be.gemv_placed
+        entry = be.matmul_placed if batched else be.gemv_placed
         acc = entry(xq, planes, col_ids, mode, window_block=window_block,
                     **kw)
     else:
-        entry = be.gemm if batched else be.gemv
+        entry = be.matmul if batched else be.gemv
         acc = entry(xq, planes, mode, **kw)
     return acc.to(torch.float32) * x_scale * w_scale
 
@@ -118,7 +153,7 @@ def bitplane_gemv(x: torch.Tensor, planes: torch.Tensor,
     a larger block of rows, which the reference's GEMV also takes, runs
     the batch-tiled kernel (the same integers)."""
     be = get_backend(DEFAULT_BACKEND)
-    entry = be.gemv if x.shape[0] == 1 else be.gemm
+    entry = be.gemv if x.shape[0] == 1 else be.matmul
     return entry(x, planes, mode, layout=layout, logical_k=logical_k)
 
 
@@ -130,7 +165,7 @@ def bitplane_gemv_placed(x: torch.Tensor, planes: torch.Tensor,
                          k_block: int | None = None) -> torch.Tensor:
     """Placed GEMV over the physical window; rows as ``bitplane_gemv``."""
     be = get_backend(DEFAULT_BACKEND)
-    entry = be.gemv_placed if x.shape[0] == 1 else be.gemm_placed
+    entry = be.gemv_placed if x.shape[0] == 1 else be.matmul_placed
     return entry(x, planes, col_ids, mode, layout=layout,
                  logical_k=logical_k, window_block=window_block)
 
@@ -141,7 +176,7 @@ def bitplane_gemm(x: torch.Tensor, planes: torch.Tensor,
                   n_block: int | None = None,
                   k_block: int | None = None) -> torch.Tensor:
     """Batch-tiled GEMM: [B, K] int8 x planes -> [B, N] int32."""
-    return get_backend(DEFAULT_BACKEND).gemm(x, planes, mode, layout=layout,
+    return get_backend(DEFAULT_BACKEND).matmul(x, planes, mode, layout=layout,
                                              logical_k=logical_k)
 
 
@@ -153,7 +188,7 @@ def bitplane_gemm_placed(x: torch.Tensor, planes: torch.Tensor,
                          n_block: int | None = None,
                          k_block: int | None = None) -> torch.Tensor:
     """Batch-tiled placed GEMM over the physical window."""
-    return get_backend(DEFAULT_BACKEND).gemm_placed(
+    return get_backend(DEFAULT_BACKEND).matmul_placed(
         x, planes, col_ids, mode, layout=layout, logical_k=logical_k,
         window_block=window_block)
 
@@ -161,12 +196,14 @@ def bitplane_gemm_placed(x: torch.Tensor, planes: torch.Tensor,
 def pud_gemv(x: torch.Tensor, planes: torch.Tensor, w_scale: torch.Tensor,
              mode: str = "folded", col_ids: torch.Tensor | None = None,
              backend: str | None = None, layout: str = "dense",
-             logical_k: int | None = None,
-             window_block: int | None = None) -> torch.Tensor:
+             logical_k: int | None = None, window_block: int | None = None,
+             check_contracts: bool = False,
+             tile_plan=None) -> torch.Tensor:
     """Rank-dispatching shim over ``pud_matmul``: ``x`` [K] returns [N],
     ``x`` [B, K] behaves exactly like ``pud_matmul``."""
     kw = dict(mode=mode, col_ids=col_ids, backend=backend, layout=layout,
-              logical_k=logical_k, window_block=window_block)
+              logical_k=logical_k, window_block=window_block,
+              check_contracts=check_contracts, tile_plan=tile_plan)
     if x.dim() == 1:
         return pud_matmul(x[None, :], planes, w_scale, **kw)[0]
     return pud_matmul(x, planes, w_scale, **kw)

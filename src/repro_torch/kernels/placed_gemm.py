@@ -242,9 +242,18 @@ def split_k(kw: int, fit, tiles: int, sms: int) -> tuple[int, int, int]:
     return (kc, *split_of(kc))
 
 
+def fixed_split(kw: int, kc: int, n_split: int) -> tuple[int, int]:
+    """(split_words, n_split) of a chosen split count: ``n_split`` blocks
+    along K in whole stages of ``kc`` words (fewer when K has fewer
+    stages)."""
+    split_words = _cdiv(_cdiv(kw, kc), max(1, n_split)) * kc
+    return split_words, _cdiv(kw, split_words)
+
+
 @functools.lru_cache(maxsize=512)
 def plan_launch(b: int, kw: int, n: int, wb: int, window_block: int,
-                block_cols: int, dense: bool, sms: int = SMS) -> Plan:
+                block_cols: int, dense: bool, sms: int = SMS,
+                tuned=None) -> Plan:
     """The launch plan of one placed GEMM/GEMV call, from shapes alone.
 
     ``b`` batch rows, ``kw`` = ceil(K / 8) K words, ``n`` logical columns,
@@ -254,15 +263,26 @@ def plan_launch(b: int, kw: int, n: int, wb: int, window_block: int,
     fits ``RING_BUDGET`` (two blocks per SM), else the block's shared
     memory at the smallest of ``STAGE_WORDS``; where nothing fits, the span
     is not staged.  K splits, in whole stages, until about ``2 * sms``
-    blocks are in flight (``sms``: the device's SM count); of the stage sizes that fit, the largest that
-    still reaches that many blocks wins.
+    blocks are in flight (``sms``: the device's SM count); of the stage
+    sizes that fit, the largest that still reaches that many blocks wins.
+
+    ``tuned`` (``kernels/autotune.TunedPlan``) overrides the free choices:
+    the path, rows per block, stage words and the split count; a field
+    left as None keeps the heuristic.  The plan is built as told and not
+    repaired: ``analysis/contracts`` checks it as the kernel would.
     """
     tc = b >= TC_MIN_ROWS
-    if tc:
+    if tuned is not None and tuned.tensor_cores is not None:
+        tc = tuned.tensor_cores
+    if tuned is not None and tuned.rows is not None:
+        rows = tuned.rows
+    elif tc:
         rows = TC_ROWS[0] if b <= TC_ROWS[0] else TC_ROWS[1]
+    else:
+        rows = next(r for r in DP4A_ROWS if r >= min(b, DP4A_ROWS[-1]))
+    if tc:
         tile = TC_COLS
     else:
-        rows = next(r for r in DP4A_ROWS if r >= b)
         tile = next(t for t in DP4A_COLS if t >= min(block_cols,
                                                      DP4A_COLS[-1]))
     rpw = 8 if dense else 1
@@ -293,9 +313,13 @@ def plan_launch(b: int, kw: int, n: int, wb: int, window_block: int,
     if not fit:
         fit, row_bytes = [8], 0
 
+    if tuned is not None and tuned.stage_words is not None:
+        fit = [tuned.stage_words]
     tiles_per_block = _cdiv(block_cols, tile)
     tiles = (n // block_cols) * tiles_per_block * _cdiv(b, rows)
     kc, split_words, n_split = split_k(kw, fit, tiles, sms)
+    if tuned is not None and tuned.n_split is not None:
+        split_words, n_split = fixed_split(kw, kc, tuned.n_split)
     x_row, w_stage, tab, stage, pk_row, total = smem(kc, row_bytes)
     return Plan(tc, rows, tile, tiles_per_block, kc, STAGES, split_words,
                 n_split, row_bytes, x_row, w_stage, tab, stage, pk_row, total,
@@ -304,18 +328,35 @@ def plan_launch(b: int, kw: int, n: int, wb: int, window_block: int,
 
 
 @functools.lru_cache(maxsize=512)
-def _plan_array(*shape):
-    plan = plan_launch(*shape)
+def _plan_array(entry, b, k, kw, w_len, n, wb, pwb, bc, dense, sms, tuned):
+    """The plan of one launch and its C array; a tuned plan is held to the
+    kernel's invariants first (``analysis/contracts``), and a plan the
+    kernel would refuse raises ``ContractViolation`` here."""
+    plan = plan_launch(b, kw, n, wb, pwb, bc, dense, sms, tuned)
+    if tuned is not None:
+        from repro_torch.analysis.contracts import check_placed_plan
+        check_placed_plan(entry, plan, b=b, k=k, kw=kw, w_len=w_len, n=n,
+                          wb=wb, window_block=pwb, block_cols=bc,
+                          dense=dense, tuned=tuned)
     return plan, plan.c_array()
 
 
-def _launch(entry, x, words, col_ids, mode, layout, logical_k, window_block):
+def _plan_of(entry, x, words, col_ids, layout, logical_k, window_block,
+             tuned):
+    """(plan, C array, geometry) of a launch on ``x``'s device."""
+    geom = _geometry(x, words, col_ids, layout, logical_k, window_block,
+                     entry)
+    b, k, kw, w_len, n, wb, pwb, bc = geom
+    sms = devices.sm_count(x.device) if x.is_cuda else SMS
+    return (*_plan_array(entry, b, k, kw, w_len, n, wb, pwb, bc,
+                         layout == "dense", sms, tuned), geom)
+
+
+def _launch(entry, x, words, col_ids, mode, layout, logical_k, window_block,
+            tuned=None):
     check_mode(mode, layout)
-    b, k, kw, w_len, n, wb, pwb, bc = _geometry(
-        x, words, col_ids, layout, logical_k, window_block, entry)
-    dense = layout == "dense"
-    plan, arr = _plan_array(b, kw, n, wb, pwb, bc, dense,
-                            devices.sm_count(x.device))
+    plan, arr, (b, k, kw, w_len, n, wb, pwb, bc) = _plan_of(
+        entry, x, words, col_ids, layout, logical_k, window_block, tuned)
     out = (torch.zeros if plan.n_split > 1 else torch.empty)(
         (b, n), dtype=torch.int32, device=x.device)
     fn = _fn(f"placed_{entry.split('_')[0]}_launch",
@@ -323,8 +364,8 @@ def _launch(entry, x, words, col_ids, mode, layout, logical_k, window_block):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), words.data_ptr(), col_ids.data_ptr(),
-                out.data_ptr(), b, k, kw, w_len, n, wb, pwb, bc, int(dense),
-                arr, len(arr), stream)
+                out.data_ptr(), b, k, kw, w_len, n, wb, pwb, bc,
+                int(layout == "dense"), arr, len(arr), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     return out
@@ -333,14 +374,21 @@ def _launch(entry, x, words, col_ids, mode, layout, logical_k, window_block):
 def gemm_placed(x: torch.Tensor, words: torch.Tensor, col_ids: torch.Tensor,
                 mode: str = "folded", *, layout: str = "bitpack8",
                 logical_k: int | None = None,
-                window_block: int | None = None) -> torch.Tensor:
-    """Batch-tiled placed GEMM: [B, K] int8 -> [B, N] int32."""
+                window_block: int | None = None,
+                tile_plan=None) -> torch.Tensor:
+    """Batch-tiled placed GEMM: [B, K] int8 -> [B, N] int32.  ``tile_plan``
+    (a ``TunedPlan``) overrides the heuristic launch plan; on the CPU it is
+    checked and the plain version runs."""
     if not x.is_cuda:
+        if tile_plan is not None:
+            check_mode(mode, layout)
+            _plan_of("gemm_placed", x, words, col_ids, layout, logical_k,
+                     window_block, tile_plan)
         return gemm_placed_plain(x, words, col_ids, mode, layout=layout,
                                  logical_k=logical_k,
                                  window_block=window_block)
     out = _launch("gemm_placed", x, words, col_ids, mode, layout, logical_k,
-                  window_block)
+                  window_block, tile_plan)
     gemm_placed.launches += 1
     return out
 
@@ -348,16 +396,22 @@ def gemm_placed(x: torch.Tensor, words: torch.Tensor, col_ids: torch.Tensor,
 def gemv_placed(x: torch.Tensor, words: torch.Tensor, col_ids: torch.Tensor,
                 mode: str = "folded", *, layout: str = "bitpack8",
                 logical_k: int | None = None,
-                window_block: int | None = None) -> torch.Tensor:
-    """Single-row placed GEMV: [1, K] int8 -> [1, N] int32."""
+                window_block: int | None = None,
+                tile_plan=None) -> torch.Tensor:
+    """Single-row placed GEMV: [1, K] int8 -> [1, N] int32; ``tile_plan``
+    as ``gemm_placed``'s."""
     if not x.is_cuda:
+        if tile_plan is not None:
+            check_mode(mode, layout)
+            _plan_of("gemv_placed", x, words, col_ids, layout, logical_k,
+                     window_block, tile_plan)
         return gemv_placed_plain(x, words, col_ids, mode, layout=layout,
                                  logical_k=logical_k,
                                  window_block=window_block)
     if x.dim() != 2 or x.shape[0] != 1:
         raise ValueError(f"gemv_placed takes one row, got {tuple(x.shape)}")
     out = _launch("gemv_placed", x, words, col_ids, mode, layout, logical_k,
-                  window_block)
+                  window_block, tile_plan)
     gemv_placed.launches += 1
     return out
 

@@ -39,7 +39,7 @@ from repro_torch import devices
 
 from . import build
 from .placed_gemm import (SMS, TC_MIN_ROWS, _cdiv, check_mode,
-                          check_operands, split_k)
+                          check_operands, fixed_split, split_k)
 from .ref import bitplane_gemv_ref, densify
 
 _P = ctypes.c_void_p
@@ -120,7 +120,7 @@ class Plan:
 
 @functools.lru_cache(maxsize=512)
 def plan_launch(b: int, kw: int, n: int, wb: int, dense: bool,
-                sms: int = SMS) -> Plan:
+                sms: int = SMS, tuned=None) -> Plan:
     """The launch plan of one unplaced GEMM/GEMV call, from shapes alone.
 
     ``b`` batch rows, ``kw`` = ceil(K / 8) K words, ``n`` columns, ``wb``
@@ -133,15 +133,22 @@ def plan_launch(b: int, kw: int, n: int, wb: int, dense: bool,
     whole stages, until about ``2 * sms`` blocks are in flight; of the
     stage sizes that fit, the largest that still reaches that many blocks
     wins.
+
+    ``tuned`` (``kernels/autotune.TunedPlan``) overrides the path, rows per
+    block, stage words and split count, as in ``placed_gemm.plan_launch``;
+    the plan is built as told and ``analysis/contracts`` checks it.
     """
     tiles_n = _cdiv(n, TILE_COLS)
     tc = b >= TC_MIN_ROWS
-    if tc:
+    if tuned is not None and tuned.tensor_cores is not None:
+        tc = tuned.tensor_cores
+    if tuned is not None and tuned.rows is not None:
+        rows = tuned.rows
+    elif tc:
         rows = TC_ROWS[0] if b <= TC_ROWS[0] else TC_ROWS[1]
-        words = STAGE_WORDS
     else:
-        rows = next(r for r in DP4A_ROWS if r >= b)
-        words = DP4A_WORDS[dense]
+        rows = next(r for r in DP4A_ROWS if r >= min(b, DP4A_ROWS[-1]))
+    words = STAGE_WORDS if tc else DP4A_WORDS[dense]
     rpw = 8 if dense else 1
     tiles = tiles_n * _cdiv(b, rows)
 
@@ -155,17 +162,37 @@ def plan_launch(b: int, kw: int, n: int, wb: int, dense: bool,
                  max(STAGES * stage, WARPS * TILE_COLS * 4))
         return x_row, w_stage, stage, total
 
-    fit = [kc for kc in words if smem(kc)[-1] <= RING_BUDGET]
-    kc, split_words, n_split = split_k(kw, fit or words[-1:], tiles, sms)
+    fit = [kc for kc in words if smem(kc)[-1] <= RING_BUDGET] or words[-1:]
+    if tuned is not None and tuned.stage_words is not None:
+        fit = [tuned.stage_words]
+    kc, split_words, n_split = split_k(kw, fit, tiles, sms)
+    if tuned is not None and tuned.n_split is not None:
+        split_words, n_split = fixed_split(kw, kc, tuned.n_split)
     x_row, w_stage, stage, total = smem(kc)
     return Plan(tc, rows, kc, STAGES, split_words, n_split, x_row, w_stage,
                 stage, total, (tiles_n, _cdiv(b, rows), n_split))
 
 
 @functools.lru_cache(maxsize=512)
-def _plan_array(*shape):
-    plan = plan_launch(*shape)
+def _plan_array(entry, b, k, kw, n, wb, dense, sms, tuned):
+    """The plan of one launch and its C array; a tuned plan is held to the
+    kernel's invariants first (``analysis/contracts``)."""
+    plan = plan_launch(b, kw, n, wb, dense, sms, tuned)
+    if tuned is not None:
+        from repro_torch.analysis.contracts import check_plane_plan
+        check_plane_plan(entry, plan, b=b, k=k, kw=kw, n=n, wb=wb,
+                         dense=dense, tuned=tuned)
     return plan, plan.c_array()
+
+
+def _plan_of(entry, x, words, layout, logical_k, tuned):
+    """(plan, C array, (B, K, Kw, N, WB)) of a launch on ``x``'s device."""
+    kw = check_operands(entry, x, words, layout, logical_k)
+    b, k = x.shape
+    wb, _, n = words.shape
+    sms = devices.sm_count(x.device) if x.is_cuda else SMS
+    return (*_plan_array(entry, b, k, kw, n, wb, layout == "dense", sms,
+                         tuned), (b, k, kw, n, wb))
 
 
 def _fn(name: str):
@@ -176,45 +203,52 @@ def _fn(name: str):
     return fn
 
 
-def _launch(entry: str, x, words, mode, layout, logical_k) -> torch.Tensor:
+def _launch(entry: str, x, words, mode, layout, logical_k,
+            tuned=None) -> torch.Tensor:
     check_mode(mode, layout)
-    kw = check_operands(entry, x, words, layout, logical_k)
-    b, k = x.shape
-    wb, _, n = words.shape
-    dense = layout == "dense"
-    plan, arr = _plan_array(b, kw, n, wb, dense, devices.sm_count(x.device))
+    plan, arr, (b, k, kw, n, wb) = _plan_of(entry, x, words, layout,
+                                            logical_k, tuned)
     out = (torch.zeros if plan.n_split > 1 else torch.empty)(
         (b, n), dtype=torch.int32, device=x.device)
     fn = _fn(f"plane_{entry}_launch")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), words.data_ptr(), out.data_ptr(), b, k, kw, n,
-                wb, int(dense), arr, len(arr), stream)
+                wb, int(layout == "dense"), arr, len(arr), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     return out
 
 
 def gemm(x: torch.Tensor, words: torch.Tensor, mode: str = "folded", *,
-         layout: str = "bitpack8",
-         logical_k: int | None = None) -> torch.Tensor:
-    """Batch-tiled unplaced GEMM: [B, K] int8 -> [B, N] int32."""
+         layout: str = "bitpack8", logical_k: int | None = None,
+         tile_plan=None) -> torch.Tensor:
+    """Batch-tiled unplaced GEMM: [B, K] int8 -> [B, N] int32.
+    ``tile_plan`` (a ``TunedPlan``) overrides the heuristic launch plan; on
+    the CPU it is checked and the plain version runs."""
     if not x.is_cuda:
+        if tile_plan is not None:
+            check_mode(mode, layout)
+            _plan_of("gemm", x, words, layout, logical_k, tile_plan)
         return gemm_plain(x, words, mode, layout=layout, logical_k=logical_k)
-    out = _launch("gemm", x, words, mode, layout, logical_k)
+    out = _launch("gemm", x, words, mode, layout, logical_k, tile_plan)
     gemm.launches += 1
     return out
 
 
 def gemv(x: torch.Tensor, words: torch.Tensor, mode: str = "folded", *,
-         layout: str = "bitpack8",
-         logical_k: int | None = None) -> torch.Tensor:
-    """Single-row unplaced GEMV: [1, K] int8 -> [1, N] int32."""
+         layout: str = "bitpack8", logical_k: int | None = None,
+         tile_plan=None) -> torch.Tensor:
+    """Single-row unplaced GEMV: [1, K] int8 -> [1, N] int32; ``tile_plan``
+    as ``gemm``'s."""
     if not x.is_cuda:
+        if tile_plan is not None:
+            check_mode(mode, layout)
+            _plan_of("gemv", x, words, layout, logical_k, tile_plan)
         return gemv_plain(x, words, mode, layout=layout, logical_k=logical_k)
     if x.dim() != 2 or x.shape[0] != 1:
         raise ValueError(f"gemv takes one row, got {tuple(x.shape)}")
-    out = _launch("gemv", x, words, mode, layout, logical_k)
+    out = _launch("gemv", x, words, mode, layout, logical_k, tile_plan)
     gemv.launches += 1
     return out
 

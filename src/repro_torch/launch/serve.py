@@ -12,10 +12,14 @@ The driver decodes the batch once through the bf16 weights, then, with
 ``--pud-gemv``, opens a ``PUDSession``: calibration (a cached table, or
 Algorithm 1 through the ``calib_iter`` kernel plus ECR masks, persisted),
 column placement onto error-free columns (unless ``--no-placement``, or
-when the model does not fit the grid), 4-bit bit-plane packs of the FFN and
-unembed projections, and lockstep greedy decode with every packed
-projection in the bit-plane GEMM/GEMV kernels: the placed ones for placed
-packs, the unplaced ones otherwise.  It prints the placement status, token
+when the model does not fit the grid), ``--weight-bits`` (default 4)
+bit-plane packs of the FFN and unembed projections (``--pud-attention``
+adds the attention projections), and lockstep greedy decode with every
+packed projection in the bit-plane GEMM/GEMV kernels: the placed ones for
+placed packs, the unplaced ones otherwise.  ``--tune`` times the kernels'
+launch plans for the packs at batch 1 and ``--batch`` on the card, loads
+or persists the winners under ``<calib-cache>/tuning`` and decodes on
+them; it needs the GPU.  It prints the placement status, token
 agreement with the bf16 path, the DDR4-PUD rate models and wall times.
 ``--engine`` then serves one request per batch row through the
 continuous-batching ``ServingEngine`` and prints the share of requests
@@ -30,9 +34,8 @@ step ``--drift-at`` and corrupts the live pack to match, so the loop
 detects, recalibrates the drifted subarrays, repacks and hot-swaps while
 tokens flow, then checks post-swap decode against a fresh pack.
 
-Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions instead.
-The mesh and tuning paths, attention packing and other weight widths are
-not ported yet.
+Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions instead
+(and refuses ``--tune``).  The mesh path is not ported yet.
 """
 from __future__ import annotations
 
@@ -45,8 +48,12 @@ from repro_torch.configs import get
 from repro_torch.core.rng import generator
 from repro_torch.devices import resolve_device
 from repro_torch.models.params import init_params, param_count
-from repro_torch.pud.gemv import FFN_PACKABLE, PUDGemvConfig
+from repro_torch.pud.gemv import ATTN_PACKABLE, FFN_PACKABLE, PUDGemvConfig
 from repro_torch.runtime.steps import make_serve_step
+
+#: The seed of the model weights, prompts and device when the caller gives
+#: none (the reference's default serve key)
+DEFAULT_SEED = 0
 
 
 @torch.inference_mode()
@@ -90,7 +97,7 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--pud-gemv", action="store_true",
-                    help="serve the FFN and unembed projections as 4-bit "
+                    help="serve the FFN and unembed projections as "
                          "bit-plane packs")
     ap.add_argument("--engine", action="store_true",
                     help="also serve through the continuous-batching "
@@ -113,6 +120,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--batch-size", type=int, default=None,
                     help="engine decode slots; default = the session's "
                          "occupancy-derived optimal batch")
+    ap.add_argument("--pud-attention", action="store_true",
+                    help="also pack attention wq/wk/wv/wo onto the PUD path")
+    ap.add_argument("--tune", action="store_true",
+                    help="with --pud-gemv: autotune the kernels' launch "
+                         "plans at startup (persisted under "
+                         "<calib-cache>/tuning; a hit costs a file read); "
+                         "needs the GPU")
+    ap.add_argument("--weight-bits", type=int, default=4)
     ap.add_argument("--no-placement", dest="placement",
                     action="store_false", default=True,
                     help="with --calib-cache: skip column placement and "
@@ -147,7 +162,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="subarray grid size used on a cache miss")
     ap.add_argument("--fleet-cols", type=int, default=2048,
                     help="columns per subarray used on a cache miss")
-    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--seed", type=int, default=DEFAULT_SEED)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs the "
                          "plain PyTorch versions)")
@@ -156,6 +171,13 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--monitor requires --pud-gemv and --engine")
     if args.drift_sim and not args.monitor:
         ap.error("--drift-sim requires --monitor")
+    if args.tune and not args.pud_gemv:
+        ap.error("--tune requires --pud-gemv")
+    if args.tune and args.device is not None and \
+            torch.device(args.device).type != "cuda":
+        ap.error(f"--tune times the CUDA kernels' launch plans and needs "
+                 f"the GPU; the plain versions on --device {args.device} "
+                 "take no plan")
     return args
 
 
@@ -205,7 +227,8 @@ def _pud_path(args, spec, model, params, tokens, max_len, ref_toks,
     from repro_torch.runtime.session import PUDSession
 
     device = tokens.device
-    cfg = PUDGemvConfig(weight_bits=4, packable=FFN_PACKABLE)
+    packable = FFN_PACKABLE + (ATTN_PACKABLE if args.pud_attention else ())
+    cfg = PUDGemvConfig(weight_bits=args.weight_bits, packable=packable)
     session = PUDSession.open(
         args.arch,
         grid=FleetConfig(n_channels=1, n_banks=1,
@@ -256,6 +279,22 @@ def _pud_path(args, spec, model, params, tokens, max_len, ref_toks,
               f"{rep['occupied_subarrays']}/{rep['n_subarrays']} subarrays, "
               f"{len(rep['spilled_tensors'])} tensors spilled); "
               f"pack {t_pack:.2f}s")
+
+    if args.tune:
+        # plans load from the tuning cache (a miss searches and persists)
+        # and are stamped on the packs: both decode paths below run them
+        trep, t_tune = _timed(device, lambda: session.tune(
+            batches=sorted({1, args.batch})))
+        n_hit = sum(r["status"] == "hit" for r in trep["keys"].values())
+        print(f"  autotune: {len(trep['keys'])} keys ({n_hit} cache hits, "
+              f"{len(trep['keys']) - n_hit} searched) in {t_tune:.2f}s")
+        for tkey, row in sorted(trep["keys"].items()):
+            speed = (f"  {row['speedup']:.2f}x vs heuristic"
+                     if "speedup" in row else "")
+            print(f"    {row['status']:<5s} {tkey}: "
+                  f"{row['plan'] or 'heuristic'}{speed}")
+        packed = res["packed"] = session.packed
+        res["tuning"], res["wall_s"]["tune"] = trep, t_tune
 
     extras = session.decode_extras()
     (toks, logits), t_pud = _timed(

@@ -5,11 +5,12 @@ Two halves:
 
   * numerics (``pack_linear``, ``pud_linear``): exact low-bit integer GEMM
     through the bit-plane kernels, plus the weight-traffic accounting;
-  * the DDR4 rate models (``PUDPerfModel``, ``FleetPerfModel``): what the
-    paper's 4-channel DDR4 system would sustain for those GEMVs, from the
-    bit-serial MAC command counts priced on the timing model and scaled by
-    the measured error-free column fraction.  Pure host arithmetic, with
-    the reference's numbers.  The multi-device aggregate is not ported.
+  * the DDR4 rate models (``PUDPerfModel``, ``FleetPerfModel`` and the
+    cross-shard ``FleetPerfAggregate``): what the paper's 4-channel DDR4
+    system would sustain for those GEMVs, from the bit-serial MAC command
+    counts priced on the timing model and scaled by the measured
+    error-free column fraction.  Pure host arithmetic, with the
+    reference's numbers.
 """
 from __future__ import annotations
 
@@ -83,7 +84,8 @@ def pud_linear(x: torch.Tensor, packed: PackedTensor,
     """x [..., K] float -> [..., N] float32 through the bit-plane GEMM.
 
     Backend resolution: ``backend`` > ``cfg.backend`` > the pack's stamp >
-    the default (``cuda``).
+    the default (``cuda``).  The pack's tuned launch plans
+    (``tile_plan``) go with it.
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
@@ -91,7 +93,8 @@ def pud_linear(x: torch.Tensor, packed: PackedTensor,
                    col_ids=packed.col_ids,
                    backend=backend or cfg.backend or packed.backend,
                    layout=packed.layout, logical_k=packed.logical_k,
-                   window_block=packed.window_block)
+                   window_block=packed.window_block,
+                   tile_plan=packed.tile_plan)
     return y.reshape(lead + (y.shape[-1],))
 
 
@@ -195,9 +198,11 @@ class FleetPerfModel:
     def from_table(cls, ecr_per_subarray, n_fracs: int = 3,
                    sys: SystemConfig | None = None) -> "FleetPerfModel":
         """From a table's per-subarray ECR; ``1 - ecr`` rounds in the
-        table's own dtype (float32), as the reference computes it."""
-        ecr = torch.as_tensor(ecr_per_subarray)
-        fracs = tuple(float(f) for f in (1.0 - ecr).cpu().tolist())
+        table's own dtype (float32 for a tensor, float64 for Python
+        floats), as the reference computes it element by element."""
+        if isinstance(ecr_per_subarray, torch.Tensor):
+            ecr_per_subarray = ecr_per_subarray.cpu().numpy()
+        fracs = tuple(float(1.0 - e) for e in ecr_per_subarray)
         return cls(error_free_fracs=fracs, n_fracs=n_fracs,
                    sys=sys or SystemConfig())
 
@@ -299,3 +304,86 @@ class FleetPerfModel:
         """Modeled wall seconds of one batched decode wave."""
         b = max(1, int(batch))
         return b / self.batched_tokens_per_second(flops_per_token, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetPerfAggregate:
+    """Cross-shard serving-rate model of a sharded deployment.
+
+    ``shards`` are the per-model-shard ``FleetPerfModel``s (one per
+    "model"-axis device, each from that device's own table or placement);
+    ``n_data`` counts the data-parallel engine lanes.  A decoded token
+    needs every model shard's partial GEMM, so a lane's token rate is
+    bound by the slowest shard at the widest shard's work share
+    (``shard_fraction``: above 1/S when the window blocks do not divide
+    among the shards); lanes add up.
+    """
+
+    shards: tuple[FleetPerfModel, ...]
+    n_data: int = 1
+    shard_widths: tuple[int, ...] | None = None   # logical columns per shard
+
+    @property
+    def n_model(self) -> int:
+        return len(self.shards)
+
+    @property
+    def n_devices(self) -> int:
+        return self.n_model * self.n_data
+
+    @property
+    def shard_fraction(self) -> float:
+        """Work share of the slowest (widest) model shard."""
+        if self.shard_widths:
+            total = sum(self.shard_widths)
+            return max(self.shard_widths) / max(1, total)
+        return 1.0 / self.n_model
+
+    def _working_shards(self):
+        """Shards that own columns: a zero-width shard (more shards than
+        window blocks) runs no GEMM work and never bounds the lane."""
+        if self.shard_widths:
+            live = [m for m, w in zip(self.shards, self.shard_widths) if w]
+            if live:
+                return live
+        return list(self.shards)
+
+    def tokens_per_second(self, flops_per_token: float) -> float:
+        lane = min(m.tokens_per_second(flops_per_token * self.shard_fraction)
+                   for m in self._working_shards())
+        return self.n_data * lane
+
+    def batched_tokens_per_second(self, flops_per_token: float,
+                                  batch: int) -> float:
+        """Aggregate decode rate across all lanes at per-lane ``batch``."""
+        lane = min(m.batched_tokens_per_second(
+            flops_per_token * self.shard_fraction, batch)
+            for m in self._working_shards())
+        return self.n_data * lane
+
+    def step_seconds(self, flops_per_token: float, batch: int = 1) -> float:
+        """Modeled seconds of one decode wave on one lane (the slowest
+        shard bounds it; lanes step independently)."""
+        b = max(1, int(batch))
+        per_lane = self.batched_tokens_per_second(flops_per_token, b) \
+            / self.n_data
+        return b / per_lane
+
+    def scaling_efficiency(self, flops_per_token: float,
+                           batch: int = 1) -> float:
+        """Aggregate rate against ``n_devices`` copies of shard 0 alone."""
+        single = self.shards[0].batched_tokens_per_second(
+            flops_per_token, batch)
+        agg = self.batched_tokens_per_second(flops_per_token, batch)
+        return agg / (self.n_devices * single)
+
+    def report(self, flops_per_token: float, batch: int = 1) -> dict:
+        return {
+            "n_model": self.n_model,
+            "n_data": self.n_data,
+            "shard_fraction": self.shard_fraction,
+            "agg_tok_s": self.batched_tokens_per_second(
+                flops_per_token, batch),
+            "scaling_efficiency": self.scaling_efficiency(
+                flops_per_token, batch),
+        }

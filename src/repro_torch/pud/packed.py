@@ -9,8 +9,12 @@ reference-style ``{"planes", "scale", "col_ids"?}`` mapping into one.
 
 ``save_packed_npz`` / ``load_packed_npz`` keep the reference's
 ``pud-pack-v2`` archive, so either package reads what the other wrote.
-The port records no autotuned tile plan (``tile_plan`` is written as
-null and ignored on load).
+A pack's autotuned launch plans (``tile_plan``, ``kernels/autotune``) are
+the port's own: the reference's loader reads any non-null ``tile_plan``
+through its ``TunedTile``, which refuses the port's fields and would turn
+the whole archive into a miss.  So the entry keeps ``"tile_plan": null``
+and the port writes its plans under ``PLAN_KEY``, which the reference
+ignores; the port reads a reference archive's ``tile_plan`` as None.
 """
 from __future__ import annotations
 
@@ -31,6 +35,10 @@ LAYOUT_BITPACK = "bitpack8"   # [L?, WB, ceil(K/8), N/W] uint8, 8 bits/byte
 #: its plane dtype).
 PACK_FORMAT = "pud-pack-v2"
 
+#: Archive entry key of the port's launch plans (the reference's own
+#: ``tile_plan`` stays null)
+PLAN_KEY = "repro_torch_tile_plan"
+
 
 @dataclasses.dataclass(eq=False)
 class PackedTensor:
@@ -43,6 +51,9 @@ class PackedTensor:
     layout        plane storage format tag
     logical_k     K before byte padding (bitpack8 only)
     window_block  placed packs: window columns per logical N block
+    tile_plan     autotuned launch plans (``kernels/autotune.py``): a
+                  ``TunedPlan`` for every call or ``(row class, TunedPlan)``
+                  pairs, stamped by ``PUDSession.tune``; None: heuristic
     """
 
     planes: torch.Tensor
@@ -52,6 +63,7 @@ class PackedTensor:
     layout: str = LAYOUT_DENSE
     logical_k: int | None = None
     window_block: int | None = None
+    tile_plan: object | None = None
 
     @property
     def placed(self) -> bool:
@@ -151,14 +163,15 @@ def _per_layer(fn, planes: torch.Tensor) -> torch.Tensor:
 
 
 def to_dense(pt) -> PackedTensor:
-    """Bit-exact conversion to the dense one-byte-per-bit layout."""
+    """Bit-exact conversion to the dense one-byte-per-bit layout (tuned
+    plans are per layout, so a converted pack carries none)."""
     from repro_torch.kernels.ref import unpack_plane_words
     pt = as_packed_tensor(pt)
     if pt.layout == LAYOUT_DENSE:
         return pt
     dense = _per_layer(lambda w: unpack_plane_words(w, pt.k), pt.planes)
     return pt.replace(planes=dense.contiguous(), layout=LAYOUT_DENSE,
-                      logical_k=None)
+                      logical_k=None, tile_plan=None)
 
 
 def to_bitpacked(pt) -> PackedTensor:
@@ -169,7 +182,7 @@ def to_bitpacked(pt) -> PackedTensor:
         return pt
     words = _per_layer(pack_plane_words, pt.planes)
     return pt.replace(planes=words, layout=LAYOUT_BITPACK,
-                      logical_k=pt.planes.shape[-2])
+                      logical_k=pt.planes.shape[-2], tile_plan=None)
 
 
 @dataclasses.dataclass(eq=False)
@@ -209,12 +222,17 @@ class PackedModel:
 
     def tensor(self, name: str) -> PackedTensor:
         """One pack by its report name or a unique path suffix."""
+        return self.tensors[self.name_of(name)]
+
+    def name_of(self, name: str) -> str:
+        """The report name of a pack named by itself or a unique path
+        suffix."""
         tensors = self.tensors
         if name in tensors:
-            return tensors[name]
+            return name
         hits = [k for k in tensors if k.endswith(name)]
         if len(hits) == 1:
-            return tensors[hits[0]]
+            return hits[0]
         raise KeyError(
             f"packed tensor {name!r} "
             + (f"is ambiguous: {sorted(hits)}" if hits
@@ -246,10 +264,30 @@ def packed_bytes(params) -> dict:
 # ---------------------------------------------------------------------------
 
 
+def plan_to_json(tile_plan):
+    """TunedPlan | ((class, TunedPlan), ...) | None -> a JSON value."""
+    if tile_plan is None:
+        return None
+    if hasattr(tile_plan, "to_dict"):
+        return tile_plan.to_dict()
+    return [[cls, plan.to_dict()] for cls, plan in tile_plan]
+
+
+def plan_from_json(value):
+    """The inverse of :func:`plan_to_json`; unknown fields raise."""
+    if value is None:
+        return None
+    from repro_torch.kernels.autotune import TunedPlan
+    if isinstance(value, dict):
+        return TunedPlan.from_dict(value)
+    return tuple((cls, TunedPlan.from_dict(d)) for cls, d in value)
+
+
 def save_packed_npz(path, pm: PackedModel) -> None:
     """Write a ``PackedModel``'s packs to ``path`` as one ``pud-pack-v2``
-    .npz with per-tensor layout metadata.  Only the packed projections
-    serialize; the bf16 leaves are not part of the archive."""
+    .npz with per-tensor layout metadata and the port's launch plans
+    (under ``PLAN_KEY``).  Only the packed projections serialize; the bf16
+    leaves are not part of the archive."""
     tensors = pm.tensors
     meta = {
         "format": PACK_FORMAT,
@@ -259,7 +297,8 @@ def save_packed_npz(path, pm: PackedModel) -> None:
         "entries": {
             name: {"layout": pt.layout, "logical_k": pt.logical_k,
                    "window_block": pt.window_block, "backend": pt.backend,
-                   "tile_plan": None}
+                   "tile_plan": None,
+                   PLAN_KEY: plan_to_json(pt.tile_plan)}
             for name, pt in tensors.items()
         },
     }
@@ -280,7 +319,8 @@ def load_packed_npz(path, device=None) -> dict[str, PackedTensor] | None:
     loads with each pack's layout taken from its plane dtype; an unknown
     format tag or a corrupt file reads as None.  A recorded backend the
     port does not have (the reference's ``pallas``) loads as None, the
-    default."""
+    default; so does the reference's ``tile_plan`` (its ``TunedTile``
+    names TPU tiles).  The port's plans load from ``PLAN_KEY``."""
     from repro_torch.devices import resolve_device
     from repro_torch.kernels.backends import backend_names
     device = resolve_device(device)
@@ -308,9 +348,10 @@ def load_packed_npz(path, device=None) -> dict[str, PackedTensor] | None:
                                     logical_k=e.get("logical_k"),
                                     window_block=e.get("window_block"),
                                     backend=(backend if backend
-                                             in backend_names() else None))
+                                             in backend_names() else None),
+                                    tile_plan=plan_from_json(e.get(PLAN_KEY)))
                 out[name] = pt
             return out
-    except (OSError, ValueError, KeyError, EOFError, json.JSONDecodeError,
-            zipfile.BadZipFile):
+    except (OSError, ValueError, TypeError, KeyError, EOFError,
+            json.JSONDecodeError, zipfile.BadZipFile):
         return None

@@ -10,7 +10,9 @@ padded to the per-tensor stride ``window_block``.  ``local_cols`` (what the
 packs' ``col_ids`` store) are absolute window positions.
 
 Persisted placements use the reference's ``pud-placement-v2`` npz format,
-so either package reads what the other wrote.
+so either package reads what the other wrote.  ``shard_column_slices``
+splits a tensor's columns among model shards on window-block boundaries
+(host arithmetic, held by ``analysis/contracts.check_shard_slices``).
 
 Fault injection models serving from the faulty device: ``corrupt_planes``
 makes every bit stored on an error-prone window column read its stuck
@@ -63,6 +65,32 @@ def requests_fingerprint(requests: list[PlacementRequest]) -> str:
         else (r.name, r.n_cols, r.n_slices, r.block_cols)
         for r in requests])
     return hashlib.sha256(blob.encode()).hexdigest()[:10]
+
+
+def shard_column_slices(n_cols: int,
+                        n_shards: int) -> tuple[tuple[tuple[int, int], ...],
+                                                int]:
+    """Split a tensor's N columns across model shards on block boundaries.
+
+    Returns ``(((lo, hi), ...), block_cols)``: one half-open column span
+    per shard and the block width the split keeps whole, the full tensor's
+    ``largest_divisor(n_cols, PLACE_BLOCK)`` (the unsharded allocator's).
+    Every shard owns whole window blocks, earlier shards taking the
+    remainder blocks; with fewer blocks than shards the last shards own
+    none.  ``analysis/contracts.check_shard_slices`` checks the result.
+    """
+    if n_cols <= 0 or n_shards <= 0:
+        raise PlacementError(
+            f"shard_column_slices needs positive n_cols/n_shards, got "
+            f"{n_cols}/{n_shards}")
+    block_cols = largest_divisor(n_cols, PLACE_BLOCK)
+    base, extra = divmod(n_cols // block_cols, n_shards)
+    spans, lo = [], 0
+    for i in range(n_shards):
+        hi = lo + (base + (1 if i < extra else 0)) * block_cols
+        spans.append((lo, hi))
+        lo = hi
+    return tuple(spans), block_cols
 
 
 @dataclasses.dataclass

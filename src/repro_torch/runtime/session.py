@@ -5,6 +5,8 @@
                               cache_dir="~/.pud-cache")
     state  = session.calibrate()            # cache hit or Algorithm 1
     packed = session.pack(params, cfg)      # placement-aware PackedModel
+    report = session.tune(batches=(1, 4))   # tuned launch plans, stamped
+    y      = session.linear(x, "unembed/w") # one packed projection
     extras = session.decode_extras()        # layout / bytes diagnostics
     engine = session.serving_engine(model, max_len=...)
     report = session.perf_report(flops_per_token)   # DDR4-PUD rate models
@@ -15,8 +17,11 @@ on ``cuda`` unless ``device="cpu"`` is passed; without a GPU it raises.
 ``recalibrate_subarrays`` re-identifies a few subarrays against their
 current offsets and merges them into the state; ``reserve_canaries``
 withholds per-subarray canary columns from placement for the drift monitor
-(``runtime/drift.py``).  Per-call execution (``linear``), pinned operating
-points, tuning and the multi-device fleet session are not ported yet.
+(``runtime/drift.py``).  ``tune`` times the kernels' launch plans on the
+card (``kernels/autotune.py``), persists the winners beside the
+calibration table (``<cache_dir>/tuning``, ``runtime/tune.py``) and stamps
+them on the packs; ``at_operating_point`` pins a Table-I ECR for pricing
+without a device.  The multi-device fleet session is not ported yet.
 """
 from __future__ import annotations
 
@@ -34,10 +39,12 @@ from repro_torch.core.fleet import (FleetConfig, fleet_calib_charges,
 from repro_torch.core.offsets import baseline_charges
 from repro_torch.core.rng import derive_seed
 from repro_torch.devices import resolve_device
+from repro_torch.kernels.autotune import (MAX_CANDIDATES, row_class,
+                                          tune_kernel, tuning_key)
 from repro_torch.kernels.backends import DEFAULT_BACKEND, backend_names
 from repro_torch.pud.gemv import (ECR_BASELINE_B300, ECR_PUDTUNE_T210,
                                   FleetPerfModel, PUDGemvConfig,
-                                  PUDPerfModel, weight_traffic)
+                                  PUDPerfModel, pud_linear, weight_traffic)
 from repro_torch.pud.packed import PackedModel, packed_bytes
 from repro_torch.pud.packer import pack_model, packing_requests
 from repro_torch.pud.physics import PhysicsParams
@@ -65,6 +72,26 @@ def _sync(device: torch.device) -> None:
     """Wait for ``device``'s queued work, so that a host wall is whole."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _restamp_model(pm: PackedModel, stamped: dict) -> PackedModel:
+    """``pm`` with ``stamped[name]`` packs swapped in (same metadata)."""
+    def walk(tree, path):
+        out = {}
+        for key, sub in tree.items():
+            if key.endswith("_pud"):
+                name = "/".join(path + (key[: -len("_pud")],))
+                out[key] = stamped.get(name, sub)
+            elif isinstance(sub, dict):
+                out[key] = walk(sub, path + (key,))
+            else:
+                out[key] = sub
+        return out
+
+    return PackedModel(params=walk(pm.params, ()),
+                       packed_names=pm.packed_names,
+                       skipped_names=pm.skipped_names,
+                       weight_bits=pm.weight_bits, placed=pm.placed)
 
 
 class _NullCache:
@@ -106,12 +133,14 @@ class PUDSession:
 
         self._state: CalibrationState | None = None
         self._canaries = None                     # core/canary.CanarySet
+        self._operating_point: float | None = None
         self._packed: PackedModel | None = None
         self._pack_cfg: PUDGemvConfig | None = None
         self._placement: Placement | None = None
         self._placement_name: str | None = None
         self._placement_status: str | None = None   # hit | planned | skipped
         self._placement_error: str | None = None
+        self._tuning_report: dict | None = None
 
     @classmethod
     def open(cls, arch_or_grid: "str | FleetConfig | None" = None, *,
@@ -153,6 +182,19 @@ class PUDSession:
             calib=calib or CalibrationConfig(),
             seed=int(seed), placement=placement, method=method,
             n_trials_ecr=n_trials_ecr, device=resolve_device(device))
+
+    @classmethod
+    def at_operating_point(cls, ecr: float, *, arch: str | None = None,
+                           n_fracs_cfg: tuple[int, ...] = (2, 1, 0),
+                           backend: str = DEFAULT_BACKEND,
+                           device=None) -> "PUDSession":
+        """A session pinned to a fixed mean ECR (e.g. a Table-I operating
+        point) instead of a measured device, for pricing.  ``device`` as
+        ``open``'s (the GPU unless the caller asks for the CPU)."""
+        s = cls.open(arch, grid=FleetConfig(frac_counts=n_fracs_cfg),
+                     backend=backend, device=device)
+        s._operating_point = float(ecr)
+        return s
 
     # -- calibration --------------------------------------------------------
 
@@ -359,6 +401,134 @@ class PUDSession:
         self._packed, self._pack_cfg = pm, cfg
         return pm
 
+    # -- kernel autotuning ---------------------------------------------------
+
+    def _tuning_cache(self):
+        """The persistent tuning cache beside the calibration table
+        (``<cache_dir>/tuning``) for this session's card, or None without a
+        cache (the winners then live only in the stamped packs)."""
+        if self.cache is None:
+            return None
+        from repro_torch.runtime.tune import TuningCache, device_tag
+        return TuningCache(self.cache.directory / "tuning",
+                           device=device_tag(self.device))
+
+    def _plan_fits(self, plan, entry: str, batch: int, planes, pt) -> bool:
+        """Does the contract checker accept ``plan`` for this pack?"""
+        from repro_torch import devices
+        from repro_torch.analysis.contracts import check_tile_plan
+        from repro_torch.analysis.errors import ContractViolation
+        try:
+            check_tile_plan(
+                plan, entry, (batch, pt.k), tuple(planes.shape),
+                layout=pt.layout, logical_k=pt.logical_k,
+                col_ids=pt.n if pt.placed else None,
+                window_block=pt.window_block,
+                sms=devices.sm_count(self.device))
+        except ContractViolation:
+            return False
+        return True
+
+    def tune(self, names=None, *, batches=(1, 8), force: bool = False,
+             warmup: int = 1, reps: int = 5,
+             max_candidates: int = MAX_CANDIDATES) -> dict:
+        """Autotune the packed projections on the session's card and stamp
+        the winners on the packs.
+
+        For every pack (only ``names``, report names or unique path
+        suffixes, when given) and every batch in ``batches``, the plan of
+        its tuning key loads from the tuning cache; on a miss, with
+        ``force``, or when a cached plan does not fit this pack's window,
+        ``kernels/autotune.tune_kernel`` searches it (heuristic first,
+        every candidate equal to it bit for bit) and the winner is saved.
+        Each pack is stamped with one plan per row class of ``batches``
+        (``autotune.row_class``), so every later ``linear``, decode step,
+        engine and ``save_packed_npz`` carries them.  Needs a CUDA
+        session: the plain versions take no plan.
+
+        Returns the report (also ``tuning_report()``): per key its status
+        ("hit", "tuned"), the plan, and the heuristic and tuned seconds,
+        the speedup and the candidate count.
+        """
+        if self._packed is None:
+            raise RuntimeError("no packed model: call session.pack() first")
+        if self.device.type != "cuda":
+            raise RuntimeError(
+                f"PUDSession.tune: the session runs on {self.device}; "
+                "tuning times the CUDA kernels and needs the GPU")
+        cache = self._tuning_cache()
+        mode = (self._pack_cfg or PUDGemvConfig()).mode
+        tensors = self._packed.tensors
+        if names is not None:
+            tensors = {n: tensors[n] for n in map(self._packed.name_of,
+                                                  names)}
+        report: dict = {"fingerprint": cache.fingerprint if cache else None,
+                        "cache_dir": str(cache.directory) if cache else None,
+                        "keys": {}}
+        stamped = {}
+        for name, pt in tensors.items():
+            planes = pt.planes[0] if pt.planes.dim() == 4 else pt.planes
+            col_ids = None
+            if pt.col_ids is not None:
+                col_ids = pt.col_ids[0] if pt.col_ids.dim() == 2 \
+                    else pt.col_ids
+            plans = {}
+            for batch in batches:
+                batch = int(batch)
+                entry = "gemm" if batch > 1 else "gemv"
+                key = tuning_key(entry, batch, pt.k, pt.n, pt.n_bits,
+                                 pt.layout, pt.placed)
+                row = {"name": name, "entry": entry, "batch": batch,
+                       "row_class": row_class(batch)}
+                plan = None if (force or cache is None) else cache.load(key)
+                if plan is not None and self._plan_fits(plan, entry, batch,
+                                                        planes, pt):
+                    row.update(status="hit",
+                               **cache.load_entry(key)["stats"])
+                else:
+                    x = ((torch.arange(batch * pt.k, device=self.device)
+                          % 255) - 127).to(torch.int8).reshape(batch, pt.k)
+                    res = tune_kernel(
+                        entry, x, planes, col_ids=col_ids,
+                        window_block=pt.window_block, layout=pt.layout,
+                        logical_k=pt.logical_k, mode=mode,
+                        backend=self.backend, warmup=warmup, reps=reps,
+                        max_candidates=max_candidates)
+                    plan = res.plan
+                    row.update(status="tuned", **res.to_stats())
+                    if cache is not None:
+                        cache.save(key, plan, res.to_stats())
+                row["plan"] = plan.to_dict()
+                report["keys"][key] = row
+                plans[row_class(batch)] = plan
+            stamped[name] = pt.replace(tile_plan=tuple(sorted(plans.items())))
+        self._restamp_packs(stamped)
+        self._tuning_report = report
+        return report
+
+    def _restamp_packs(self, stamped: dict) -> None:
+        """Swap tuned packs into the packed tree (a new ``PackedModel``)."""
+        self._packed = _restamp_model(self._packed, stamped)
+
+    def tuning_report(self) -> dict | None:
+        """The last ``tune`` report, or None when the session never tuned."""
+        return self._tuning_report
+
+    # -- execution ------------------------------------------------------------
+
+    def linear(self, x: torch.Tensor, name: str, *,
+               backend: str | None = None) -> torch.Tensor:
+        """Run one packed projection: x [..., K] -> [..., N] float32 on the
+        session's device.  ``name`` is a pack's report name or a unique
+        path suffix ("unembed/w"); ``backend`` overrides the session's for
+        this call (every backend gives the same integers)."""
+        if self._packed is None:
+            raise RuntimeError("no packed model: call session.pack() first")
+        pt = self._packed.tensor(name)
+        cfg = self._pack_cfg or PUDGemvConfig()
+        return pud_linear(x.to(self.device), pt, cfg,
+                          backend=backend or self.backend)
+
     # -- rate models and serving ---------------------------------------------
 
     def baseline_perf_model(self) -> PUDPerfModel:
@@ -366,8 +536,11 @@ class PUDSession:
         return PUDPerfModel(error_free_frac=1 - ECR_BASELINE_B300)
 
     def tuned_perf_model(self) -> "FleetPerfModel | PUDPerfModel":
-        """The calibrated device's rate model: the measured per-subarray
+        """The calibrated device's rate model: the pinned operating point
+        of an ``at_operating_point`` session, the measured per-subarray
         table when calibrated, the Table-I T_{2,1,0} constant otherwise."""
+        if self._operating_point is not None:
+            return PUDPerfModel(error_free_frac=1 - self._operating_point)
         if self._state is not None:
             return FleetPerfModel.from_table(self._state.ecr,
                                              n_fracs=self.n_fracs)
@@ -437,7 +610,8 @@ class PUDSession:
             "n_fracs": self.n_fracs,
             "calibrated": self._state is not None,
             "cache_hit": (self._state.cache_hit if self._state else None),
-            "mean_ecr": (self._state.mean_ecr if self._state else None),
+            "mean_ecr": (self._state.mean_ecr if self._state
+                         else self._operating_point),
             "baseline_model": base,
             "tuned_model": tune,
             "gain": tune.speedup_vs(base),

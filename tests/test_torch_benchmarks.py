@@ -5,7 +5,11 @@ fused-vs-plain parity leg bit for bit).  Fig. 3 is deterministic and held
 to the reference's rows field for field; ``placement`` and
 ``drift_recovery`` run at their own smoke configurations; the ``run``
 harness lists, selects and fails as the reference's does.  The figures'
-numbers beside the reference's runs are in ``test_torch_figures.py``."""
+numbers beside the reference's runs are in ``test_torch_figures.py``.
+The kernel benchmarks run their plain versions here: their rows, the
+traffic gate, the baseline gate and the harness entries; the MVDRAM
+serving rows are held to the reference's in
+``test_torch_session_surface.py``."""
 import ast
 import pathlib
 
@@ -264,7 +268,8 @@ def test_run_lists_only_what_the_port_has(capsys):
              capsys.readouterr().out.splitlines() if line and
              not line.startswith(" ")]
     assert names == ["fig3", "table1", "fig5", "fig6", "convergence",
-                     "fleet", "drift", "majx", "placement"]
+                     "fleet", "kernels", "kernel_microbench", "serving",
+                     "drift", "majx", "placement"]
     from benchmarks.run import BENCHES as REF
     assert [n for n in REF if n in names] == names
 
@@ -275,7 +280,7 @@ def test_run_only_one(capsys):
     assert "#csv fig3_offsets" in out
     assert "1 benchmark(s) in" in out and "all passed" in out
     with pytest.raises(SystemExit):
-        run.main(["--only", "kernels"])
+        run.main(["--only", "serving_engine"])    # not ported yet
 
 
 def test_a_raising_benchmark_fails_the_run_and_the_rest_still_run(
@@ -298,3 +303,93 @@ def test_a_raising_benchmark_fails_the_run_and_the_rest_still_run(
 def test_run_benches_reports_walls():
     walls = run.run_benches(["fig3"], common.BenchScale(), "cpu")
     assert list(walls) == ["fig3"] and walls["fig3"][1] is False
+
+
+# ---------------------------------------------------------------------------
+# The kernel benchmarks (kernel_bench, kernel_microbench) on the CPU
+# ---------------------------------------------------------------------------
+
+
+def test_kernel_bench_rows_and_modeled_columns(capsys):
+    from repro_torch.benchmarks import kernel_bench
+    rows = kernel_bench.report(device="cpu")
+    text = capsys.readouterr().out
+    assert [(r["kernel"], r["mode"]) for r in rows] == [
+        ("majx_sense", "plain (cpu)"), ("majx_sense", "plain"),
+        ("bitplane_gemm", "planes"), ("bitplane_gemm", "folded"),
+        ("bitplane_gemm", "plain")]
+    assert {r["shape"] for r in rows} == {"16x8x4096", "8x2048x2048@4b"}
+    gemm = rows[2]
+    assert gemm["ops"] == 2 * 8 * 2048 * 2048
+    assert gemm["bytes"] == 4 * 2048 * 2048 + 8 * 2048 + 8 * 2048 * 4
+    assert rows[0]["bytes"] == (16 * 8 * 4096 + 2 * 16 * 4096 + 4096) * 4
+    assert all(r["device"] == "cpu" and r["ms"] > 0 and r["equal_to_plain"]
+               for r in rows)
+    assert "#csv kernel_bench" in text
+    assert "kernel_bench: kernels == plain versions on the same inputs" \
+        in text
+
+
+def test_kernel_microbench_on_the_cpu(capsys, tmp_path):
+    """16 rows (four entries x two formats x two modes), the measured
+    traffic reduction gate, no tuning on the CPU, and the payload under
+    the artifacts directory, never the reference's BENCH_kernels.json."""
+    from repro_torch.benchmarks import kernel_microbench as mb
+    ref_bench = (ROOT / "BENCH_kernels.json").read_bytes()
+    assert mb.main(["--device", "cpu", "--reps", "1"]) == 0
+    text = capsys.readouterr().out
+    payload = __import__("json").loads((tmp_path / mb.PAYLOAD).read_text())
+    rows = payload["rows"]
+    assert len(rows) == 16 and payload["device"]["name"] == "cpu"
+    assert {(r["kernel"], r["layout"], r["format"], r["mode"])
+            for r in rows} == {(k, lo, f, m) for k in ("gemv", "gemm")
+                               for lo in ("logical", "placed")
+                               for f in ("dense", "bitpacked")
+                               for m in ("planes", "folded")}
+    assert all(r["tuned_plan"] is None and r["tuned_speedup"] is None
+               for r in rows)
+    for name, red in payload["traffic_reduction"].items():
+        assert red >= mb.MIN_REDUCTION, name
+    assert "tuning needs the GPU" in text and "#csv kernel_microbench" in text
+    assert "kernel_microbench: kernels == plain versions" in text
+    assert (ROOT / "BENCH_kernels.json").read_bytes() == ref_bench
+    assert str(mb.DEFAULT_TUNING_DIR).endswith(".pud-tuning-torch")
+    # the baseline gate against a file the caller gives
+    base = tmp_path / "base.json"
+    base.write_text(__import__("json").dumps(payload))
+    assert mb.main(["--device", "cpu", "--reps", "1", "--compare",
+                    str(base), "--tolerance", "10"]) == 0
+    assert "compare: OK" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        mb.main(["--device", "cpu", "--tune-only"])
+
+
+def test_kernel_microbench_compare_rows():
+    from repro_torch.benchmarks.kernel_microbench import compare_rows
+
+    def row(kernel, tps):
+        return dict(kernel=kernel, layout="logical", format="dense",
+                    mode="folded", batch=1, tokens_per_second=tps)
+
+    base = [row("gemv", 100.0), row("gemm", 800.0)]
+    # twice as fast everywhere: no regression after normalization
+    assert compare_rows([row("gemv", 200.0), row("gemm", 1600.0)],
+                        base)[0] == []
+    fails, rep = compare_rows([row("gemv", 50.0), row("gemm", 800.0)],
+                              base)
+    assert len(fails) == 1 and "gemv" in fails[0]
+    assert compare_rows([row("gemv", 50.0), row("gemm", 800.0)], base,
+                        absolute=True)[0][0].startswith("gemv")
+    fails, _ = compare_rows([row("gemv", 100.0)], base)
+    assert fails == ["baseline row gemm/logical/dense/folded/b1 missing "
+                     "from this run"]
+    assert compare_rows([], base)[0][-1] == "no rows shared with the baseline"
+
+
+def test_harness_runs_the_serving_table(capsys):
+    """``--only serving`` through the harness (``kernels`` and
+    ``kernel_microbench`` run through it in the chip script's rehearsal,
+    ``test_torch_serve.py``)."""
+    assert run.main(["--only", "serving", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "#csv mvdram_serving" in out and "all passed" in out

@@ -446,3 +446,90 @@ def test_ops_dense_entries_launch_the_kernels(gen, b):
             x, window, cols, mode, window_block=pwb), want)
     after = [f.launches - n for f, n in zip(counts, before)]
     assert after == ([2, 2, 2, 2] if b == 1 else [4, 0, 4, 0])
+
+
+# ---- tuned launch plans (kernels/autotune.py) --------------------------
+
+#: the tuning phase's shapes of qwen3-1.7b's packs (wi/wg, wo, wq/attn wo,
+#: wk/wv, unembed) at its tuning batches
+TUNE_KN = [(2048, 6144), (6144, 2048), (2048, 2048), (2048, 1024),
+           (2048, 151936)]
+
+
+def _tuning_pack(gen, k, n, placed, layout):
+    """(planes, col_ids, window_block) of a random 4-bit pack, placed on a
+    window with about 6% spare columns per block when ``placed``."""
+    from repro_torch.analysis.contracts import synthetic_placed
+    w = torch.randint(-8, 8, (k, n), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    planes = ref.pack_bitplanes(w, 4)
+    cols = pwb = None
+    if placed:
+        bc = ops.largest_divisor(n, ops.N_BLOCK)
+        w_len, pwb, ids = synthetic_placed(n, pad=max(8, bc // 16))
+        cols = torch.from_numpy(ids).to("cuda")
+        window = torch.zeros((4, k, w_len), dtype=torch.int8, device="cuda")
+        window[:, :, cols.long()] = planes
+        planes = window
+    if layout == "bitpack8":
+        planes = ref.pack_plane_words(planes)
+    return planes, cols, pwb
+
+
+@pytest.mark.parametrize("layout", ["bitpack8", "dense"])
+@pytest.mark.parametrize("placed", [True, False])
+@pytest.mark.parametrize("kn", TUNE_KN)
+@pytest.mark.parametrize("b", [1, 4, 32])
+def test_every_tuning_candidate_equals_plain(gen, b, kn, placed, layout):
+    """Every candidate the tuner would time at the tuning phase's shapes
+    launches and equals the plain version bit for bit."""
+    from repro_torch.kernels.autotune import candidate_plans, valid_candidates
+    k, n = kn
+    planes, cols, pwb = _tuning_pack(gen, k, n, placed, layout)
+    x = torch.randint(-127, 128, (b, k), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    entry = "gemv" if b == 1 else "gemm"
+    lk = k if layout == "bitpack8" else None
+    plans = valid_candidates(
+        candidate_plans(entry, b, k, n, layout=layout,
+                        placed_window=planes.shape[-1] if placed else None,
+                        pack_window_block=pwb,
+                        sms=torch.cuda.get_device_properties(0)
+                        .multi_processor_count),
+        entry, x.shape, planes.shape, layout=layout, logical_k=lk,
+        col_ids=cols, window_block=pwb,
+        sms=torch.cuda.get_device_properties(0).multi_processor_count)
+    assert len(plans) > 1 and plans[0].is_default()
+    kw = dict(layout=layout, logical_k=lk)
+    if placed:
+        fn = placed_gemm.gemv_placed if b == 1 else placed_gemm.gemm_placed
+        want = placed_gemm.placed_plain(x, planes, cols, window_block=pwb,
+                                        **kw)
+        args = (x, planes, cols)
+        kw["window_block"] = pwb
+    else:
+        fn = plane_gemm.gemv if b == 1 else plane_gemm.gemm
+        want = plane_gemm.plane_plain(x, planes, **kw)
+        args = (x, planes)
+    for plan in plans:
+        got = fn(*args, tile_plan=None if plan.is_default() else plan, **kw)
+        assert torch.equal(got, want), plan
+
+
+def test_tune_kernel_winner_equals_plain(gen):
+    """``tune_kernel`` on the card: the heuristic first, a winner among
+    several candidates whose output equals the plain version."""
+    from repro_torch.kernels.autotune import tune_kernel
+    planes, cols, pwb = _tuning_pack(gen, 2048, 6144, True, "bitpack8")
+    x = torch.randint(-127, 128, (4, 2048), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    res = tune_kernel("gemm", x, planes, col_ids=cols, window_block=pwb,
+                      layout="bitpack8", logical_k=2048)
+    assert res.key == "gemm__placed__bitpack8__4x2048x6144@4b"
+    assert res.n_candidates > 1 and res.tuned_s <= res.heuristic_s
+    got = placed_gemm.gemm_placed(
+        x, planes, cols, window_block=pwb, logical_k=2048,
+        tile_plan=None if res.plan.is_default() else res.plan)
+    want = placed_gemm.placed_plain(x, planes, cols, window_block=pwb,
+                                    layout="bitpack8", logical_k=2048)
+    assert torch.equal(got, want)

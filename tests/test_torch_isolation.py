@@ -36,8 +36,9 @@ def test_sources_exist():
 #: The modules of the Table-I slice and the SiMRA sensing kernel, then of
 #: partial recalibration, the noise fit, the pack archive, fault injection
 #: and the paper's benchmarks, then of the drift-reliability loop and the
-#: paper's remaining figures: each is among the scanned sources (its CUDA
-#: source among the built ones).
+#: paper's remaining figures, then of the autotuner, the contract checker,
+#: the session surface and the kernel benchmarks: each is among the
+#: scanned sources (its CUDA source among the built ones).
 SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "pud/bitserial.py", "core/calibrate.py", "core/fleet.py",
                  "core/ecr.py", "core/throughput.py", "runtime/session.py",
@@ -53,7 +54,13 @@ SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "benchmarks/fig6_reliability.py",
                  "benchmarks/calibration_convergence.py",
                  "benchmarks/majx_general.py", "benchmarks/placement.py",
-                 "benchmarks/drift_recovery.py")
+                 "benchmarks/drift_recovery.py", "analysis/__init__.py",
+                 "analysis/__main__.py", "analysis/errors.py",
+                 "analysis/contracts.py", "kernels/autotune.py",
+                 "kernels/backends.py", "kernels/placed_gemm.py",
+                 "kernels/plane_gemm.py", "runtime/tune.py",
+                 "benchmarks/mvdram_serving.py", "benchmarks/kernel_bench.py",
+                 "benchmarks/kernel_microbench.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
@@ -92,3 +99,20 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
                             "PATH": "/usr/bin:/bin"})
     assert r.returncode == 0, r.stderr[-2000:]
     assert "BAD []" in r.stdout, r.stdout
+
+
+def test_port_module_names_stay_clear_of_the_reference_kernels():
+    """The reference's lint keeps its kernel modules private by name
+    (``majx``, ``bitplane_gemv``, ``bitplane_gemm``): no port module takes
+    one of those names."""
+    names = {p.stem for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
+    assert not names & {"majx", "bitplane_gemv", "bitplane_gemm"}
+
+
+def test_no_raw_pack_dicts_in_the_port():
+    """The reference's lint (``no-raw-pack-dicts``) over the port: no dict
+    literal with both ``"planes"`` and ``"scale"`` keys."""
+    from repro.analysis.lint import lint_paths
+    findings = [f for f in lint_paths([ROOT / "src" / "repro_torch"])
+                if f.rule in ("no-raw-pack-dicts", "no-direct-kernel-imports")]
+    assert findings == []

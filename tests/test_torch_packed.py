@@ -299,3 +299,75 @@ def test_frac_charge_matches_reference():
     assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=0)
+
+
+def _stamped(pm):
+    """``pm`` with every pack stamped with tuned plans (``PUDSession.tune``
+    stamps one per row class)."""
+    from repro_torch.kernels.autotune import TunedPlan
+    from repro_torch.runtime.session import _restamp_model
+    plans = (("gemm", TunedPlan(tensor_cores=False, rows=4, stage_words=8,
+                                n_split=1)),
+             ("gemm_tc64", TunedPlan(tensor_cores=True, rows=64)),
+             ("gemv", TunedPlan(stage_words=4)))
+    return _restamp_model(pm, {n: pt.replace(tile_plan=plans)
+                               for n, pt in pm.tensors.items()})
+
+
+@pytest.mark.parametrize("placed", [True, False], ids=["placed", "unplaced"])
+def test_archives_keep_stamped_plans_and_the_reference_reads_them(
+        tmp_path, placed):
+    """A stamped archive round-trips in the port with its plans; the
+    reference loads the same file with ``tile_plan`` None (its own key
+    stays null; the port's plans ride under a key it ignores) and every
+    pack intact."""
+    port, jm = _models(placed)
+    tuned = _stamped(port)
+    pk.save_packed_npz(tmp_path / "tuned.npz", tuned)
+    own = pk.load_packed_npz(tmp_path / "tuned.npz", device="cpu")
+    from_port = jpk.load_packed_npz(tmp_path / "tuned.npz")
+    assert from_port is not None and list(from_port) == list(tuned.tensors)
+    for name, pt in tuned.tensors.items():
+        assert own[name].tile_plan == pt.tile_plan is not None
+        _assert_same_pack(own[name], pt)
+        assert from_port[name].tile_plan is None
+        _assert_same_pack(pt, from_port[name])
+        _assert_same_pack(pt, jm.tensor(name))
+    meta = json.loads(str(np.load(tmp_path / "tuned.npz")["meta"]))
+    for e in meta["entries"].values():
+        assert e["tile_plan"] is None and e[pk.PLAN_KEY][0][0] == "gemm"
+
+
+def test_reference_tile_plans_read_as_none(tmp_path):
+    """The reference's stamped ``TunedTile`` names TPU tiles: the port
+    loads such an archive with ``tile_plan`` None and every pack intact;
+    a corrupt port plan makes the archive a miss, as any corruption."""
+    from repro.kernels.autotune import TunedTile
+    port, jm = _models(True)
+    stamped = {n: jt.replace(tile_plan=(("gemm", TunedTile(n_block=128)),))
+               for n, jt in jm.tensors.items()}
+    from repro.runtime.session import _restamp_model as j_restamp
+    jtuned = j_restamp(jm, stamped)
+    jpk.save_packed_npz(tmp_path / "ref.npz", jtuned)
+    meta = json.loads(str(np.load(tmp_path / "ref.npz")["meta"]))
+    assert all(e["tile_plan"] for e in meta["entries"].values())
+    got = pk.load_packed_npz(tmp_path / "ref.npz", device="cpu")
+    for name, pt in got.items():
+        assert pt.tile_plan is None
+        _assert_same_pack(pt, jm.tensor(name))
+    pk.save_packed_npz(tmp_path / "p.npz", _stamped(port))
+    z = dict(np.load(tmp_path / "p.npz"))
+    meta = json.loads(str(z["meta"]))
+    next(iter(meta["entries"].values()))[pk.PLAN_KEY] = [["gemm",
+                                                          {"n_block": 8}]]
+    z["meta"] = np.array(json.dumps(meta))
+    np.savez(tmp_path / "bad.npz", **z)
+    assert pk.load_packed_npz(tmp_path / "bad.npz", device="cpu") is None
+
+
+def test_conversions_drop_plans_and_stacked_layers_keep_them():
+    port, _ = _models(False)
+    pt = _stamped(port).tensor("layers_0_dense/mixer/wi")
+    assert pt.layer(1).tile_plan == pt.tile_plan is not None
+    assert pk.to_dense(pt).tile_plan is None
+    assert pk.to_bitpacked(pk.to_dense(pt)).tile_plan is None

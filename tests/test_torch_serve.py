@@ -328,7 +328,7 @@ def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
     assert gem["prefilled"][0] < gem["prefilled"][1]
     assert gem["slo"]["shed_on_admit"] >= 1 and gem["slo"]["met"] >= 1
     assert "gemma-7b (smoke)" in text and "bit for bit" in text
-    assert [len(r["extra_shapes"]) for r in out["rows"][:3]] == [3, 8, 3]
+    assert [len(r["extra_shapes"]) for r in out["rows"][:3]] == [3, 10, 3]
     mon = out["monitor"]                 # the monitored serving phase
     assert {g for g, sev in mon["events"] if sev == "critical"} == {1, 5}
     assert mon["latency_steps"] >= 0 and mon["recalibrate_ms"] > 0
@@ -342,6 +342,23 @@ def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
                  "majx_general", "placement"):
         assert f"#csv {name}" in text
     for name in ("drift_recovery", "placement"):
+        assert (f"{name}: kernels == plain versions on the same inputs"
+                in text)
+    tun = out["tuning"]                  # the tuning phase (untimed stamps)
+    assert 0 < tun["occupancy"] < 1 and tun["used_cols"] > 0
+    assert "PUDSession.tune on the CPU raises" in text
+    assert "tuned kernels == plain versions, bit for bit" in text
+    assert "tokens and logits bit-identical" in text
+    assert set(tun["single_split"]) == {"wi", "wo"} and "one split" in text
+    assert tun["plan_path_us"] > 0 and "stamped-plan host path" in text
+    assert "saved and loaded: plans equal" in text
+    assert "packs of 8 planes: prefill logits" in text
+    assert out["contracts"]["sms"] == 132 and "0 findings" in text
+    assert set(out["benchmarks"]) == {"serving", "kernels",
+                                      "kernel_microbench"}
+    for name in ("mvdram_serving", "kernel_bench", "kernel_microbench"):
+        assert f"#csv {name}" in text
+    for name in ("kernel_bench", "kernel_microbench"):
         assert (f"{name}: kernels == plain versions on the same inputs"
                 in text)
 
