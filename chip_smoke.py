@@ -101,10 +101,11 @@ Phases (any failure exits nonzero and prints no result line):
      entries at the reference kernel benchmark's shapes (B 8 and B 1,
      K = N = 2048, 4-bit): every GEMM/GEMV entry launches its kernel;
      the contract gate ``python -m repro_torch.analysis --sms <the
-     card's>`` (exit 0); ``benchmarks.run --only`` serving, kernels and
-     kernel_microbench (the modules mvdram_serving, kernel_bench and
-     kernel_microbench; each exits 0, the last two hold every kernel
-     result to its plain version);
+     card's>`` (exit 0); ``benchmarks.run --only`` serving,
+     serving_engine, kernels and kernel_microbench (the modules
+     mvdram_serving, serving_engine at its smoke configuration,
+     kernel_bench and kernel_microbench; each exits 0, the last two hold
+     every kernel result to its plain version);
  12. each kernel at the main path's shapes against its plain version on the
      card (exact equality, both modes), timed with CUDA events (median of 30
      launches, L2 flushed before each, the host's launch time hidden behind
@@ -135,7 +136,21 @@ Phases (any failure exits nonzero and prints no result line):
      bit for bit; profiles of a chunk step and a decode step (the placed
      GEMM kernels' device time and launches); peak device memory; then
      the placed GEMM/GEMV and ``calib_iter`` at gemma's shapes, as in 12;
- 14. print the ``kernels`` JSON line and, last, the device JSON line.
+ 14. deepseek-v2-lite-16b (MLA attention, 64 routed experts top-6 + 2
+     shared, one dense layer first; ``DEEPSEEK``) at full width and full
+     depth, 15.7 B parameters from the seed, after gemma's packs are freed,
+     on the main path's 16 x 65,536 grid: calibration (a cache miss),
+     placement of 326,016 columns, 4-bit placed FFN (layer 0's and the
+     shared experts') and unembed packs, the routed banks in bf16; the
+     whole-model prefill logits through the kernels == plain versions;
+     lockstep greedy decode of 4 prompts of 32 tokens for 16; the engine
+     (8 requests on 4 slots, whole-prompt prefill) equal to lockstep token
+     for token; a ragged engine run (prompts of 5-40 tokens) through the
+     kernels == plain versions; a profile of one batch-4 decode step; with
+     MLA's wq / wo packed too (464,256 columns), a prefill and 4 decode
+     steps through the kernels == plain versions; peak device memory; then
+     the placed GEMM / GEMV at its shapes, as in 12;
+ 15. print the ``kernels`` JSON line and, last, the device JSON line.
 
 Device time from ``torch.profiler`` counts each device event (kernel, copy,
 memset) once; the host ops that launched them are not added again.
@@ -215,8 +230,9 @@ FIGURES = dict(n_cols=65536, n_trials_maj5=8192, n_cols_arith=4096,
 TUNE_BATCHES = (1, BATCH, 32)
 WEIGHT_BITS = 8              # the --weight-bits phase's plane count
 # the benchmarks phase: ``benchmarks.run --only`` names of the modules
-# mvdram_serving, kernel_bench and kernel_microbench
-BENCHMARKS = ("serving", "kernels", "kernel_microbench")
+# mvdram_serving, serving_engine (at its smoke configuration),
+# kernel_bench and kernel_microbench
+BENCHMARKS = ("serving", "serving_engine", "kernels", "kernel_microbench")
 # gemma-7b at full width through the engine's scheduler: 1,718,272 placed
 # columns need 32 subarrays of 65,536 (16 hold ~1.01 M error-free).  The
 # traffic: 8 prompts sharing a 64-token system prompt (own tails of 8-64
@@ -228,6 +244,19 @@ GEMMA = dict(arch="gemma-7b", preset="full",
              slots=4, max_len=256, chunk=32, system=64, own=(8, 64),
              unrelated=(16, 96), budget=(4, 16), n_shared=8, cache=64,
              slo_steps=16)
+# deepseek-v2-lite-16b at full width and full depth (15.7 B parameters,
+# 31.4 GB of bf16 weights: one card holds it whole) on the main path's
+# 16 x 65,536 grid: its FFN + unembed packs need 326,016 placed columns,
+# 464,256 with MLA's wq / wo.  Lockstep and the engine run at batch 4, at
+# most top_k (6), so each expert's decode capacity is the whole batch and
+# no token is dropped: a row does not depend on its neighbours.  MoE
+# models prefill whole prompts at their exact length, so the ragged run's
+# prompts of 5-40 tokens each take their own prefill shape.
+DEEPSEEK = dict(arch="deepseek-v2-lite-16b", preset="full", grid=GRID,
+                batch=BATCH, prompt=PROMPT, gen=GEN, requests=ENGINE_BATCH,
+                slots=ENGINE_SLOTS,
+                ragged=dict(n=8, prompt=(5, 40), budget=(4, 16)),
+                attn_steps=4, placed_cols=326_016, attn_cols=464_256)
 
 
 class PhaseError(RuntimeError):
@@ -1516,6 +1545,269 @@ def gemma_phase(torch, dev, cfg: dict, kernels, sync) -> dict:
     return out
 
 
+def deepseek_phase(torch, dev, cfg: dict, kernels, sync) -> dict:
+    """deepseek-v2-lite-16b (MLA + MoE; ``DEEPSEEK``) at full width and
+    depth, random weights from the seed, on the main path: a cache-miss
+    calibration, placement, 4-bit placed FFN (layer 0's dense FFN and the
+    26 shared experts; the routed banks stay bf16) and unembed packs.
+
+    Checks, each kernels vs plain versions bit for bit where named: the
+    whole-model prefill logits; lockstep greedy decode; the engine's
+    tokens equal to lockstep's; a ragged engine run (kernels == plain);
+    with MLA's wq / wo packed too, a prefill and ``attn_steps`` decode
+    steps (kernels == plain).  Prints placed columns, occupancy, walls,
+    peak device memory, a batch-4 decode step's host wall and device time
+    by kernel, the engine's decode rate and slot occupancy.  Returns the
+    packs for the kernel rows and the phase's launches."""
+    from repro_torch.configs import get
+    from repro_torch.core.calibrate import CalibrationConfig
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.core.rng import generator
+    from repro_torch.launch.serve import greedy_generate
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.pud.gemv import (ATTN_PACKABLE, FFN_PACKABLE,
+                                      PUDGemvConfig)
+    from repro_torch.runtime.engine import Request, ServingEngine
+    from repro_torch.runtime.session import PUDSession
+    on_card = dev.type == "cuda"
+    full = cfg["preset"] == "full"
+    t_phase = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    spec = get(cfg["arch"])
+    model = spec.make_model() if full else spec.make_smoke()
+    mc = model.cfg
+    phase(f"{cfg['arch']} ({cfg['preset']}): calibrate -> place -> pack on "
+          f"a {cfg['grid']['n_subarrays']} x {cfg['grid']['n_cols']:,} grid")
+    sync()
+    t0 = time.perf_counter()
+    params = init_params(model.param_defs(), SEED, dev)
+    sync()
+    n_params = param_count(model.param_defs())
+    print(f"  {n_params:,} parameters ({mc.n_layers} layers: "
+          f"{mc.groups()}, d {mc.d_model}, MLA rank {mc.mla_kv_rank}, "
+          f"{mc.n_experts} routed experts (d_ff {mc.moe_d_ff}) top-"
+          f"{mc.top_k} + {mc.n_shared_experts} shared, dense d_ff "
+          f"{mc.d_ff}, vocab {mc.vocab}); init "
+          f"{time.perf_counter() - t0:.2f}s")
+    cache = tempfile.TemporaryDirectory(prefix="pud-deepseek-")
+
+    def open_session():
+        return PUDSession.open(
+            cfg["arch"], grid=FleetConfig(**cfg["grid"]),
+            cache_dir=cache.name,
+            calib=CalibrationConfig(n_iterations=12, n_samples=256),
+            seed=SEED + 2, device=dev)
+
+    def pack(sess, packable, label):
+        sync()
+        t0 = time.perf_counter()
+        pm = sess.pack(params, PUDGemvConfig(weight_bits=4,
+                                             packable=packable),
+                       name=f"{cfg['arch']}-{cfg['preset']}-{label}")
+        sync()
+        wall = time.perf_counter() - t0
+        need(sess.placement_status == "planned" and pm.placed,
+             f"placement {sess.placement_status}: {sess.placement_error}")
+        rep = sess.placement.capacity_report()
+        print(f"  {label} packs: {len(pm.packed_names)} placed, "
+              f"{len(pm.skipped_names)} routed banks left bf16; "
+              f"{rep['used_cols']:,} / {rep['usable_cols']:,} error-free "
+              f"columns used (occupancy {rep['occupancy']:.4f}, "
+              f"{rep['occupied_subarrays']} / {rep['n_subarrays']} "
+              f"subarrays); pack {wall:.2f}s")
+        return pm, rep, wall
+
+    session = open_session()
+    reset_counts(kernels)
+    st = session.calibrate()
+    sync()
+    calib_launches = kernels["calib_iter"].launches
+    need(not st.cache_hit, "a fresh cache reported a hit")
+    need(calib_launches > 0 or not on_card,
+         "calibration never launched calib_iter")
+    print(f"  calibration MISS in {st.wall_s:.3f}s: "
+          f"{session.fleet_cfg.n_subarrays_total} subarrays, mean ECR "
+          f"{st.mean_ecr:.4f}, {calib_launches} calib_iter launches")
+    packed, rep, t_pack = pack(session, FFN_PACKABLE, "ffn")
+    need(not full or rep["used_cols"] == cfg["placed_cols"],
+         f"{rep['used_cols']} placed columns, expected {cfg['placed_cols']}")
+    plain_params = restamp(packed.params, "reference")
+
+    g = generator(SEED, "deepseek-prompts")
+    prompts = torch.randint(0, mc.vocab, (cfg["requests"], cfg["prompt"]),
+                            generator=g, dtype=torch.int32).to(dev)
+    b, gen = cfg["batch"], cfg["gen"]
+    max_len = cfg["prompt"] + gen + 1
+    launches = {k: 0 for k in kernels}
+
+    def count():
+        for k, v in read_counts(kernels).items():
+            launches[k] += v
+        return read_counts(kernels)
+
+    phase("deepseek: whole-model prefill, kernels vs plain versions")
+    reset_counts(kernels)
+    with torch.inference_mode():
+        got, _ = model.prefill(packed.params, prompts[:b], max_len=max_len)
+        want, _ = model.prefill(plain_params, prompts[:b], max_len=max_len)
+    sync()
+    count()
+    need(tuple(got.shape) == (b, mc.vocab)
+         and bool(torch.isfinite(got).all()), "bad prefill logits")
+    need(torch.equal(got, want),
+         "prefill logits through the kernels differ from the plain path")
+    print(f"  prefill logits {list(got.shape)}: kernels == plain versions, "
+          "bit for bit")
+
+    phase(f"deepseek: lockstep greedy decode, {b} prompts of "
+          f"{cfg['prompt']} tokens, {gen} new tokens each")
+    reset_counts(kernels)
+    sync()
+    t0 = time.perf_counter()
+    toks, logits = greedy_generate(model, packed.params, prompts[:b], gen,
+                                   max_len)
+    sync()
+    t_lock = time.perf_counter() - t0
+    c_lock = count()
+    need(c_lock["gemm_placed"] > 0 or not on_card,
+         "lockstep never launched gemm_placed")
+    need(c_lock["gemm"] == c_lock["gemv"] == 0,
+         "the placed path launched an unplaced kernel")
+    need(tuple(toks.shape) == (b, gen) and int(toks.min()) >= 0
+         and int(toks.max()) < mc.vocab, "bad lockstep tokens")
+    need(bool(torch.isfinite(logits).all()), "non-finite lockstep logits")
+    print(f"  {b * gen} tokens in {t_lock:.2f}s wall; launches {c_lock}")
+    reset_counts(kernels)
+    rest = [greedy_generate(model, packed.params, prompts[i:i + b], gen,
+                            max_len)[0]
+            for i in range(b, cfg["requests"], b)]
+    lock_toks = torch.cat([toks] + rest).tolist()
+    count()
+
+    phase(f"deepseek: engine, {cfg['requests']} requests on "
+          f"{cfg['slots']} slots (whole-prompt prefill)")
+    eng = session.serving_engine(model, max_len=max_len,
+                                 batch_size=cfg["slots"])
+    reqs = [Request(i, prompts[i], gen) for i in range(cfg["requests"])]
+    reset_counts(kernels)
+    sync()
+    t0 = time.perf_counter()
+    comps = eng.run(reqs)
+    sync()
+    t_eng = time.perf_counter() - t0
+    c_eng = count()
+    erep = eng.scheduler_report()
+    same = sum(c.tokens == lock_toks[c.request_id] for c in comps)
+    print(f"  {erep['generated_tokens']} tokens in {erep['steps']} steps, "
+          f"slot occupancy {erep['slot_occupancy']:.4f}, decode "
+          f"{erep['wall_tok_s']:.1f} tok/s ({t_eng:.2f}s wall); "
+          f"{same} / {len(comps)} requests equal to lockstep; launches "
+          f"{c_eng}")
+    need(len(comps) == cfg["requests"] and same == len(comps),
+         "the engine's tokens differ from lockstep's")
+    del eng
+
+    phase("deepseek: ragged engine run, kernels vs plain versions")
+    gr = generator(SEED, "deepseek-ragged")
+    (p0, p1), (b0, b1) = cfg["ragged"]["prompt"], cfg["ragged"]["budget"]
+    n_r = cfg["ragged"]["n"]
+    lens = torch.randint(p0, p1 + 1, (n_r,), generator=gr).tolist()
+    budgets = torch.randint(b0, b1 + 1, (n_r,), generator=gr).tolist()
+    rreqs = [Request(i, torch.randint(0, mc.vocab, (n,), generator=gr,
+                                      dtype=torch.int32), m)
+             for i, (n, m) in enumerate(zip(lens, budgets))]
+    r_len = p1 + b1
+    eng_k = session.serving_engine(model, max_len=r_len,
+                                   batch_size=cfg["slots"],
+                                   collect_logits=True)
+    eng_p = ServingEngine(model, plain_params, session=session,
+                          max_len=r_len, batch_size=cfg["slots"],
+                          collect_logits=True)
+    reset_counts(kernels)
+    got_r = eng_k.run(rreqs)
+    sync()
+    count()
+    reset_counts(kernels)
+    want_r = eng_p.run(rreqs)
+    sync()
+    need(sum(read_counts(kernels).values()) == 0,
+         "the plain replay launched a kernel")
+    for g_, w_ in zip(got_r, want_r):
+        need(g_.tokens == w_.tokens and torch.equal(g_.logits, w_.logits)
+             and (g_.slot, g_.admitted_step) == (w_.slot, w_.admitted_step),
+             f"request {g_.request_id}: kernels differ from plain versions")
+    rrep = eng_k.scheduler_report()
+    need(rrep["prefill_traces"] > 1
+         and max(c.admitted_step for c in got_r) > 0,
+         "the ragged run did not exercise prefill shapes and mid-run "
+         "admission")
+    print(f"  {len(got_r)} requests (prompts {lens}, budgets {budgets}), "
+          f"{rrep['generated_tokens']} tokens in {rrep['steps']} steps, "
+          f"{rrep['prefill_traces']} prefill shapes: tokens and logits "
+          "through the kernels == plain versions, bit for bit")
+    del eng_k, eng_p, got_r, want_r
+
+    phase(f"profile: one batch-{b} deepseek decode step")
+    prof = profile_step(torch, model, packed.params, prompts[:b], max_len,
+                        sync)
+
+    phase(f"deepseek --pud-attention: MLA wq / wo packed too; prefill + "
+          f"{cfg['attn_steps']} decode steps, kernels vs plain versions")
+    session_a = open_session()
+    need(session_a.calibrate().cache_hit, "the attention run missed the "
+         "table")
+    packed_a, rep_a, t_pack_a = pack(session_a,
+                                     FFN_PACKABLE + ATTN_PACKABLE, "attn")
+    need(not full or rep_a["used_cols"] == cfg["attn_cols"],
+         f"{rep_a['used_cols']} placed columns, expected {cfg['attn_cols']}")
+    need(any(n.endswith("attn/wq") for n in packed_a.packed_names),
+         "MLA wq was not packed")
+    plain_a = restamp(packed_a.params, "reference")
+    reset_counts(kernels)
+    with torch.inference_mode():
+        lg_k, cache_k = model.prefill(packed_a.params, prompts[:b],
+                                      max_len=max_len)
+        lg_p, cache_p = model.prefill(plain_a, prompts[:b], max_len=max_len)
+        same_a = [torch.equal(lg_k, lg_p)]
+        for i in range(cfg["attn_steps"]):
+            nxt = torch.argmax(lg_k, dim=-1).to(torch.int32)[:, None]
+            lg_k, cache_k = model.decode_step(packed_a.params, cache_k, nxt,
+                                              cfg["prompt"] + i)
+            lg_p, cache_p = model.decode_step(plain_a, cache_p, nxt,
+                                              cfg["prompt"] + i)
+            same_a.append(torch.equal(lg_k, lg_p))
+    sync()
+    count()
+    need(all(same_a), f"attention packs: kernels differ from plain versions "
+         f"at steps {[i for i, x in enumerate(same_a) if not x]}")
+    print(f"  prefill and {cfg['attn_steps']} decode steps: logits through "
+          "the kernels == plain versions, bit for bit")
+    del cache_k, cache_p, plain_a, plain_params, params
+
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+    wall = time.perf_counter() - t_phase
+    print(f"  deepseek phase: {wall:.1f}s wall; calibration "
+          f"{st.wall_s:.3f}s, packs {t_pack:.2f} / {t_pack_a:.2f}s; peak "
+          "device memory "
+          + (f"{peak:.2f} GiB" if peak is not None else "not measured")
+          + f"; launches {launches}")
+    out = dict(packed=packed, packed_attn=packed_a, launches=launches,
+               calib_launches=calib_launches, n_params=n_params,
+               mean_ecr=st.mean_ecr, calib_wall_s=st.wall_s,
+               placed_cols=rep["used_cols"], occupancy=rep["occupancy"],
+               attn_cols=rep_a["used_cols"],
+               attn_occupancy=rep_a["occupancy"],
+               walls=dict(pack=t_pack, pack_attn=t_pack_a, lockstep=t_lock,
+                          engine=t_eng, phase=wall),
+               engine=dict(tok_s=erep["wall_tok_s"],
+                           occupancy=erep["slot_occupancy"],
+                           steps=erep["steps"]),
+               profile=prof, peak_gib=peak)
+    cache.cleanup()
+    return out
+
+
 def strip_plans(tree):
     """The packed tree with every pack's tuned plans dropped (the
     heuristic launch plans)."""
@@ -1881,9 +2173,9 @@ def contracts_phase(dev) -> dict:
 
 def benchmarks_phase(torch, dev, kernels, sync) -> dict:
     """``benchmarks.run --only`` for each of ``BENCHMARKS`` (the modules
-    mvdram_serving, kernel_bench and kernel_microbench): each exits 0, and
-    the two that launch kernels hold every result to the plain versions
-    (they raise otherwise)."""
+    mvdram_serving, serving_engine, kernel_bench and kernel_microbench):
+    each exits 0, and kernel_bench and kernel_microbench hold every result
+    to the plain versions (they raise otherwise)."""
     from repro_torch.benchmarks import run as bench_run
     out = {}
     for name in BENCHMARKS:
@@ -1907,7 +2199,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         quickstart: dict = QUICKSTART, simra: dict = SIMRA,
         dense_cfg: dict = DENSE, sense_shapes=SENSE_SHAPES,
         calib_shapes=CALIB_SHAPES, fleet_argv=FLEET_ARGV,
-        recal=RECAL, gemma: dict = GEMMA, monitor: dict = MONITOR,
+        recal=RECAL, gemma: dict = GEMMA, deepseek: dict = DEEPSEEK,
+        monitor: dict = MONITOR,
         figures: dict = FIGURES, tune_batches=TUNE_BATCHES,
         weight_bits: int = WEIGHT_BITS) -> dict:
     """All phases on ``dev``.  ``main`` runs them on the GPU at full
@@ -2409,6 +2702,29 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
     rows[2]["extra_shapes"][-2:-2] = [gemm_row(
         placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain, gun, 1)]
     del gpk, gwi, gwo, gun
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # deepseek-v2-lite-16b at full width, after gemma's packs are freed
+    ds = deepseek_phase(torch, dev, deepseek, kernels, sync)
+    dpk, dpa = ds.pop("packed"), ds.pop("packed_attn")
+    phase("kernels vs plain versions at deepseek-v2-lite's shapes")
+    rows[0]["launches"] += ds["calib_launches"]
+    rows[1]["launches"] += ds["launches"]["gemm_placed"]
+    rows[2]["launches"] += ds["launches"]["gemv_placed"]
+    shared = [dpk.tensor(f"layers_1_moe/mixer/shared/{n}").layer(0)
+              for n in ("wi", "wo")]
+    dense0 = [layer0(dpk, n) for n in ("wi", "wo")]
+    dun = dpk.tensor("unembed/w")
+    dwq = dpa.tensor("layers_1_moe/attn/wq").layer(0)
+    rows[1]["extra_shapes"][-2:-2] = [
+        gemm_row(placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain, pt,
+                 deepseek["batch"])
+        for pt in shared + dense0 + [dun, dwq]]
+    rows[2]["extra_shapes"][-2:-2] = [gemm_row(
+        placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain, dun, 1)]
+    del dpk, dpa, shared, dense0, dun, dwq
 
     phase("kernel rows: every shape against its plain version, timed")
     for r in [e for row in rows for e in [row] + row.get("extra_shapes", [])]:
@@ -2432,6 +2748,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
             "calibration_walls": walls, "table1": t1, "quickstart": qs,
             "simra": sim, "recalibration": recal, "faults": fault,
             "archive": archive, "fleet_calibration": fleet, "gemma": gem,
+            "deepseek": ds,
             "monitor": mon, "figures": figs, "tuning": tun,
             "weight_bits": wbits, "contracts": contr, "benchmarks": benches}
 

@@ -7,10 +7,10 @@
 Order: offset ladders (Fig. 3) -> Table I -> Frac sensitivity (Fig. 5) ->
 reliability (Fig. 6) -> Algorithm-1 convergence -> fleet calibration ->
 CUDA kernels vs plain versions -> kernel microbenchmark (traffic, tuned
-plans) -> MVDRAM serving table -> drift recovery (canary detect + hot
-swap) -> MAJX generalization -> column placement.  Only what the port has
-is registered; the reference's serving-engine and roofline benchmarks are
-not ported yet.
+plans) -> MVDRAM serving table -> serving engine (batch sweep, shard scaling,
+heavy-tail trace) -> drift recovery (canary detect + hot swap) -> MAJX
+generalization -> column placement.  Only what the port has is
+registered; the reference's roofline benchmark is not ported yet.
 
 A raising benchmark is reported, the others still run, and the process
 exits 1.
@@ -86,6 +86,14 @@ def _serving(scale, device):
     mvdram_serving.report(scale, device)
 
 
+def _serving_engine(scale, device):
+    """Continuous-batching engine: tokens/s vs batch size, occupancy, shard
+    scaling, heavy-tail latency trace (writes
+    artifacts/bench_torch/BENCH_serving_torch.json)."""
+    from . import serving_engine
+    serving_engine.report(scale, device)
+
+
 def _drift(scale, device):
     """Online drift recovery: detection latency, partial recal scope,
     hot swap without a stalled step (fails on any stalled step)."""
@@ -115,6 +123,7 @@ BENCHES: dict[str, Callable[[BenchScale, object], None]] = {
     "kernels": _kernels,
     "kernel_microbench": _kernel_microbench,
     "serving": _serving,
+    "serving_engine": _serving_engine,
     "drift": _drift,
     "majx": _majx,
     "placement": _placement,

@@ -1,5 +1,6 @@
 """Ported architectures, with the reference's full and smoke configs
-(``repro/configs/archs.py``): the dense GQA family, qwen3-1.7b, gemma-7b,
+(``repro/configs/archs.py``): the MoE family, deepseek-v2-lite-16b (MLA)
+and llama4-scout-17b-a16e, and the dense GQA family, qwen3-1.7b, gemma-7b,
 deepseek-67b and granite-8b.  The port's ``LMConfig`` has no
 ``loss_chunk`` (no training path), so the smoke configs leave it out."""
 from __future__ import annotations
@@ -7,6 +8,46 @@ from __future__ import annotations
 from repro_torch.models.transformer import LMConfig, TransformerLM
 
 from .registry import ArchSpec, register
+
+# --- deepseek-v2-lite-16b [moe, MLA] [arXiv:2405.04434] ---------------------
+
+register(ArchSpec(
+    arch_id="deepseek-v2-lite-16b",
+    family="moe",
+    make_model=lambda: TransformerLM(LMConfig(
+        name="deepseek-v2-lite-16b", n_layers=27, d_model=2048, n_heads=16,
+        n_kv_heads=16, d_ff=10944, vocab=102400, attention="mla",
+        mla_kv_rank=512, mla_qk_nope=128, mla_qk_rope=64, mla_v_dim=128,
+        n_experts=64, top_k=6, moe_d_ff=1408, n_shared_experts=2,
+        first_dense_layers=1)),
+    make_smoke=lambda: TransformerLM(LMConfig(
+        name="smoke", n_layers=3, d_model=64, n_heads=4, n_kv_heads=4,
+        d_ff=160, vocab=256, attention="mla", mla_kv_rank=32, mla_qk_nope=16,
+        mla_qk_rope=8, mla_v_dim=16, n_experts=8, top_k=2, moe_d_ff=64,
+        n_shared_experts=1, first_dense_layers=1)),
+    n_params=15.8e9, n_active_params=2.7e9,
+    notes="MLA kv_lora=512; 64 routed + 2 shared, top-6 (V2-Lite)",
+))
+
+
+# --- llama4-scout-17b-a16e [moe] ---------------------------------------------
+
+register(ArchSpec(
+    arch_id="llama4-scout-17b-a16e",
+    family="moe",
+    make_model=lambda: TransformerLM(LMConfig(
+        name="llama4-scout-17b-a16e", n_layers=48, d_model=5120, n_heads=40,
+        n_kv_heads=8, d_ff=8192, vocab=202048, head_dim=128,
+        n_experts=16, top_k=1, moe_d_ff=8192, n_shared_experts=1)),
+    make_smoke=lambda: TransformerLM(LMConfig(
+        name="smoke", n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
+        d_ff=128, vocab=256, head_dim=8, n_experts=4, top_k=1, moe_d_ff=128,
+        n_shared_experts=1)),
+    n_params=107e9, n_active_params=17e9,
+    notes="16 routed top-1 + 1 shared expert; iRoPE/NoPE simplified to "
+          "full-attention RoPE",
+))
+
 
 # --- qwen3-1.7b [dense, qk_norm] ---------------------------------------------
 

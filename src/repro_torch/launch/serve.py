@@ -6,7 +6,8 @@ engine's scheduler flags).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --preset full --pud-gemv --calib-cache DIR \
         --fleet-subarrays 16 --fleet-cols 65536 [--no-placement] [--engine]
-    # gemma-7b needs 1,718,272 placed columns: --fleet-subarrays 32
+    # gemma-7b needs 1,718,272 placed columns: --fleet-subarrays 32;
+    # deepseek-v2-lite-16b 326,016 (MoE: whole-prompt prefill only)
 
 The driver decodes the batch once through the bf16 weights, then, with
 ``--pud-gemv``, opens a ``PUDSession``: calibration (a cached table, or

@@ -1,2 +1,2 @@
-"""Model families of the port: the dense GQA transformer so far."""
+"""Model families of the port: the dense, MoE and MLA transformers so far."""
 from .transformer import LMConfig, TransformerLM  # noqa: F401

@@ -1,19 +1,22 @@
-"""GQA attention: full-sequence (chunked softmax), one prefill chunk resumed
-into a KV cache, and one-token decode against a KV cache, at one position
-for all rows or at a position per row (port of the GQA half of
-``repro/models/attention.py``; MLA is not ported yet).
+"""Attention: GQA and MLA (DeepSeek's multi-head latent attention), each
+full-sequence (chunked softmax), one prefill chunk resumed into a cache,
+and one-token decode against a cache, at one position for all rows or at a
+position per row (port of ``repro/models/attention.py``; the encoder's
+cross-attention is not ported yet).
 
-Layouts are the reference's: q/k/v [B, S, H, Dh], caches [B, Smax, KV, Dh],
-weights wq/wk/wv [D, H, Dh] and wo [H, Dh, D].  Score and PV products
-accumulate in float32 as the reference's ``preferred_element_type`` does.
-The decode step and the prefill chunk write their key/value rows into the
-cache in place.
+Layouts are the reference's: q/k/v [B, S, H, Dh], caches [B, Smax, KV, Dh]
+(MLA: the latents ckv [B, Smax, R] and kr [B, Smax, dr]), weights wq/wk/wv
+[D, H, Dh] and wo [H, Dh, D].  Score and PV products accumulate in float32
+as the reference's ``preferred_element_type`` does.  The decode step and
+the prefill chunk write their cache rows in place.  The reference's
+sharding hints have no counterpart on one device.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 
 from .layers import rmsnorm, rmsnorm_defs, rope
 from .params import ParamDef
@@ -168,6 +171,19 @@ def gqa_prefill_chunk(p, cfg: AttnConfig, x: torch.Tensor,
     return merge_proj(p, "wo", out)
 
 
+def _write_rows(cache: torch.Tensor, lens: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """Write ``new[i]`` at row ``lens[i]`` of lane i of ``cache`` [B, Smax,
+    ...] in place.  A lane whose length is already ``Smax`` keeps its last
+    row (rewritten with its own value): the reference drops that write
+    (``mode="drop"``)."""
+    smax = cache.shape[1]
+    rows = torch.arange(cache.shape[0], device=cache.device)
+    at = torch.clamp(lens, max=smax - 1)
+    keep = (lens >= smax).reshape((-1,) + (1,) * (cache.dim() - 2))
+    cache[rows, at] = torch.where(keep, cache[rows, at], new.to(cache.dtype))
+
+
 def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
                cache_v: torch.Tensor,
                cur_len: "int | torch.Tensor") -> torch.Tensor:
@@ -197,15 +213,8 @@ def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
     q = rope(q, pos, cfg.rope_theta)
     k_new = rope(k_new, pos, cfg.rope_theta)
     if per_slot:
-        # Rows at Smax keep their last cache row: it is rewritten with its
-        # own value, which matches the reference's dropped write.
-        rows = torch.arange(b, device=x.device)
-        at = torch.clamp(lens, max=smax - 1)
-        keep = (lens >= smax)[:, None, None]
-        cache_k[rows, at] = torch.where(keep, cache_k[rows, at],
-                                        k_new[:, 0].to(cache_k.dtype))
-        cache_v[rows, at] = torch.where(keep, cache_v[rows, at],
-                                        v_new[:, 0].to(cache_v.dtype))
+        _write_rows(cache_k, lens, k_new[:, 0])
+        _write_rows(cache_v, lens, v_new[:, 0])
         valid = lens + 1
     else:
         cache_k[:, cur_len:cur_len + 1] = k_new.to(cache_k.dtype)
@@ -228,3 +237,159 @@ def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
                      w.to(cache_v.dtype).to(torch.float32),
                      cache_v.to(torch.float32)).to(cache_v.dtype)
     return merge_proj(p, "wo", o.reshape(b, 1, h, d))
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    d_model: int
+    n_heads: int
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_head_dim: int = 128
+    rope_theta: float = 10000.0
+    kv_chunk: int = 1024
+
+    @property
+    def qk_dim(self) -> int:
+        return self.qk_nope_dim + self.qk_rope_dim
+
+
+def mla_defs(cfg: MLAConfig, dtype=torch.bfloat16) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    return {
+        "wq": ParamDef((d, h, cfg.qk_dim), ("embed", "heads", None),
+                       dtype=dtype, init="scaled"),
+        "wdkv": ParamDef((d, cfg.kv_lora_rank), ("embed", None), dtype=dtype,
+                         init="scaled"),
+        "kv_norm": rmsnorm_defs(cfg.kv_lora_rank),
+        "wkr": ParamDef((d, cfg.qk_rope_dim), ("embed", None), dtype=dtype,
+                        init="scaled"),
+        "wuk": ParamDef((cfg.kv_lora_rank, h, cfg.qk_nope_dim),
+                        (None, "heads", None), dtype=dtype, init="scaled"),
+        "wuv": ParamDef((cfg.kv_lora_rank, h, cfg.v_head_dim),
+                        (None, "heads", None), dtype=dtype, init="scaled"),
+        "wo": ParamDef((h, cfg.v_head_dim, d), ("heads", None, "embed"),
+                       dtype=dtype, init="scaled"),
+    }
+
+
+def _mla_query(p, cfg: MLAConfig, x: torch.Tensor, positions: torch.Tensor):
+    """(q_nope [B, S, H, dn], q_rope [B, S, H, dr] rotated)."""
+    q = head_proj(p, "wq", x, cfg.n_heads, cfg.qk_dim)
+    q_nope, q_rope = q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+    return q_nope, rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latents(p, cfg: MLAConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """(c_kv [B, S, R] normalised, k_rope [B, S, dr] rotated)."""
+    c_kv = rmsnorm(p["kv_norm"], x @ p["wdkv"].to(x.dtype))
+    k_rope = rope((x @ p["wkr"].to(x.dtype))[:, :, None, :], positions,
+                  cfg.rope_theta)[:, :, 0, :]
+    return c_kv, k_rope
+
+
+def _mla_flash(p, cfg: MLAConfig, q_nope, q_rope, ckv, kr, *, kv_chunk: int,
+               q_offset: int = 0) -> torch.Tensor:
+    """Causal attention over keys and values re-expanded from the latents
+    ckv [B, S, R] / kr [B, S, dr]; v is zero-padded to ``qk_dim`` for
+    ``_flash`` and trimmed after it, as the reference does.  Returns the
+    merged output [B, Sq, D]."""
+    dtype = q_nope.dtype
+    k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wuk"].to(dtype))
+    v = torch.einsum("bsr,rhk->bshk", ckv, p["wuv"].to(dtype))
+    h = cfg.n_heads
+    k = torch.cat([k_nope, kr[:, :, None, :].expand(-1, -1, h, -1)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    vpad = F.pad(v, (0, cfg.qk_dim - cfg.v_head_dim))
+    out = _flash(q, k, vpad, causal=True, kv_chunk=kv_chunk,
+                 q_offset=q_offset)
+    return merge_proj(p, "wo", out[..., :cfg.v_head_dim])
+
+
+def mla_attention(p, cfg: MLAConfig, x: torch.Tensor,
+                  positions: torch.Tensor):
+    """Full-sequence MLA (prefill).  Returns (out [B, S, D], (c_kv [B, S,
+    R], k_rope [B, S, dr])) for the latent cache."""
+    q_nope, q_rope = _mla_query(p, cfg, x, positions)
+    c_kv, k_rope = _mla_latents(p, cfg, x, positions)
+    out = _mla_flash(p, cfg, q_nope, q_rope, c_kv, k_rope,
+                     kv_chunk=min(cfg.kv_chunk, x.shape[1]))
+    return out, (c_kv, k_rope)
+
+
+def mla_prefill_chunk(p, cfg: MLAConfig, x: torch.Tensor,
+                      cache_ckv: torch.Tensor, cache_kr: torch.Tensor,
+                      start: int, kv_len: int) -> torch.Tensor:
+    """Chunked-prefill MLA: resume a prompt into the latent cache.
+
+    x: [B, C, D] at absolute positions [start, start + C); cache_ckv [B,
+    Smax, R] and cache_kr [B, Smax, dr].  The chunk's latents are written
+    at ``start`` in place, and keys and values are re-expanded from the
+    first ``kv_len`` cached latents: the up-projection a whole-bucket
+    prefill applies, so each row equals the whole prefill's (see
+    ``gqa_prefill_chunk``).  Returns out [B, C, D].
+    """
+    b, c, _ = x.shape
+    start = int(start)
+    positions = start + torch.arange(c, device=x.device).expand(b, c)
+    q_nope, q_rope = _mla_query(p, cfg, x, positions)
+    c_new, kr_new = _mla_latents(p, cfg, x, positions)
+    cache_ckv[:, start:start + c] = c_new.to(cache_ckv.dtype)
+    cache_kr[:, start:start + c] = kr_new.to(cache_kr.dtype)
+    return _mla_flash(p, cfg, q_nope, q_rope,
+                      cache_ckv[:, :kv_len].to(x.dtype),
+                      cache_kr[:, :kv_len].to(x.dtype),
+                      kv_chunk=min(cfg.kv_chunk, kv_len), q_offset=start)
+
+
+def mla_decode(p, cfg: MLAConfig, x: torch.Tensor, cache_ckv: torch.Tensor,
+               cache_kr: torch.Tensor,
+               cur_len: "int | torch.Tensor") -> torch.Tensor:
+    """One-token absorbed-matmul MLA decode: attention runs in the latent
+    space (W_uk folded into the query, W_uv applied after), O(S (R + dr))
+    per step.  x: [B, 1, D]; cache_ckv [B, Smax, R], cache_kr [B, Smax,
+    dr]; ``cur_len`` an int or a [B] tensor, as in ``gqa_decode`` (a lane
+    at ``Smax`` writes nothing).  Returns out [B, 1, D].
+
+    The scores are products of bf16 values accumulated in float32 and stay
+    float32 through the scale and the mask, as the reference's
+    ``preferred_element_type=float32`` einsums are.
+    """
+    b, smax, _ = cache_ckv.shape
+    per_slot = isinstance(cur_len, torch.Tensor) and cur_len.dim() == 1
+    if per_slot:
+        lens = cur_len.to(device=x.device, dtype=torch.int64)
+        pos = lens[:, None]
+    else:
+        cur_len = int(cur_len)
+        pos = torch.full((b, 1), cur_len, dtype=torch.int64, device=x.device)
+    q_nope, q_rope = _mla_query(p, cfg, x, pos)
+    q_nope, q_rope = q_nope[:, 0], q_rope[:, 0]
+    c_new, kr_new = _mla_latents(p, cfg, x, pos)
+    if per_slot:
+        _write_rows(cache_ckv, lens, c_new[:, 0])
+        _write_rows(cache_kr, lens, kr_new[:, 0])
+        valid = (lens + 1)[:, None]
+    else:
+        cache_ckv[:, cur_len:cur_len + 1] = c_new.to(cache_ckv.dtype)
+        cache_kr[:, cur_len:cur_len + 1] = kr_new.to(cache_kr.dtype)
+        valid = cur_len + 1
+    f32 = torch.float32
+    q_lat = torch.einsum("bhk,rhk->bhr", q_nope, p["wuk"].to(x.dtype))
+    s = (torch.einsum("bhr,bpr->bhp", q_lat.to(f32), cache_ckv.to(f32))
+         + torch.einsum("bhk,bpk->bhp", q_rope.to(f32), cache_kr.to(f32)))
+    s = s * torch.tensor(cfg.qk_dim ** -0.5, dtype=f32, device=x.device)
+    mask = torch.arange(smax, device=x.device)[None, :] < valid   # [B|1, Smax]
+    s = torch.where(mask[:, None, :], s,
+                    torch.tensor(float("-inf"), device=x.device))
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhp,bpr->bhr", w.to(cache_ckv.dtype).to(f32),
+                         cache_ckv.to(f32)).to(cache_ckv.dtype)
+    o = torch.einsum("bhr,rhk->bhk", o_lat.to(x.dtype), p["wuv"].to(x.dtype))
+    return merge_proj(p, "wo", o)[:, None]

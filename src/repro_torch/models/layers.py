@@ -26,8 +26,17 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU in the reference's operation order (``jax.nn.silu`` is ``x *
+    logistic(x)``, and XLA expands the logistic as ``1 / (1 + exp(-x))``):
+    every operation in x's dtype.  ``F.silu`` computes in float32 and
+    rounds once, which moves 39% of bf16 outputs by an ulp against the
+    reference; this order moves none on the CPU."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 ACT = {
-    "silu": F.silu,
+    "silu": silu,
     "gelu": gelu_tanh,
     "relu": F.relu,
 }

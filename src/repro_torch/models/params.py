@@ -34,6 +34,11 @@ def is_def(x) -> bool:
     return isinstance(x, ParamDef)
 
 
+#: Leaves of more elements than this draw slice by slice (``_init_one``);
+#: every leaf of qwen3-1.7b and gemma-7b draws at once.
+_DRAW_ELEMS = 2 ** 30
+
+
 def _init_one(defn: ParamDef, gen: torch.Generator,
               device: torch.device) -> torch.Tensor:
     if defn.init == "zeros":
@@ -45,9 +50,19 @@ def _init_one(defn: ParamDef, gen: torch.Generator,
         std = defn.scale / math.sqrt(max(1, fan_in))
     else:
         std = defn.scale * 0.02
-    x = torch.randn(defn.shape, generator=gen, device=device,
-                    dtype=torch.float32)
-    return (x * std).to(defn.dtype)
+    if math.prod(defn.shape) <= _DRAW_ELEMS:
+        x = torch.randn(defn.shape, generator=gen, device=device,
+                        dtype=torch.float32)
+        return (x * std).to(defn.dtype)
+    # a larger leaf (MoE expert banks: deepseek-v2-lite's [26, 64, 2048,
+    # 1408]) draws one leading slice at a time, so no float32 copy of the
+    # whole leaf is made
+    out = torch.empty(defn.shape, dtype=defn.dtype, device=device)
+    for i in range(defn.shape[0]):
+        x = torch.randn(defn.shape[1:], generator=gen, device=device,
+                        dtype=torch.float32)
+        out[i] = (x * std).to(defn.dtype)
+    return out
 
 
 def init_params(defs: dict, seed: int, device) -> dict:

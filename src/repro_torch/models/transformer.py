@@ -1,11 +1,13 @@
-"""Decoder-only transformer LM, dense GQA family (port of the dense half of
-``repro/models/transformer.py``; MoE and MLA are not ported yet).
+"""Decoder-only transformer LM covering the dense, MoE and MLA families
+(port of ``repro/models/transformer.py``; training is not ported yet).
 
 The parameter tree is the reference's: layers are stacked per homogeneous
 run under ``layers_<g>_<kind>`` with a leading layer axis, and packed
 projections appear as ``<name>_pud`` ``PackedTensor``s beside (or instead
 of) their float weights.  The forward walks the layers in a Python loop,
-slicing layer ``i`` out of every stacked leaf.
+slicing layer ``i`` out of every stacked leaf.  Layers group into
+homogeneous runs (deepseek-v2-lite: ``layers_0_dense`` then
+``layers_1_moe``).
 
 Entry points: ``param_defs()``, ``cache_defs(batch, max_len)``,
 ``prefill(params, tokens, max_len, last_idx)`` -> (logits [B, V] of the last
@@ -14,7 +16,8 @@ start, kv_len=, last_idx=)`` -> (logits [B, V], cache), one chunk of a
 prompt resumed into a cache, and ``decode_step(params, cache, tokens,
 cur_len)`` -> (logits [B, V], cache), with ``cur_len`` an int or a [B]
 tensor of per-row lengths.  The chunk and the decode step update the cache
-in place.
+in place.  MoE models prefill whole prompts only (``prefill_chunk``
+raises): their routing is sequence-global.
 """
 from __future__ import annotations
 
@@ -25,9 +28,10 @@ import torch
 from repro_torch.pud.packed import PackedTensor
 
 from . import attention as attn_mod
-from .attention import AttnConfig
+from .attention import AttnConfig, MLAConfig
 from .layers import (embed, embed_defs, ffn, ffn_defs, logits_last, rmsnorm,
                      rmsnorm_defs, unembed_defs)
+from .moe import MoEConfig, moe_defs, moe_ffn
 from .params import ParamDef, stack_defs
 
 
@@ -47,6 +51,18 @@ class LMConfig:
     rope_theta: float = 10000.0
     embed_scale: bool = False            # gemma-style sqrt(d) embed scaling
     zero_centered_norm: bool = False     # gemma-style (1 + scale) RMSNorm
+    # attention family
+    attention: str = "gqa"               # "gqa" | "mla"
+    mla_kv_rank: int = 512
+    mla_qk_nope: int = 128
+    mla_qk_rope: int = 64
+    mla_v_dim: int = 128
+    # MoE (n_experts 0: dense)
+    n_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    n_shared_experts: int = 0
+    first_dense_layers: int = 0
     dtype: torch.dtype = torch.bfloat16
     kv_chunk: int = 1024
 
@@ -54,14 +70,35 @@ class LMConfig:
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
 
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
+
     def attn_config(self) -> AttnConfig:
         return AttnConfig(self.d_model, self.n_heads, self.n_kv_heads,
                           self.hd, self.rope_theta, self.qk_norm,
                           kv_chunk=self.kv_chunk)
 
+    def mla_config(self) -> MLAConfig:
+        return MLAConfig(self.d_model, self.n_heads, self.mla_kv_rank,
+                         self.mla_qk_nope, self.mla_qk_rope, self.mla_v_dim,
+                         self.rope_theta, kv_chunk=self.kv_chunk)
+
+    def moe_config(self) -> MoEConfig:
+        d_ff = self.moe_d_ff or self.d_ff
+        return MoEConfig(self.d_model, self.n_experts, self.top_k, d_ff,
+                         self.n_shared_experts, self.n_shared_experts * d_ff,
+                         activation=self.activation)
+
     def groups(self) -> list[tuple[str, int]]:
         """Homogeneous layer runs: [(kind, count)]."""
-        return [("dense", self.n_layers)]
+        if not self.is_moe:
+            return [("dense", self.n_layers)]
+        out = []
+        if self.first_dense_layers:
+            out.append(("dense", self.first_dense_layers))
+        out.append(("moe", self.n_layers - self.first_dense_layers))
+        return out
 
 
 def layer_slice(tree, i: int):
@@ -79,14 +116,21 @@ class TransformerLM:
 
     # -- parameter / cache metadata -----------------------------------------
 
-    def _layer_defs(self) -> dict:
+    def _layer_defs(self, kind: str) -> dict:
         cfg = self.cfg
+        if cfg.attention == "mla":
+            attn = attn_mod.mla_defs(cfg.mla_config(), cfg.dtype)
+        else:
+            attn = attn_mod.gqa_defs(cfg.attn_config(), cfg.dtype)
+        if kind == "moe":
+            mixer = moe_defs(cfg.moe_config(), cfg.dtype)
+        else:
+            mixer = ffn_defs(cfg.d_model, cfg.d_ff, cfg.gated_ffn, cfg.dtype)
         return {
             "ln1": rmsnorm_defs(cfg.d_model),
-            "attn": attn_mod.gqa_defs(cfg.attn_config(), cfg.dtype),
+            "attn": attn,
             "ln2": rmsnorm_defs(cfg.d_model),
-            "mixer": ffn_defs(cfg.d_model, cfg.d_ff, cfg.gated_ffn,
-                              cfg.dtype),
+            "mixer": mixer,
         }
 
     def param_defs(self) -> dict:
@@ -97,26 +141,44 @@ class TransformerLM:
             "unembed": unembed_defs(cfg.d_model, cfg.vocab, cfg.dtype),
         }
         for gi, (kind, count) in enumerate(cfg.groups()):
-            defs[f"layers_{gi}_{kind}"] = stack_defs(self._layer_defs(),
+            defs[f"layers_{gi}_{kind}"] = stack_defs(self._layer_defs(kind),
                                                      count)
         return defs
 
-    def cache_defs(self, batch: int, max_len: int) -> dict:
+    def _cache_leaves(self, count: int, batch: int,
+                      max_len: int) -> dict[str, tuple]:
+        """{leaf: (shape, axes)} of one group's cache: the latents ckv / kr
+        for MLA, keys and values otherwise."""
         cfg = self.cfg
-        caches = {}
-        for gi, (kind, count) in enumerate(cfg.groups()):
-            kv_shape = (count, batch, max_len, cfg.n_kv_heads, cfg.hd)
-            axes = ("stack", "batch", "kv_seq", "kv_heads", "head_dim")
-            caches[f"layers_{gi}_{kind}"] = {
-                "k": ParamDef(kv_shape, axes, dtype=cfg.dtype, init="zeros"),
-                "v": ParamDef(kv_shape, axes, dtype=cfg.dtype, init="zeros"),
-            }
-        return caches
+        if cfg.attention == "mla":
+            axes = ("stack", "batch", "kv_seq", None)
+            return {"ckv": ((count, batch, max_len, cfg.mla_kv_rank), axes),
+                    "kr": ((count, batch, max_len, cfg.mla_qk_rope), axes)}
+        kv_shape = (count, batch, max_len, cfg.n_kv_heads, cfg.hd)
+        axes = ("stack", "batch", "kv_seq", "kv_heads", "head_dim")
+        return {"k": (kv_shape, axes), "v": (kv_shape, axes)}
+
+    def cache_defs(self, batch: int, max_len: int) -> dict:
+        return {f"layers_{gi}_{kind}": {
+            n: ParamDef(shape, axes, dtype=self.cfg.dtype, init="zeros")
+            for n, (shape, axes) in self._cache_leaves(count, batch,
+                                                       max_len).items()}
+            for gi, (kind, count) in enumerate(self.cfg.groups())}
 
     # -- forward -------------------------------------------------------------
 
     def _norm(self, p, h):
         return rmsnorm(p, h, zero_centered=self.cfg.zero_centered_norm)
+
+    def _mix(self, kind: str, p, h_norm):
+        """The layer's FFN: (output, MoE aux loss; 0.0 for dense)."""
+        cfg = self.cfg
+        if kind == "moe":
+            return moe_ffn(p, cfg.moe_config(), h_norm)
+        return ffn(p, h_norm, cfg.activation), 0.0
+
+    def _ffn_residual(self, kind: str, lp, h):
+        return h + self._mix(kind, lp["mixer"], self._norm(lp["ln2"], h))[0]
 
     def _embed_tokens(self, params, tokens):
         cfg = self.cfg
@@ -128,14 +190,17 @@ class TransformerLM:
 
     @property
     def supports_chunked_prefill(self) -> bool:
-        """Whether bucketed (pow2-padded) prefill is exact for this config:
-        True for the dense family (only MoE routing is sequence-global)."""
-        return True
+        """Whether bucketed (pow2-padded) or chunked prefill is exact for
+        this config.  MoE routing is sequence-global (capacity depends on
+        the sequence length and top-C selection competes across all its
+        positions), so MoE models keep the exact-length whole prompt."""
+        return not self.cfg.is_moe
 
     def prefill(self, params, tokens: torch.Tensor,
                 max_len: int | None = None, last_idx: int | None = None):
         """Process a full prompt; returns (logits [B, V] float32, cache
-        {group: {"k", "v": [L, B, max_len, KV, Dh]}}).
+        {group: leaves [L, B, max_len, ...]}: "k" / "v", or MLA's latents
+        "ckv" / "kr").
 
         ``last_idx`` is the row whose logits are returned (the true last
         prompt position of a prompt zero-padded to a length bucket); by
@@ -145,51 +210,67 @@ class TransformerLM:
         max_len = max_len or s
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         h = self._embed_tokens(params, tokens)
+        mla = cfg.attention == "mla"
         cache = {}
         for gi, (kind, count) in enumerate(cfg.groups()):
             name = f"layers_{gi}_{kind}"
-            ck = torch.zeros((count, b, max_len, cfg.n_kv_heads, cfg.hd),
-                             dtype=cfg.dtype, device=h.device)
-            cv = torch.zeros_like(ck)
+            leaves = {n: torch.zeros(shape, dtype=cfg.dtype, device=h.device)
+                      for n, (shape, _) in self._cache_leaves(
+                          count, b, max_len).items()}
             for i in range(count):
                 lp = layer_slice(params[name], i)
-                a, (k, v) = attn_mod.gqa_attention(
-                    lp["attn"], cfg.attn_config(), self._norm(lp["ln1"], h),
-                    positions)
-                ck[i, :, :s] = k
-                cv[i, :, :s] = v
-                h = h + a
-                h = h + ffn(lp["mixer"], self._norm(lp["ln2"], h),
-                            cfg.activation)
-            cache[name] = {"k": ck, "v": cv}
+                hn = self._norm(lp["ln1"], h)
+                if mla:
+                    a, rows = attn_mod.mla_attention(
+                        lp["attn"], cfg.mla_config(), hn, positions)
+                else:
+                    a, rows = attn_mod.gqa_attention(
+                        lp["attn"], cfg.attn_config(), hn, positions)
+                for leaf, r in zip(leaves.values(), rows):
+                    leaf[i, :, :s] = r
+                h = self._ffn_residual(kind, lp, h + a)
+            cache[name] = leaves
         h = self._norm(params["final_norm"], h)
         h_last = h[:, -1] if last_idx is None else h[:, int(last_idx)]
         return logits_last(params["unembed"], h_last), cache
 
     def prefill_chunk(self, params, tokens: torch.Tensor, cache, start: int,
                       *, kv_len: int, last_idx: int | None = None):
-        """Resume a prompt into an existing KV cache: one prefill chunk.
+        """Resume a prompt into an existing cache: one prefill chunk.
 
         tokens: [B, C], the prompt positions [start, start + C); ``cache``
-        a decode cache (``cache_defs`` layout, leaves [L, B, Smax, KV, Dh])
+        a decode cache (``cache_defs`` layout, leaves [L, B, Smax, ...])
         holding the earlier chunks at their positions, updated in place.
         Attention reads the first ``kv_len`` cache rows (the prompt's pow2
         bucket), so every row equals a whole-bucket prefill's
-        (``attention.gqa_prefill_chunk``).  ``last_idx``: the chunk-local
-        row whose logits are returned (the prompt's last token); by default
-        the chunk's last row.  Returns (logits [B, V] float32, cache).
+        (``attention.gqa_prefill_chunk``, ``mla_prefill_chunk``).
+        ``last_idx``: the chunk-local row whose logits are returned (the
+        prompt's last token); by default the chunk's last row.  Returns
+        (logits [B, V] float32, cache).  MoE configs raise
+        (``supports_chunked_prefill``).
         """
         cfg = self.cfg
+        if not self.supports_chunked_prefill:
+            raise NotImplementedError(
+                "chunked prefill is not bit-exact for MoE configs "
+                "(sequence-global router capacity); use whole-prompt "
+                "prefill")
         h = self._embed_tokens(params, tokens)
         for gi, (kind, count) in enumerate(cfg.groups()):
             name = f"layers_{gi}_{kind}"
+            c = cache[name]
             for i in range(count):
                 lp = layer_slice(params[name], i)
-                h = h + attn_mod.gqa_prefill_chunk(
-                    lp["attn"], cfg.attn_config(), self._norm(lp["ln1"], h),
-                    cache[name]["k"][i], cache[name]["v"][i], start, kv_len)
-                h = h + ffn(lp["mixer"], self._norm(lp["ln2"], h),
-                            cfg.activation)
+                hn = self._norm(lp["ln1"], h)
+                if cfg.attention == "mla":
+                    a = attn_mod.mla_prefill_chunk(
+                        lp["attn"], cfg.mla_config(), hn, c["ckv"][i],
+                        c["kr"][i], start, kv_len)
+                else:
+                    a = attn_mod.gqa_prefill_chunk(
+                        lp["attn"], cfg.attn_config(), hn, c["k"][i],
+                        c["v"][i], start, kv_len)
+                h = self._ffn_residual(kind, lp, h + a)
         h = self._norm(params["final_norm"], h)
         h_last = h[:, -1] if last_idx is None else h[:, int(last_idx)]
         return logits_last(params["unembed"], h_last), cache
@@ -201,13 +282,18 @@ class TransformerLM:
         h = self._embed_tokens(params, tokens)
         for gi, (kind, count) in enumerate(cfg.groups()):
             name = f"layers_{gi}_{kind}"
+            c = cache[name]
             for i in range(count):
                 lp = layer_slice(params[name], i)
-                a = attn_mod.gqa_decode(
-                    lp["attn"], cfg.attn_config(), self._norm(lp["ln1"], h),
-                    cache[name]["k"][i], cache[name]["v"][i], cur_len)
-                h = h + a
-                h = h + ffn(lp["mixer"], self._norm(lp["ln2"], h),
-                            cfg.activation)
+                hn = self._norm(lp["ln1"], h)
+                if cfg.attention == "mla":
+                    a = attn_mod.mla_decode(
+                        lp["attn"], cfg.mla_config(), hn, c["ckv"][i],
+                        c["kr"][i], cur_len)
+                else:
+                    a = attn_mod.gqa_decode(
+                        lp["attn"], cfg.attn_config(), hn, c["k"][i],
+                        c["v"][i], cur_len)
+                h = self._ffn_residual(kind, lp, h + a)
         h = self._norm(params["final_norm"], h)
         return logits_last(params["unembed"], h[:, -1]), cache

@@ -5,8 +5,9 @@ ported yet).
   * **Requests** enter a queue (``submit``); each is one prompt, a token
     budget and an optional deadline.
   * **Slots**: the engine owns ``batch_size`` decode slots and one KV cache
-    ``{group: {"k", "v": [L, batch_size, max_len, ...]}}``; every slot holds
-    at most one in-flight request.
+    ``{group: {"k", "v": [L, batch_size, max_len, ...]}}`` (MLA models:
+    the latents ``"ckv"``, ``"kr"``); every slot holds at most one
+    in-flight request.
   * **Continuous batching**: admission and eviction happen at step
     granularity.  Before every decode step free slots are filled from the
     queue; after it finished requests are evicted and their slots freed at
@@ -172,7 +173,7 @@ def _tree_device(tree) -> torch.device | None:
 
 
 def _map_cache(fn, cache: dict) -> dict:
-    """``fn`` over every leaf of a {group: {"k", "v": tensor}} cache."""
+    """``fn`` over every leaf of a {group: {leaf name: tensor}} cache."""
     return {g: {n: fn(c) for n, c in kv.items()} for g, kv in cache.items()}
 
 

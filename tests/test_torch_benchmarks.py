@@ -269,7 +269,7 @@ def test_run_lists_only_what_the_port_has(capsys):
              not line.startswith(" ")]
     assert names == ["fig3", "table1", "fig5", "fig6", "convergence",
                      "fleet", "kernels", "kernel_microbench", "serving",
-                     "drift", "majx", "placement"]
+                     "serving_engine", "drift", "majx", "placement"]
     from benchmarks.run import BENCHES as REF
     assert [n for n in REF if n in names] == names
 
@@ -280,7 +280,7 @@ def test_run_only_one(capsys):
     assert "#csv fig3_offsets" in out
     assert "1 benchmark(s) in" in out and "all passed" in out
     with pytest.raises(SystemExit):
-        run.main(["--only", "serving_engine"])    # not ported yet
+        run.main(["--only", "roofline"])    # not ported yet
 
 
 def test_a_raising_benchmark_fails_the_run_and_the_rest_still_run(
@@ -393,3 +393,97 @@ def test_harness_runs_the_serving_table(capsys):
     assert run.main(["--only", "serving", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "#csv mvdram_serving" in out and "all passed" in out
+
+
+# ---------------------------------------------------------------------------
+# The serving-engine benchmark (serving_engine) on the CPU
+# ---------------------------------------------------------------------------
+
+TRACE_KEYS = ("requests", "p50_e2e_ms", "p99_e2e_ms", "p50_tok_ms",
+              "p99_tok_ms", "hit_rate", "mode", "score")
+
+
+@pytest.fixture(scope="module")
+def trace_rows():
+    import torch
+    from repro_torch.benchmarks import serving_engine as se
+    from repro_torch.configs import get
+    from repro_torch.models.params import init_params
+    model = get(se.ARCH).make_smoke()
+    with torch.inference_mode():
+        return se.run_trace(model, init_params(model.param_defs(), 0, "cpu"))
+
+
+def test_serving_trace_rows_equal_reference_bench_serving(trace_rows):
+    """The modeled-clock latencies depend on the scheduler alone: every
+    field of both modes equals the reference's committed rows."""
+    import json
+    want = json.loads((ROOT / "BENCH_serving.json").read_text())["rows"]
+    assert [list(r) for r in trace_rows] == [list(TRACE_KEYS)] * 2
+    assert trace_rows == want
+    by = {r["mode"]: r for r in trace_rows}
+    assert by["chunked_cached"]["p99_e2e_ms"] < by["baseline"]["p99_e2e_ms"]
+    assert by["chunked_cached"]["hit_rate"] > 0
+
+
+def test_serving_trace_compare_fails_on_doctored_baseline(trace_rows):
+    import copy
+    from repro_torch.benchmarks.serving_engine import compare_trace_rows
+    assert compare_trace_rows(trace_rows, trace_rows) == []
+    # a uniformly faster baseline cancels in the geomean normalisation
+    faster = copy.deepcopy(trace_rows)
+    for r in faster:
+        r["score"] *= 3
+    assert compare_trace_rows(trace_rows, faster) == []
+    doctored = copy.deepcopy(trace_rows)
+    doctored[1]["score"] *= 2          # chunked_cached twice as good
+    fails = compare_trace_rows(trace_rows, doctored)
+    assert len(fails) == 1 and fails[0].startswith("chunked_cached")
+    assert compare_trace_rows(trace_rows[:1], trace_rows) == [
+        "baseline mode chunked_cached missing from this run"]
+
+
+def test_serving_engine_main_gates_and_leaves_bench_serving(
+        capsys, tmp_path, monkeypatch, trace_rows):
+    """``main`` on the CPU: the batch sweep (monotone model rate up to the
+    optimum), the shard rows, the trace gated against the reference's
+    ``BENCH_serving.json`` (OK), the payload under the artifacts directory
+    and ``BENCH_serving.json`` byte-identical; a doctored baseline exits
+    non-zero."""
+    import json
+    from repro_torch.benchmarks import serving_engine as se
+    ref = (ROOT / "BENCH_serving.json").read_bytes()
+    # the trace replay is the module fixture's (the same ``run_trace``)
+    monkeypatch.setattr(se, "run_trace", lambda model, params: trace_rows)
+    assert se.main(["--device", "cpu", "--compare",
+                    str(ROOT / "BENCH_serving.json")]) == 0
+    text = capsys.readouterr().out
+    assert "#csv serving_engine" in text and "#csv serving_trace" in text
+    assert "monotone up to the optimum: OK" in text
+    assert "compare: OK" in text and "(acceptance floor 2.0x): OK" in text
+    payload = json.loads((tmp_path / se.PAYLOAD).read_text())
+    assert payload["rows"] == trace_rows and payload["device"] == "cpu"
+    assert (ROOT / "BENCH_serving.json").read_bytes() == ref
+    sweep = json.loads((tmp_path / "serving_engine.json").read_text())
+    assert [r["batch_size"] for r in sweep][:3] == [1, 2, 4]
+    assert sum(r["is_optimum"] for r in sweep) == 1
+    shards = json.loads((tmp_path / "serving_engine_sharded.json"
+                         ).read_text())
+    assert [r["n_shards"] for r in shards] == [1, 2, 4]
+    doctored = json.loads(ref)
+    doctored["rows"][1]["score"] *= 2
+    bad = tmp_path / "doctored.json"
+    bad.write_text(json.dumps(doctored))
+    monkeypatch.setattr(se, "run", lambda device=None: (sweep, shards))
+    with pytest.raises(SystemExit, match="regressed"):
+        se.main(["--device", "cpu", "--compare", str(bad)])
+    assert "REGRESSION chunked_cached" in capsys.readouterr().out
+
+
+def test_mvdram_serving_rows_of_the_moe_archs():
+    from repro_torch.benchmarks import mvdram_serving
+    rows = {r["arch"]: r for r in mvdram_serving.run(device="cpu")}
+    assert rows["deepseek-v2-lite-16b"]["active_params_B"] == 2.7
+    assert rows["llama4-scout-17b-a16e"]["active_params_B"] == 17.0
+    assert rows["deepseek-v2-lite-16b"]["pudtune_tok_s"] > \
+        rows["llama4-scout-17b-a16e"]["pudtune_tok_s"]

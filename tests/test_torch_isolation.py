@@ -37,8 +37,9 @@ def test_sources_exist():
 #: partial recalibration, the noise fit, the pack archive, fault injection
 #: and the paper's benchmarks, then of the drift-reliability loop and the
 #: paper's remaining figures, then of the autotuner, the contract checker,
-#: the session surface and the kernel benchmarks: each is among the
-#: scanned sources (its CUDA source among the built ones).
+#: the session surface and the kernel benchmarks, then of MLA, MoE and the
+#: serving-engine benchmark: each is among the scanned sources (its CUDA
+#: source among the built ones).
 SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "pud/bitserial.py", "core/calibrate.py", "core/fleet.py",
                  "core/ecr.py", "core/throughput.py", "runtime/session.py",
@@ -60,7 +61,9 @@ SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "kernels/backends.py", "kernels/placed_gemm.py",
                  "kernels/plane_gemm.py", "runtime/tune.py",
                  "benchmarks/mvdram_serving.py", "benchmarks/kernel_bench.py",
-                 "benchmarks/kernel_microbench.py")
+                 "benchmarks/kernel_microbench.py", "models/attention.py",
+                 "models/moe.py", "models/transformer.py",
+                 "configs/archs.py", "benchmarks/serving_engine.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

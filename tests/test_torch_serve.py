@@ -297,6 +297,9 @@ def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
                  gemma=dict(cs.GEMMA, preset="smoke",
                             grid=dict(n_channels=1, n_banks=1,
                                       n_subarrays=8, n_cols=512)),
+                 deepseek=dict(cs.DEEPSEEK, preset="smoke",
+                               grid=dict(n_channels=1, n_banks=1,
+                                         n_subarrays=8, n_cols=512)),
                  figures=dict(n_cols=128, n_trials_maj5=32,
                               check_plain=True))
     names = [r["name"] for r in out["rows"]]
@@ -328,7 +331,13 @@ def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
     assert gem["prefilled"][0] < gem["prefilled"][1]
     assert gem["slo"]["shed_on_admit"] >= 1 and gem["slo"]["met"] >= 1
     assert "gemma-7b (smoke)" in text and "bit for bit" in text
-    assert [len(r["extra_shapes"]) for r in out["rows"][:3]] == [3, 10, 3]
+    assert [len(r["extra_shapes"]) for r in out["rows"][:3]] == [3, 16, 4]
+    ds = out["deepseek"]                 # the deepseek-v2-lite phase
+    assert 0 < ds["placed_cols"] < ds["attn_cols"]
+    assert ds["engine"]["steps"] > 0 and ds["peak_gib"] is None
+    assert "deepseek-v2-lite-16b (smoke)" in text
+    assert "requests equal to lockstep" in text
+    assert "--pud-attention: MLA wq / wo packed too" in text
     mon = out["monitor"]                 # the monitored serving phase
     assert {g for g, sev in mon["events"] if sev == "critical"} == {1, 5}
     assert mon["latency_steps"] >= 0 and mon["recalibrate_ms"] > 0
@@ -354,8 +363,9 @@ def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
     assert "saved and loaded: plans equal" in text
     assert "packs of 8 planes: prefill logits" in text
     assert out["contracts"]["sms"] == 132 and "0 findings" in text
-    assert set(out["benchmarks"]) == {"serving", "kernels",
-                                      "kernel_microbench"}
+    assert set(out["benchmarks"]) == {"serving", "serving_engine",
+                                      "kernels", "kernel_microbench"}
+    assert "#csv serving_trace" in text
     for name in ("mvdram_serving", "kernel_bench", "kernel_microbench"):
         assert f"#csv {name}" in text
     for name in ("kernel_bench", "kernel_microbench"):
