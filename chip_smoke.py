@@ -150,7 +150,34 @@ Phases (any failure exits nonzero and prints no result line):
      MLA's wq / wo packed too (464,256 columns), a prefill and 4 decode
      steps through the kernels == plain versions; peak device memory; then
      the placed GEMM / GEMV at its shapes, as in 12;
- 15. print the ``kernels`` JSON line and, last, the device JSON line.
+ 15. the sharded fleet (``FLEET``), after deepseek's packs are freed:
+     qwen3-1.7b at full width and depth through ``PUDSession.open_fleet``
+     on a (data 2, model 2) mesh of logical PUD devices, each 8 x 65,536
+     (on one card every position sits on it; the position -> card map is
+     printed): a calibration miss on every device (12 ``calib_iter``
+     launches each), per-shard placement (about 276,672 placed columns per
+     device) and packs, a reopen that hits every table and placement,
+     ``FleetServingEngine`` over 8 requests (prompt 32, gen 16) on 4 slots
+     per lane, a batch-1 request per layout, and the checks: (a) a ragged
+     fleet run through the kernels == its replay on the plain versions,
+     (b) every lane == a single-device ``ServingEngine`` over the unsharded
+     logical pack (same requests, order and slots), tokens and logits bit
+     for bit, (c) the same for a forced-logical fleet, (d)
+     ``recalibrate_shard(1, ...)`` after two of shard 1's subarrays drift
+     moves only shard 1's levels, masks and placement (the other devices'
+     state objects untouched; levels == the plain version's), (e)
+     ``FleetDriftMonitor`` stamps the events with shard 1 and its recovery
+     moves only shard 1; a profiled batch-4 decode step of a lane
+     (device time by kernel, busy share, launches per step) and the
+     aggregate DDR4-PUD rate; then each kernel at its per-shard shapes;
+ 16. print the ``kernels`` JSON line and, last, the device JSON line.
+
+The phases run in groups that share no state (``GROUPS``: main = 3-9,
+papers = 9 (Table I on) - 12, gemma = 13, deepseek = 14, fleet = 15); each
+group adds its launches and timed shapes to the kernel rows (``Rows``),
+which are assembled and printed last.  ``run(only=[...])`` drives some
+groups, as the CPU rehearsal does (``tests/test_torch_rehearsal_*.py``);
+``main`` drives them all.  Every phase prints its wall.
 
 Device time from ``torch.profiler`` counts each device event (kernel, copy,
 memset) once; the host ops that launched them are not added again.
@@ -259,6 +286,21 @@ DEEPSEEK = dict(arch="deepseek-v2-lite-16b", preset="full", grid=GRID,
                 attn_steps=4, placed_cols=326_016, attn_cols=464_256)
 
 
+# the sharded fleet: qwen3-1.7b at full width and depth on a (data 2,
+# model 2) mesh of logical PUD devices, each 8 subarrays x 65,536 columns
+# (its 553,344 placed columns split about 276,672 per shard, about 0.55 of
+# a device's error-free columns at ECR 0.0371); 8 requests (prompt 32,
+# gen 16) on 4 slots per lane; two of shard 1's subarrays drift for the
+# recalibration and monitor checks; a ragged run replays on the plain
+# versions.  ``widen`` (smoke only) widens the smoke model so every shard
+# owns columns of some projections.
+FLEET = dict(arch=ARCH, preset="full", mesh=(2, 2),
+             grid=dict(n_channels=1, n_banks=1, n_subarrays=8, n_cols=65536),
+             requests=ENGINE_BATCH, prompt=PROMPT, gen=GEN,
+             slots=ENGINE_SLOTS, drift=(2, 5), drift_temp_c=3000.0,
+             ragged=dict(n=8, prompt=(8, 64), budget=(4, 16)), widen=None)
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -268,8 +310,32 @@ def need(cond: bool, msg: str) -> None:
         raise PhaseError(msg)
 
 
+#: [name, start] of the phase running now; the walls of the ended ones
+_PHASE: list = []
+PHASE_WALLS: dict = {}
+
+
+def _end_phase() -> None:
+    if _PHASE:
+        name, t0 = _PHASE.pop()
+        wall = time.perf_counter() - t0
+        PHASE_WALLS[name] = PHASE_WALLS.get(name, 0.0) + wall
+        print(f"  (phase wall {wall:.2f}s)", flush=True)
+
+
 def phase(name: str):
+    """Start a phase: print its name, and the wall of the one before."""
+    _end_phase()
     print(f"== {name}", flush=True)
+    _PHASE.append([name, time.perf_counter()])
+
+
+def end_phases() -> dict:
+    """End the last phase; returns every phase's wall in seconds."""
+    _end_phase()
+    walls = dict(PHASE_WALLS)
+    PHASE_WALLS.clear()
+    return walls
 
 
 def card_line() -> str:
@@ -319,10 +385,10 @@ def read_counts(kernels) -> dict:
 
 def restamp(tree, backend: str):
     """The packed tree with every pack stamped to run through ``backend``."""
-    from repro_torch.pud.packed import PackedTensor
+    from repro_torch.pud.packed import PackedTensor, ShardedPackedTensor
     if isinstance(tree, dict):
         return {k: restamp(v, backend) for k, v in tree.items()}
-    if isinstance(tree, PackedTensor):
+    if isinstance(tree, (PackedTensor, ShardedPackedTensor)):
         return tree.replace(backend=backend)
     return tree
 
@@ -1127,15 +1193,15 @@ def dense_phase(torch, dev, cfg: dict, kernels) -> dict:
     return dict(launches=counts, pack=pack, placed_pack=placed_pack)
 
 
-def ragged_requests(torch, vocab: int):
-    """RAGGED["n"] requests with prompt lengths and budgets drawn from the
+def ragged_requests(torch, vocab: int, spec: dict = RAGGED):
+    """``spec["n"]`` requests with prompt lengths and budgets drawn from the
     seed, so buckets differ and slots are admitted mid-run."""
     from repro_torch.core.rng import generator
     from repro_torch.runtime.engine import Request
     g = generator(SEED, "ragged")
-    (p0, p1), (b0, b1) = RAGGED["prompt"], RAGGED["budget"]
-    lens = torch.randint(p0, p1 + 1, (RAGGED["n"],), generator=g).tolist()
-    budgets = torch.randint(b0, b1 + 1, (RAGGED["n"],), generator=g).tolist()
+    (p0, p1), (b0, b1) = spec["prompt"], spec["budget"]
+    lens = torch.randint(p0, p1 + 1, (spec["n"],), generator=g).tolist()
+    budgets = torch.randint(b0, b1 + 1, (spec["n"],), generator=g).tolist()
     return [Request(i, torch.randint(0, vocab, (n,), generator=g,
                                      dtype=torch.int32), m)
             for i, (n, m) in enumerate(zip(lens, budgets))]
@@ -2194,59 +2260,213 @@ def benchmarks_phase(torch, dev, kernels, sync) -> dict:
     return out
 
 
-def run(torch, dev, preset: str = "full", grid: dict = GRID,
-        table1: dict = TABLE1, table1_calib=None,
-        quickstart: dict = QUICKSTART, simra: dict = SIMRA,
-        dense_cfg: dict = DENSE, sense_shapes=SENSE_SHAPES,
-        calib_shapes=CALIB_SHAPES, fleet_argv=FLEET_ARGV,
-        recal=RECAL, gemma: dict = GEMMA, deepseek: dict = DEEPSEEK,
-        monitor: dict = MONITOR,
-        figures: dict = FIGURES, tune_batches=TUNE_BATCHES,
-        weight_bits: int = WEIGHT_BITS) -> dict:
-    """All phases on ``dev``.  ``main`` runs them on the GPU at full
-    width; a CPU rehearsal (``dev`` cpu, smoke preset, small grid and
-    Table-I scales) runs the same control flow through the plain versions,
-    without the launch-count checks and the library yardstick."""
+#: The kernel rows of the ``kernels`` line, in its order: (source, the TPU
+#: kernel it replaces)
+KERNEL_ROWS = {
+    "calib_iter": ("src/repro_torch/csrc/calib_iter.cu",
+                   "src/repro/kernels/majx.py:157"),
+    "gemm_placed": ("src/repro_torch/csrc/placed_gemm.cu",
+                    "src/repro/kernels/bitplane_gemm.py:166"),
+    "gemv_placed": ("src/repro_torch/csrc/placed_gemm.cu",
+                    "src/repro/kernels/bitplane_gemv.py:377"),
+    "gemm": ("src/repro_torch/csrc/plane_gemm.cu",
+             "src/repro/kernels/bitplane_gemm.py:105"),
+    "gemv": ("src/repro_torch/csrc/plane_gemm.cu",
+             "src/repro/kernels/bitplane_gemv.py:316"),
+    "majx_sense": ("src/repro_torch/csrc/simra_sense.cu",
+                   "src/repro/kernels/majx.py:197"),
+}
+
+#: The groups of phases ``run`` drives, in order.  Each group shares no
+#: state with another: it adds its launches and its timed shapes to the
+#: kernel rows, and ``run(only=...)`` drives a subset (the CPU rehearsal
+#: runs one group per test file).
+GROUPS = ("main", "papers", "gemma", "deepseek", "fleet")
+
+
+class Rows:
+    """The kernel rows as the groups fill them: launches per kernel (each
+    group's main-path runs) and every timed shape, in group order."""
+
+    def __init__(self):
+        self.launches = dict.fromkeys(KERNEL_ROWS, 0)
+        self.shapes = {name: [] for name in KERNEL_ROWS}
+
+    def add(self, name: str, launches: int = 0, shapes=()) -> None:
+        self.launches[name] += launches
+        self.shapes[name].extend(shapes)
+
+    def assemble(self) -> list:
+        """One row per kernel that has a shape: its first shape as the
+        head, the rest as ``extra_shapes`` with the dense-layout shapes
+        last; launches summed over the groups."""
+        rows = []
+        for name, (source, replaces) in KERNEL_ROWS.items():
+            shapes = sorted(self.shapes[name],
+                            key=lambda r: r.get("layout") == "dense")
+            if not shapes:
+                continue
+            head, *extras = shapes
+            rows.append({**head, "name": name, "route": "cuda",
+                         "source": source, "replaces": replaces,
+                         "launches": self.launches[name],
+                         "extra_shapes": extras})
+        return rows
+
+
+def row_context(torch, dev, kernels, sync):
+    """What every group's kernel rows share: the card, the L2 flush buffer,
+    the seeded input streams and the row builders (``calib_row``,
+    ``sense_row``, ``gemm_row``: each checks the kernel against its plain
+    version on the same inputs, then times both)."""
     from repro_torch.core.calibrate import CalibrationConfig
-    from repro_torch.core.fleet import (FleetConfig, calibrate_fleet,
-                                        ladder_tables, manufacture_fleet)
+    from repro_torch.core.fleet import FleetConfig, ladder_tables
     from repro_torch.core.rng import generator
-    from repro_torch.kernels import (build, calib_iter, placed_gemm,
-                                     plane_gemm, sense)
+    from repro_torch.kernels import calib_iter, sense
+    from repro_torch.pud.physics import PhysicsParams
+
+    on_card = dev.type == "cuda"
+    p = PhysicsParams()
+    ccfg = CalibrationConfig(n_iterations=12, n_samples=256)
+    ladder = FleetConfig().ladder(p)
+    qsum, swing = ladder_tables(ladder, p)
+    flush = torch.empty((256 if on_card else 1) * 2**20, dtype=torch.uint8,
+                        device=dev)
+    gen = generator(SEED, "chip-smoke", device=dev)
+    gen_x = generator(SEED, "chip-smoke-x", device=dev)
+
+    def calib_row(g, s, m, c):
+        bits = torch.randint(0, 2, (g, s, m, c), generator=gen, device=dev,
+                             dtype=torch.uint8)
+        noise = torch.randn((g, s, c), generator=gen, device=dev)
+        levels = torch.randint(0, ladder.n_levels, (g, c), generator=gen,
+                               device=dev, dtype=torch.int32)
+        offs = 0.033 * torch.randn((g, c), generator=gen, device=dev)
+        cargs = (p, ladder.n_fracs, qsum, swing, ccfg.threshold, m)
+        k_l, k_b = calib_iter.calib_iter(bits, noise, levels, offs, *cargs)
+        p_l, p_b = calib_iter.calib_iter_plain(bits, noise, levels, offs,
+                                               *cargs)
+        sync()
+        need(torch.equal(k_l, p_l) and torch.equal(k_b, p_b),
+             f"calib_iter differs from its plain version at [{g},{s},{m},"
+             f"{c}]")
+        need(bool((k_l != levels).any()), "calib_iter moved no level")
+        plan = calib_iter.plan_launch(g, m, c, True)
+        nbytes = g * (s * m * c + s * c * 4 + 4 * c * 4)
+        nops = g * s * c * (m + 10)
+        return dict(
+            shape=f"inputs [{g},{s},{m},{c}] u8, noise [{g},{s},{c}]",
+            plan=(f"{'vector' if plan.vec else 'byte'} path, "
+                  f"{plan.threads} threads x {calib_iter.COLS} columns, "
+                  f"{plan.blocks} blocks, {plan.smem_bytes} B shared"),
+            max_abs_err=float((k_b - p_b).abs().max()),
+            ms=time_ms(torch, lambda: calib_iter.calib_iter(
+                bits, noise, levels, offs, *cargs), flush),
+            plain_ms=time_ms(torch, lambda: calib_iter.calib_iter_plain(
+                bits, noise, levels, offs, *cargs), flush, reps=10),
+            bytes=nbytes, ops=nops,
+            bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
+            bound_by_ops_ms=nops / F32_OPS_S * 1e3, library_ms=None)
+
+    def sense_row(t, r, c, n_fracs):
+        charge = torch.rand((t, r, c), generator=gen_x, device=dev)
+        offs = 0.033 * torch.randn(c, generator=gen_x, device=dev)
+        noise = torch.randn((t, c), generator=gen_x, device=dev)
+        args = (charge, offs, noise, p, n_fracs)
+        got = sense.majx_sense(*args)
+        want = sense.majx_sense_plain(*args)
+        sync()
+        need(torch.equal(got, want), f"majx_sense differs from its plain "
+             f"version at charge [{t}, {r}, {c}], n_fracs {n_fracs}")
+        need(0 < float(want.mean()) < 1, "majx_sense sensed one value")
+        nbytes = (t * r * c + 2 * t * c + c) * 4
+        nops = t * c * (5 * r + 9)
+        plan = sense.plan_launch(t, c)
+        return dict(
+            shape=f"charge [{t},{r},{c}], n_fracs {n_fracs}",
+            plan=f"{plan.threads} threads, grid {plan.grid}",
+            max_abs_err=float((got - want).abs().max()),
+            ms=time_ms(torch, lambda: sense.majx_sense(*args), flush),
+            plain_ms=time_ms(torch, lambda: sense.majx_sense_plain(*args),
+                             flush, reps=10),
+            bytes=nbytes, ops=nops,
+            bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
+            bound_by_ops_ms=nops / F32_OPS_S * 1e3, library_ms=None)
+
+    def gemm_row(fn, plain, pt, b):
+        x = torch.randint(-127, 128, (b, pt.k), generator=gen_x,
+                          device=pt.planes.device, dtype=torch.int8)
+        kw = dict(layout=pt.layout, logical_k=pt.logical_k)
+        operands = (pt.planes,)
+        if pt.col_ids is not None:
+            operands += (pt.col_ids,)
+            kw["window_block"] = pt.window_block
+        want = plain(x, *operands, "folded", **kw)
+        for mode in ("folded", "planes"):
+            got = fn(x, *operands, mode, **kw)
+            sync()
+            need(torch.equal(got, want), f"{fn.__name__} ({mode}) differs "
+                 f"from its plain version at x {tuple(x.shape)}")
+        wb, kw_words, _ = pt.planes.shape
+        n = pt.n
+        nbytes = (b * pt.k + wb * kw_words * n + b * n * 4
+                  + (n * 4 if pt.col_ids is not None else 0))
+        nops = 2 * b * n * pt.k
+        lib_ms = None
+        if on_card:
+            w8 = library_weights(pt)
+            xl = x
+            if b < LIB_ROWS:
+                xl = torch.zeros((LIB_ROWS, pt.k), dtype=torch.int8,
+                                 device=x.device)
+                xl[:b] = x
+            need(torch.equal(torch._int_mm(xl, w8)[:b], want),
+                 "library yardstick disagrees")
+            lib_ms = time_ms(torch, lambda: torch._int_mm(xl, w8), flush)
+            del w8
+        plan = (placed_plan if pt.col_ids is not None else unplaced_plan)(
+            pt, b)
+        return dict(
+            shape=f"x [{b},{pt.k}] x {pt.layout} {list(pt.planes.shape)}, "
+                  f"N {n}", layout=pt.layout, plan=plan,
+            max_abs_err=float((got - want).abs().max()),
+            ms=time_ms(torch, lambda: fn(x, *operands, "folded", **kw),
+                       flush),
+            plain_ms=time_ms(torch, lambda: plain(x, *operands, "folded",
+                                                  **kw), flush, reps=10),
+            bytes=nbytes, ops=nops,
+            bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
+            bound_by_ops_ms=nops / INT8_OPS_S * 1e3, library_ms=lib_ms)
+
+    return types.SimpleNamespace(
+        torch=torch, dev=dev, on_card=on_card, sync=sync, kernels=kernels,
+        p=p, ccfg=ccfg, flush=flush, calib_row=calib_row,
+        sense_row=sense_row, gemm_row=gemm_row)
+
+
+def layer0(pm, name):
+    """Layer 0 of a dense-layer FFN pack of ``pm``."""
+    return pm.tensor(f"layers_0_dense/mixer/{name}").layer(0)
+
+
+def main_group(ctx, rows: Rows, preset: str, grid: dict, recal,
+               monitor: dict, tune_batches, weight_bits: int) -> dict:
+    """qwen3-1.7b through the serving entry points: the placed main path,
+    its checks and profiles, the reopen, partial recalibration, fault
+    injection, the unplaced engine path, the ragged engine run, the pack
+    archive, monitored serving, tuning and ``--weight-bits``; then the
+    kernel rows at its shapes."""
+    from repro_torch.core.fleet import (FleetConfig, calibrate_fleet,
+                                        manufacture_fleet)
+    from repro_torch.kernels import placed_gemm, plane_gemm
     from repro_torch.launch import serve
     from repro_torch.pud.gemv import FFN_PACKABLE, PUDGemvConfig
     from repro_torch.pud.packed import to_dense
-    from repro_torch.pud.physics import PhysicsParams
     from repro_torch.runtime.engine import ServingEngine
     from repro_torch.runtime.session import PUDSession
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    on_card = dev.type == "cuda"
-
-    def sync():
-        if on_card:
-            torch.cuda.synchronize()
-
-    kernels = {"calib_iter": calib_iter.calib_iter,
-               "gemm_placed": placed_gemm.gemm_placed,
-               "gemv_placed": placed_gemm.gemv_placed,
-               "gemm": plane_gemm.gemm, "gemv": plane_gemm.gemv,
-               "majx_sense": sense.majx_sense}
-
-    if on_card:
-        phase("build")
-        t0 = time.perf_counter()
-        libs = build.build_all()
-        print(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f}s "
-              f"under {build.build_dir().relative_to(ROOT)}")
-        for name in build.SOURCES:
-            kernel = ""
-            for line in build.ptxas_report(name).splitlines():
-                if "Function properties for" in line:
-                    kernel = kernel_name(line.split()[-1])
-                elif "Used" in line or "spill" in line:
-                    print(f"  {name} {kernel}: {line.strip()}")
+    torch, dev, on_card = ctx.torch, ctx.dev, ctx.on_card
+    kernels, sync = ctx.kernels, ctx.sync
 
     phase("main path: calibrate -> place -> pack -> placed decode")
     cache = tempfile.TemporaryDirectory(prefix="pud-cache-")
@@ -2311,9 +2531,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
           "bit for bit")
 
     phase("calibration check: the main run's levels vs the plain version")
-    p = PhysicsParams()
+    p, ccfg = ctx.p, ctx.ccfg
     fcfg = FleetConfig(**grid)
-    ccfg = CalibrationConfig(n_iterations=12, n_samples=256)
     offs = manufacture_fleet(SEED + 2, fcfg, p, device=dev)
     want_levels = calibrate_fleet(SEED + 2, offs, fcfg, p, ccfg,
                                   method="reference").levels
@@ -2452,282 +2671,634 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
                               weight_bits, kernels, sync)
     for k in launches:
         launches[k] += tun["launches"][k] + wbits["launches"][k]
-
     del res, ures
     cache.cleanup()
 
+    phase("kernels vs plain versions at the main path's shapes")
+    # calib_iter: one launch over the whole grid, as each iteration of the
+    # main path makes it: G subarrays x S=256 samples of M=5 operands
+    rows.add("calib_iter", launches["calib_iter"], [ctx.calib_row(
+        fcfg.n_subarrays_total, ccfg.n_samples, ccfg.maj_inputs,
+        fcfg.n_cols)])
+    # bit-plane GEMM / GEMV on the main path's packs (placed and unplaced),
+    # and the unembed pack in the dense layout
+    row = ctx.gemm_row
+    wi, wo, un = layer0(packed, "wi"), layer0(packed, "wo"), \
+        packed.tensor("unembed/w")
+    dun = to_dense(un)
+    gp = (placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain)
+    vp = (placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain)
+    rows.add("gemm_placed", launches["gemm_placed"],
+             [row(*gp, wi, BATCH * PROMPT)]
+             + [row(*gp, pt, BATCH) for pt in (wi, wo, un, tun.pop("wq"),
+                                                wbits.pop("wi"))]
+             + [row(*gp, dun, BATCH)])
+    rows.add("gemv_placed", launches["gemv_placed"],
+             [row(*vp, un, 1), row(*vp, dun, 1)])
+    del dun
+    uwi, uwo, uun = layer0(upacked, "wi"), layer0(upacked, "wo"), \
+        upacked.tensor("unembed/w")
+    duun = to_dense(uun)
+    gu = (plane_gemm.gemm, plane_gemm.gemm_plain)
+    vu = (plane_gemm.gemv, plane_gemm.gemv_plain)
+    rows.add("gemm", launches["gemm"],
+             [row(*gu, uwi, BATCH * PROMPT)]
+             + [row(*gu, pt, ENGINE_SLOTS) for pt in (uwo, uun)]
+             + [row(*gu, uwo, BATCH * PROMPT), row(*gu, duun, BATCH)])
+    rows.add("gemv", launches["gemv"], [row(*vu, uun, 1),
+                                        row(*vu, duun, 1)])
+    return {"mean_ecr": mean_ecr, "occupancy": occupancy,
+            "calibration_walls": walls, "recalibration": recal,
+            "faults": fault, "archive": archive, "monitor": mon,
+            "tuning": tun, "weight_bits": wbits}
+
+
+def papers_group(ctx, rows: Rows, table1: dict, table1_calib,
+                 quickstart: dict, simra: dict, dense_cfg: dict,
+                 sense_shapes, calib_shapes, fleet_argv,
+                 figures: dict) -> dict:
+    """The paper's Table I, the fleet benchmark, the figures, the
+    quickstart, the command-level simulator, the dense layout through the
+    ``ops`` entries, the contract gate and the benchmarks; then the
+    ``majx_sense`` row, ``calib_iter`` at the benchmarks' grids and the
+    dense layout on every GEMM / GEMV entry."""
+    from repro_torch.kernels import calib_iter, placed_gemm, plane_gemm, \
+        sense
+
+    torch, dev, kernels, sync = ctx.torch, ctx.dev, ctx.kernels, ctx.sync
     t1 = table1_phase(torch, dev, table1, table1_calib)
     fleet = fleet_calibration_phase(torch, dev, fleet_argv,
                                     calib_iter.calib_iter)
-    launches["calib_iter"] += fleet["launches"]
     figs = figures_phase(torch, dev, figures, kernels, sync)
-    for k in ("calib_iter", "gemm_placed", "gemv_placed"):
-        launches[k] += figs["launches"][k]
     qs = quickstart_phase(torch, dev, quickstart)
     sim = simra_phase(torch, dev, simra, sense.majx_sense)
-    launches["majx_sense"] = sim["launches"]
     dense = dense_phase(torch, dev, dense_cfg, kernels)
     contr = contracts_phase(dev)
     benches = benchmarks_phase(torch, dev, kernels, sync)
 
-    phase("kernels vs plain versions at the main path's shapes")
-    flush = torch.empty((256 if on_card else 1) * 2**20, dtype=torch.uint8,
-                        device=dev)
-    rows = []
-
-    # calib_iter: one launch over the whole grid, as each iteration of the
-    # main path makes it: G subarrays x S=256 samples of M=5 operands; then
-    # ``calib_shapes`` (the fleet benchmark's main leg, a ragged grid).
-    ladder = fcfg.ladder(p)
-    qsum, swing = ladder_tables(ladder, p)
-    gen = generator(SEED, "chip-smoke", device=dev)
-
-    def calib_row(g, s, m, c):
-        bits = torch.randint(0, 2, (g, s, m, c), generator=gen, device=dev,
-                             dtype=torch.uint8)
-        noise = torch.randn((g, s, c), generator=gen, device=dev)
-        levels = torch.randint(0, ladder.n_levels, (g, c), generator=gen,
-                               device=dev, dtype=torch.int32)
-        offs = 0.033 * torch.randn((g, c), generator=gen, device=dev)
-        cargs = (p, ladder.n_fracs, qsum, swing, ccfg.threshold, m)
-        k_l, k_b = calib_iter.calib_iter(bits, noise, levels, offs, *cargs)
-        p_l, p_b = calib_iter.calib_iter_plain(bits, noise, levels, offs,
-                                               *cargs)
-        sync()
-        need(torch.equal(k_l, p_l) and torch.equal(k_b, p_b),
-             f"calib_iter differs from its plain version at [{g},{s},{m},"
-             f"{c}]")
-        need(bool((k_l != levels).any()), "calib_iter moved no level")
-        plan = calib_iter.plan_launch(g, m, c, True)
-        nbytes = g * (s * m * c + s * c * 4 + 4 * c * 4)
-        nops = g * s * c * (m + 10)
-        return dict(
-            shape=f"inputs [{g},{s},{m},{c}] u8, noise [{g},{s},{c}]",
-            plan=(f"{'vector' if plan.vec else 'byte'} path, "
-                  f"{plan.threads} threads x {calib_iter.COLS} columns, "
-                  f"{plan.blocks} blocks, {plan.smem_bytes} B shared"),
-            max_abs_err=float((k_b - p_b).abs().max()),
-            ms=time_ms(torch, lambda: calib_iter.calib_iter(
-                bits, noise, levels, offs, *cargs), flush),
-            plain_ms=time_ms(torch, lambda: calib_iter.calib_iter_plain(
-                bits, noise, levels, offs, *cargs), flush, reps=10),
-            bytes=nbytes, ops=nops,
-            bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
-            bound_by_ops_ms=nops / F32_OPS_S * 1e3, library_ms=None)
-
-    (g0, s0, m0, c0), *rest = [(fcfg.n_subarrays_total, ccfg.n_samples,
-                                ccfg.maj_inputs, fcfg.n_cols)] + list(
-                                    calib_shapes)
-    rows.append(dict(
-        name="calib_iter", route="cuda",
-        source="src/repro_torch/csrc/calib_iter.cu",
-        replaces="src/repro/kernels/majx.py:157",
-        launches=launches["calib_iter"], **calib_row(g0, s0, m0, c0),
-        extra_shapes=[calib_row(*sh) for sh in rest]))
-
-    # bit-plane GEMM / GEMV on the main path's packs (placed and unplaced).
-    gen_x = generator(SEED, "chip-smoke-x", device=dev)
-
-    def sense_row(t, r, c, n_fracs):
-        charge = torch.rand((t, r, c), generator=gen_x, device=dev)
-        offs = 0.033 * torch.randn(c, generator=gen_x, device=dev)
-        noise = torch.randn((t, c), generator=gen_x, device=dev)
-        args = (charge, offs, noise, p, n_fracs)
-        got = sense.majx_sense(*args)
-        want = sense.majx_sense_plain(*args)
-        sync()
-        need(torch.equal(got, want), f"majx_sense differs from its plain "
-             f"version at charge [{t}, {r}, {c}], n_fracs {n_fracs}")
-        need(0 < float(want.mean()) < 1, "majx_sense sensed one value")
-        nbytes = (t * r * c + 2 * t * c + c) * 4
-        nops = t * c * (5 * r + 9)
-        plan = sense.plan_launch(t, c)
-        return dict(
-            shape=f"charge [{t},{r},{c}], n_fracs {n_fracs}",
-            plan=f"{plan.threads} threads, grid {plan.grid}",
-            max_abs_err=float((got - want).abs().max()),
-            ms=time_ms(torch, lambda: sense.majx_sense(*args), flush),
-            plain_ms=time_ms(torch, lambda: sense.majx_sense_plain(*args),
-                             flush, reps=10),
-            bytes=nbytes, ops=nops,
-            bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
-            bound_by_ops_ms=nops / F32_OPS_S * 1e3, library_ms=None)
-
-    def gemm_row(fn, plain, pt, b):
-        x = torch.randint(-127, 128, (b, pt.k), generator=gen_x, device=dev,
-                          dtype=torch.int8)
-        kw = dict(layout=pt.layout, logical_k=pt.logical_k)
-        operands = (pt.planes,)
-        if pt.col_ids is not None:
-            operands += (pt.col_ids,)
-            kw["window_block"] = pt.window_block
-        want = plain(x, *operands, "folded", **kw)
-        for mode in ("folded", "planes"):
-            got = fn(x, *operands, mode, **kw)
-            sync()
-            need(torch.equal(got, want), f"{fn.__name__} ({mode}) differs "
-                 f"from its plain version at x {tuple(x.shape)}")
-        wb, kw_words, _ = pt.planes.shape
-        n = pt.n
-        nbytes = (b * pt.k + wb * kw_words * n + b * n * 4
-                  + (n * 4 if pt.col_ids is not None else 0))
-        nops = 2 * b * n * pt.k
-        lib_ms = None
-        if on_card:
-            w8 = library_weights(pt)
-            xl = x
-            if b < LIB_ROWS:
-                xl = torch.zeros((LIB_ROWS, pt.k), dtype=torch.int8,
-                                 device=dev)
-                xl[:b] = x
-            need(torch.equal(torch._int_mm(xl, w8)[:b], want),
-                 "library yardstick disagrees")
-            lib_ms = time_ms(torch, lambda: torch._int_mm(xl, w8), flush)
-            del w8
-        plan = (placed_plan if pt.col_ids is not None else unplaced_plan)(
-            pt, b)
-        return dict(
-            shape=f"x [{b},{pt.k}] x {pt.layout} {list(pt.planes.shape)}, "
-                  f"N {n}", layout=pt.layout, plan=plan,
-            max_abs_err=float((got - want).abs().max()),
-            ms=time_ms(torch, lambda: fn(x, *operands, "folded", **kw),
-                       flush),
-            plain_ms=time_ms(torch, lambda: plain(x, *operands, "folded",
-                                                  **kw), flush, reps=10),
-            bytes=nbytes, ops=nops,
-            bound_by_bytes_ms=nbytes / HBM_BYTES_S * 1e3,
-            bound_by_ops_ms=nops / INT8_OPS_S * 1e3, library_ms=lib_ms)
-
-    def layer0(pm, name):
-        return pm.tensor(f"layers_0_dense/mixer/{name}").layer(0)
-
-    def dense_rows(entry, fn, plain, b, big):
-        """The dense layout on one entry: the ops phase's benchmark pack
-        (its launches are that phase's) and a main-path pack ``big``."""
-        kb = dense["placed_pack" if "placed" in entry else "pack"]
-        return [dict(gemm_row(fn, plain, kb, dense_cfg["b"] if b > 1 else 1),
-                     launches=dense["launches"][entry]),
-                dict(gemm_row(fn, plain, big, b),
-                     launches=dense["launches"][entry])]
-
-    wi, wo, un = layer0(packed, "wi"), layer0(packed, "wo"), \
-        packed.tensor("unembed/w")
-    dun = to_dense(un)
-    src = "src/repro_torch/csrc/placed_gemm.cu"
-    rows.append(dict(
-        name="gemm_placed", route="cuda", source=src,
-        replaces="src/repro/kernels/bitplane_gemm.py:166",
-        launches=launches["gemm_placed"],
-        **gemm_row(placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain,
-                   wi, BATCH * PROMPT),
-        extra_shapes=[gemm_row(placed_gemm.gemm_placed,
-                               placed_gemm.gemm_placed_plain, pt, BATCH)
-                      for pt in (wi, wo, un, tun["wq"], wbits["wi"])]
-        + dense_rows("gemm_placed", placed_gemm.gemm_placed,
-                     placed_gemm.gemm_placed_plain, BATCH, dun)))
-    rows.append(dict(
-        name="gemv_placed", route="cuda", source=src,
-        replaces="src/repro/kernels/bitplane_gemv.py:377",
-        launches=launches["gemv_placed"],
-        **gemm_row(placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain,
-                   un, 1),
-        extra_shapes=dense_rows("gemv_placed", placed_gemm.gemv_placed,
-                                placed_gemm.gemv_placed_plain, 1, dun)))
-    del dun
-
-    uwi, uwo, uun = layer0(upacked, "wi"), layer0(upacked, "wo"), \
-        upacked.tensor("unembed/w")
-    duun = to_dense(uun)
-    src = "src/repro_torch/csrc/plane_gemm.cu"
-    rows.append(dict(
-        name="gemm", route="cuda", source=src,
-        replaces="src/repro/kernels/bitplane_gemm.py:105",
-        launches=launches["gemm"],
-        **gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain, uwi,
-                   BATCH * PROMPT),
-        extra_shapes=[gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain, pt,
-                               ENGINE_SLOTS) for pt in (uwo, uun)]
-        + [gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain, uwo,
-                    BATCH * PROMPT)]
-        + dense_rows("gemm", plane_gemm.gemm, plane_gemm.gemm_plain,
-                     BATCH, duun)
-        + [dict(gemm_row(plane_gemm.gemm, plane_gemm.gemm_plain,
-                         dense["pack"], BATCH * PROMPT),
-                launches=dense["launches"]["gemm"])]))
-    rows.append(dict(
-        name="gemv", route="cuda", source=src,
-        replaces="src/repro/kernels/bitplane_gemv.py:316",
-        launches=launches["gemv"],
-        **gemm_row(plane_gemm.gemv, plane_gemm.gemv_plain, uun, 1),
-        extra_shapes=dense_rows("gemv", plane_gemm.gemv,
-                                plane_gemm.gemv_plain, 1, duun)))
-    del duun
-
+    phase("kernels vs plain versions at the benchmarks' shapes")
+    # calib_iter at the fleet benchmark's main leg and a ragged grid (its
+    # byte path), ...
+    rows.add("calib_iter", fleet["launches"] + figs["launches"]["calib_iter"],
+             [ctx.calib_row(*sh) for sh in calib_shapes])
+    for k in ("gemm_placed", "gemv_placed"):
+        rows.add(k, figs["launches"][k])
+    # ... the ops phase's dense benchmark packs on every entry ...
+    row, lw = ctx.gemm_row, dense["launches"]
+    kb, kbp = dense["pack"], dense["placed_pack"]
+    for name, fn, plain, pt, b in (
+            ("gemm_placed", placed_gemm.gemm_placed,
+             placed_gemm.gemm_placed_plain, kbp, dense_cfg["b"]),
+            ("gemv_placed", placed_gemm.gemv_placed,
+             placed_gemm.gemv_placed_plain, kbp, 1),
+            ("gemm", plane_gemm.gemm, plane_gemm.gemm_plain, kb,
+             dense_cfg["b"]),
+            ("gemm", plane_gemm.gemm, plane_gemm.gemm_plain, kb,
+             BATCH * PROMPT),
+            ("gemv", plane_gemm.gemv, plane_gemm.gemv_plain, kb, 1)):
+        rows.add(name, shapes=[dict(row(fn, plain, pt, b),
+                                    launches=lw[name])])
+    # ... and majx_sense at the simulator's shapes, beside the practical
+    # floor of a CUDA-event-timed launch: an empty kernel (a spin of zero
+    # cycles) timed the same way
+    floor = time_ms(torch, lambda: torch.cuda._sleep(0), ctx.flush) \
+        if ctx.on_card else None
     (t0_, r0_, c0_, f0_), *rest = sense_shapes
-    # the practical floor of a CUDA-event-timed launch: an empty kernel
-    # (a spin of zero cycles) timed the same way
-    floor = time_ms(torch, lambda: torch.cuda._sleep(0), flush) \
-        if on_card else None
-    rows.append(dict(
-        name="majx_sense", route="cuda",
-        source="src/repro_torch/csrc/simra_sense.cu",
-        replaces="src/repro/kernels/majx.py:197",
-        launches=launches["majx_sense"], **sense_row(t0_, r0_, c0_, f0_),
-        floor_ms=floor, extra_shapes=[sense_row(*sh) for sh in rest]))
+    rows.add("majx_sense", sim["launches"],
+             [dict(ctx.sense_row(t0_, r0_, c0_, f0_), floor_ms=floor)]
+             + [ctx.sense_row(*sh) for sh in rest])
+    return {"table1": t1, "fleet_calibration": fleet, "figures": figs,
+            "quickstart": qs, "simra": sim, "contracts": contr,
+            "benchmarks": benches}
 
-    # gemma-7b at full width: the qwen3 phases' models, packs and caches
-    # go first
-    del packed, upacked, session, usession, model, wi, wo, un, uwi, uwo, uun
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
-    gem = gemma_phase(torch, dev, gemma, kernels, sync)
+
+def gemma_group(ctx, rows: Rows, gemma: dict) -> dict:
+    """gemma-7b at full width through the engine's scheduler, then the
+    placed GEMM / GEMV and ``calib_iter`` at its shapes."""
+    from repro_torch.kernels import placed_gemm
+
+    gem = gemma_phase(ctx.torch, ctx.dev, gemma, ctx.kernels, ctx.sync)
     gpk = gem.pop("packed")
-    gwi, gwo, gun = layer0(gpk, "wi"), layer0(gpk, "wo"), \
-        gpk.tensor("unembed/w")
     phase("kernels vs plain versions at gemma's shapes")
-    rows[0]["launches"] += gem["calib_launches"]
-    g_sub = gemma["grid"]["n_subarrays"]
-    rows[0]["extra_shapes"].append(calib_row(g_sub, ccfg.n_samples,
-                                             ccfg.maj_inputs,
-                                             gemma["grid"]["n_cols"]))
-    # gemma's shapes go before each placed row's two dense-layout shapes
-    rows[1]["launches"] += gem["launches"]["gemm_placed"]
-    rows[1]["extra_shapes"][-2:-2] = [
-        gemm_row(placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain, pt,
-                 b) for pt, b in ((gwi, gemma["chunk"]),
-                                  (gwo, gemma["slots"]),
-                                  (gun, gemma["slots"]))]
-    rows[2]["launches"] += gem["launches"]["gemv_placed"]
-    rows[2]["extra_shapes"][-2:-2] = [gemm_row(
-        placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain, gun, 1)]
-    del gpk, gwi, gwo, gun
-    gc.collect()
-    if on_card:
-        torch.cuda.empty_cache()
+    rows.add("calib_iter", gem["calib_launches"], [ctx.calib_row(
+        gemma["grid"]["n_subarrays"], ctx.ccfg.n_samples,
+        ctx.ccfg.maj_inputs, gemma["grid"]["n_cols"])])
+    gp = (placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain)
+    gun = gpk.tensor("unembed/w")
+    rows.add("gemm_placed", gem["launches"]["gemm_placed"],
+             [ctx.gemm_row(*gp, pt, b) for pt, b in (
+                 (layer0(gpk, "wi"), gemma["chunk"]),
+                 (layer0(gpk, "wo"), gemma["slots"]),
+                 (gun, gemma["slots"]))])
+    rows.add("gemv_placed", gem["launches"]["gemv_placed"],
+             [ctx.gemm_row(placed_gemm.gemv_placed,
+                           placed_gemm.gemv_placed_plain, gun, 1)])
+    return {"gemma": gem}
 
-    # deepseek-v2-lite-16b at full width, after gemma's packs are freed
-    ds = deepseek_phase(torch, dev, deepseek, kernels, sync)
+
+def deepseek_group(ctx, rows: Rows, deepseek: dict) -> dict:
+    """deepseek-v2-lite-16b at full width and depth, then the placed GEMM /
+    GEMV at its shapes."""
+    from repro_torch.kernels import placed_gemm
+
+    ds = deepseek_phase(ctx.torch, ctx.dev, deepseek, ctx.kernels, ctx.sync)
     dpk, dpa = ds.pop("packed"), ds.pop("packed_attn")
     phase("kernels vs plain versions at deepseek-v2-lite's shapes")
-    rows[0]["launches"] += ds["calib_launches"]
-    rows[1]["launches"] += ds["launches"]["gemm_placed"]
-    rows[2]["launches"] += ds["launches"]["gemv_placed"]
+    rows.add("calib_iter", ds["calib_launches"])
     shared = [dpk.tensor(f"layers_1_moe/mixer/shared/{n}").layer(0)
               for n in ("wi", "wo")]
     dense0 = [layer0(dpk, n) for n in ("wi", "wo")]
     dun = dpk.tensor("unembed/w")
     dwq = dpa.tensor("layers_1_moe/attn/wq").layer(0)
-    rows[1]["extra_shapes"][-2:-2] = [
-        gemm_row(placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain, pt,
-                 deepseek["batch"])
-        for pt in shared + dense0 + [dun, dwq]]
-    rows[2]["extra_shapes"][-2:-2] = [gemm_row(
-        placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain, dun, 1)]
-    del dpk, dpa, shared, dense0, dun, dwq
+    gp = (placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain)
+    rows.add("gemm_placed", ds["launches"]["gemm_placed"],
+             [ctx.gemm_row(*gp, pt, deepseek["batch"])
+              for pt in shared + dense0 + [dun, dwq]])
+    rows.add("gemv_placed", ds["launches"]["gemv_placed"],
+             [ctx.gemm_row(placed_gemm.gemv_placed,
+                           placed_gemm.gemv_placed_plain, dun, 1)])
+    return {"deepseek": ds}
+
+
+def fleet_phase(ctx, cfg: dict) -> dict:
+    """The sharded fleet through ``PUDSession.open_fleet`` on a
+    ``cfg["mesh"]`` mesh: a calibration miss on every device (the
+    ``calib_iter`` launches counted), per-shard placement and packs, a
+    reopen that hits every table and placement, ``FleetServingEngine``
+    over the requests, one batch-1 request per layout, and the checks:
+    (a) a ragged fleet run == its replay on the plain versions, (b) every
+    lane == a single-device ``ServingEngine`` over the unsharded logical
+    pack, same requests, order and slots, (c) the same for a
+    forced-logical fleet, (d) ``recalibrate_shard(1, ...)`` moves only
+    shard 1's state and its levels equal the plain version's, (e)
+    ``FleetDriftMonitor`` stamps and routes events to shard 1; then a
+    profiled batch-4 lane decode step and the aggregate rate model."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.core.calibrate import CalibrationConfig
+    from repro_torch.core.fleet import FleetConfig, recalibrate_subarrays
+    from repro_torch.core.reliability import DriftSimulator
+    from repro_torch.core.rng import generator
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.models.transformer import TransformerLM
+    from repro_torch.pud.gemv import FFN_PACKABLE, PUDGemvConfig
+    from repro_torch.pud.packer import pack_model
+    from repro_torch.runtime.drift import DriftConfig, FleetDriftMonitor
+    from repro_torch.runtime.engine import (FleetServingEngine, Request,
+                                            ServingEngine)
+    from repro_torch.runtime.session import PUDSession
+
+    torch, dev, on_card = ctx.torch, ctx.dev, ctx.on_card
+    kernels, sync = ctx.kernels, ctx.sync
+    n_data, n_model = cfg["mesh"]
+    spec = get(cfg["arch"])
+    if cfg["preset"] == "smoke":
+        model = spec.make_smoke()
+        if cfg.get("widen"):
+            model = TransformerLM(dataclasses.replace(model.cfg,
+                                                      **cfg["widen"]))
+    else:
+        model = spec.make_model()
+    phase(f"fleet: {cfg['arch']} ({cfg['preset']}, "
+          f"{param_count(model.param_defs()):,} params) on a "
+          f"{n_data}x{n_model} mesh of {cfg['grid']['n_subarrays']} x "
+          f"{cfg['grid']['n_cols']:,} devices")
+    mesh = make_host_mesh(n_data, n_model, device=dev)
+    print(f"  positions -> cards: {mesh.describe()}")
+    params = init_params(model.param_defs(), SEED, dev)
+    grid = FleetConfig(**cfg["grid"])
+    ccfg = ctx.ccfg
+    pcfg = PUDGemvConfig(weight_bits=4, packable=FFN_PACKABLE)
+    cache = tempfile.TemporaryDirectory(prefix="pud-fleet-")
+    name = f"{cfg['arch']}-{cfg['preset']}-fleet"
+
+    def open_fleet(**kw):
+        return PUDSession.open_fleet(cfg["arch"], mesh=mesh, grid=grid,
+                                     cache_dir=cache.name, calib=ccfg,
+                                     seed=SEED + 2, **kw)
+
+    def statuses(f):
+        return [[s.placement_status or "logical" for s in row]
+                for row in f.sessions]
+
+    reset_counts(kernels)
+    fleet = open_fleet()
+    t0 = time.perf_counter()
+    states = fleet.calibrate()
+    sync()
+    t_cal = time.perf_counter() - t0
+    n_cal = kernels["calib_iter"].launches
+    need(not any(st.cache_hit for row in states for st in row),
+         "a fresh fleet cache reported a hit")
+    need(n_cal == fleet.n_devices * ccfg.n_iterations or not on_card,
+         f"{n_cal} calib_iter launches for {fleet.n_devices} devices x "
+         f"{ccfg.n_iterations} iterations")
+    print(f"  calibration miss: {fleet.n_devices} devices in {t_cal:.2f}s, "
+          f"{n_cal} calib_iter launches; mean ECR per device "
+          f"{[[round(st.mean_ecr, 4) for st in row] for row in states]}")
+    t0 = time.perf_counter()
+    packs = fleet.pack(params, pcfg, name=name)
+    sync()
+    t_pack = time.perf_counter() - t0
+    occ = [[round(s.placement.occupancy, 4) if s.placement else None
+            for s in row] for row in fleet.sessions]
+    used = [[s.placement.capacity_report()["used_cols"] if s.placement
+             else 0 for s in row] for row in fleet.sessions]
+    need(all(pm.placed for pm in packs), f"placement {statuses(fleet)}")
+    print(f"  pack {t_pack:.2f}s: shard widths per slice "
+          f"{list(fleet.shard_widths)}, placement {statuses(fleet)}, placed "
+          f"columns per device {used}, occupancy {occ}")
+
+    phase("fleet: reopen on the same cache")
+    again = open_fleet()
+    hits = [[st.cache_hit for st in row] for row in again.calibrate()]
+    again.pack(params, pcfg, name=name)
+    need(all(all(row) for row in hits), f"reopen missed a table: {hits}")
+    need(statuses(again) == [["hit"] * n_model] * n_data,
+         f"reopen placement {statuses(again)}")
+    a_un = again.packs[0].tensor("unembed/w").shards[0]
+    need(torch.equal(a_un.planes,
+                     packs[0].tensor("unembed/w").shards[0].planes),
+         "reopened packs differ")
+    print(f"  every table HIT {hits}, every placement HIT")
+    del again, a_un
+
+    phase(f"fleet: FleetServingEngine, {cfg['requests']} requests on "
+          f"{cfg['slots']} slots per lane")
+    g = generator(SEED, "fleet-requests")
+    prompts = [torch.randint(0, model.cfg.vocab, (cfg["prompt"],),
+                             generator=g, dtype=torch.int32)
+               for _ in range(cfg["requests"])]
+
+    def requests():
+        return [Request(i, t, cfg["gen"]) for i, t in enumerate(prompts)]
+
+    max_len = cfg["prompt"] + cfg["gen"] + 1
+    engine = fleet.serving_engine(model, max_len=max_len,
+                                  batch_size=cfg["slots"],
+                                  collect_logits=True)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    comps = engine.run(requests())
+    sync()
+    t_eng = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    launches["calib_iter"] = n_cal
+    sched = engine.scheduler_report()
+    print(f"  launches: {launches}; {sched['completed']} requests over "
+          f"{sched['n_lanes']} lanes in {sched['steps']} steps, "
+          f"{sched['generated_tokens']} tokens, {t_eng:.2f}s wall")
+    need(len(comps) == cfg["requests"]
+         and all(len(c.tokens) == cfg["gen"] for c in comps),
+         "the fleet engine did not complete every request")
+    need(launches["gemm_placed"] > 0 or not on_card,
+         "the fleet never launched gemm_placed")
+    need(launches["gemm"] == launches["gemv"] == 0,
+         "the placed fleet launched an unplaced kernel")
+    lane_of = {c.request_id: d for d, lane in enumerate(engine.lanes)
+               for c in lane._completions}
+
+    phase("fleet (b): every lane == a single-device engine over the "
+          "unsharded logical pack")
+    logical = pack_model(params, pcfg)
+    t0 = time.perf_counter()
+    singles = {}
+    for d in range(n_data):
+        ids = [i for i in range(cfg["requests"]) if lane_of[i] == d]
+        single = ServingEngine(model, logical.params, max_len=max_len,
+                               batch_size=cfg["slots"], collect_logits=True)
+        for c in single.run([requests()[i] for i in ids]):
+            singles[c.request_id] = c
+    sync()
+
+    def same_as_single(cs, label):
+        for c in cs:
+            w = singles[c.request_id]
+            need(c.tokens == w.tokens and torch.equal(c.logits, w.logits),
+                 f"{label}: request {c.request_id} differs from the "
+                 "single-device engine")
+
+    same_as_single(comps, "placed fleet")
+    print(f"  {len(comps)} requests over {n_data} lanes: tokens and logits "
+          f"== the single-device engine's, bit for bit "
+          f"({time.perf_counter() - t0:.2f}s)")
+
+    phase("fleet: one batch-1 request through lane 0 (placed GEMV per "
+          "shard)")
+    reset_counts(kernels)
+    one, _ = serve.greedy_generate(model, packs[0].params,
+                                   prompts[0][None].to(dev), cfg["gen"],
+                                   max_len)
+    sync()
+    c1 = read_counts(kernels)
+    need(c1["gemv_placed"] > 0 or not on_card,
+         "B=1 fleet decode never launched gemv_placed")
+    need(tuple(one.shape) == (1, cfg["gen"]), "bad batch-1 tokens")
+    print(f"  launches: {c1}")
+    for k in ("gemm_placed", "gemv_placed"):
+        launches[k] += c1[k]
+
+    phase("fleet (c): a forced-logical fleet (placement=False)")
+    flog = open_fleet(placement=False)
+    flog.calibrate()
+    lpacks = flog.pack(params, pcfg, name=name)
+    need(not any(pm.placed for pm in lpacks), "placement=False placed")
+    reset_counts(kernels)
+    lcomps = flog.serving_engine(model, max_len=max_len,
+                                 batch_size=cfg["slots"],
+                                 collect_logits=True).run(requests())
+    one_l, _ = serve.greedy_generate(model, lpacks[0].params,
+                                     prompts[0][None].to(dev), cfg["gen"],
+                                     max_len)
+    sync()
+    cl = read_counts(kernels)
+    need(cl["gemm_placed"] == cl["gemv_placed"] == 0,
+         "the logical fleet launched a placed kernel")
+    need((cl["gemm"] > 0 and cl["gemv"] > 0) or not on_card,
+         "the logical fleet never launched gemm / gemv")
+    same_as_single(lcomps, "logical fleet")
+    need(torch.equal(one_l, one),
+         "batch-1 decode through the logical fleet differs from the placed")
+    print(f"  launches: {cl}; tokens and logits == the single-device "
+          "engine's, bit for bit; batch-1 tokens == the placed lane's")
+    for k in ("gemm", "gemv"):
+        launches[k] += cl[k]
+    lun = lpacks[0].tensor("unembed/w")
+    lwi = lpacks[0].tensor("layers_0_dense/mixer/wi")
+    del flog, lcomps, logical, singles
+
+    phase("fleet (a): a ragged fleet run, kernels vs plain versions")
+    reqs = ragged_requests(torch, model.cfg.vocab, cfg["ragged"])
+    r_len = cfg["ragged"]["prompt"][1] + cfg["ragged"]["budget"][1]
+    reset_counts(kernels)
+    got_c = fleet.serving_engine(model, max_len=r_len,
+                                 batch_size=cfg["slots"],
+                                 collect_logits=True).run(reqs)
+    sync()
+    cr = read_counts(kernels)
+    want_c = FleetServingEngine(
+        model, [restamp(pm.params, "reference") for pm in packs],
+        fleet=fleet, max_len=r_len, batch_size=cfg["slots"],
+        collect_logits=True).run(reqs)
+    for g_, w_ in zip(got_c, want_c):
+        need(g_.tokens == w_.tokens and torch.equal(g_.logits, w_.logits)
+             and (g_.slot, g_.admitted_step) == (w_.slot, w_.admitted_step),
+             f"fleet request {g_.request_id}: kernels differ from plain "
+             "versions")
+    print(f"  launches: {cr}; {len(got_c)} requests: tokens and logits "
+          "through the kernels == plain versions, bit for bit")
+    for k in ("gemm_placed", "gemv_placed"):
+        launches[k] += cr[k]
+    del got_c, want_c
+
+    phase(f"profile: one batch-{cfg['slots']} decode step of lane 0")
+    prof = profile_step(torch, model, packs[0].params,
+                        torch.stack(prompts[:cfg["slots"]]).to(dev),
+                        max_len, sync)
+    per_step = {}
+    reset_counts(kernels)
+    with torch.inference_mode():
+        logits, kv = model.prefill(packs[0].params,
+                                   torch.stack(prompts[:cfg["slots"]])
+                                   .to(dev), max_len=max_len)
+        nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+        reset_counts(kernels)
+        model.decode_step(packs[0].params, kv, nxt, cfg["prompt"])
+        sync()
+        per_step = read_counts(kernels)
+    print(f"  launches per decode step: {per_step}")
+
+    phase("fleet (e): FleetDriftMonitor routes events to shard 1")
+    subs = sorted(cfg["drift"])
+    sims = [DriftSimulator.for_session(s) for s in fleet.sessions[0]]
+    mon = FleetDriftMonitor(fleet, sims, config=DriftConfig(probe_every=1))
+    clean = [e for e in mon.probe() if e.severity == "critical"]
+    need(not clean, f"critical events on a clean fleet: {clean}")
+    sims[1].advance(temp_c=cfg["drift_temp_c"], subarrays=subs)
+    events = [e for e in mon.probe() if e.severity == "critical"]
+    need(events and {e.shard for e in events} == {1}
+         and {e.subarray for e in events} <= set(subs),
+         f"drift events not routed to shard 1: {events}")
+    s00, state00 = fleet.shard(0, 0), fleet.shard(0, 0)._state
+    reset_counts(kernels)
+    mon.recover(events[0])
+    sync()
+    n_mon = kernels["calib_iter"].launches
+    need(s00._state is state00, "the monitor's recovery touched shard 0")
+    print(f"  critical events {[(e.shard, e.subarray) for e in events]} "
+          f"after drifting shard 1's subarrays {subs} at "
+          f"{cfg['drift_temp_c']:.0f} C; recover(event {events[0].subarray})"
+          f" recalibrated shard 1 only ({n_mon} calib_iter launches)")
+
+    phase(f"fleet (d): recalibrate_shard(1, {subs}) moves only shard 1")
+    s01 = fleet.shard(0, 1)
+    others = {(d, m): (fleet.shard(d, m)._state, fleet.shard(d, m)._placement)
+              for d in range(n_data) for m in range(n_model)
+              if (d, m) != (0, 1)}
+    old = s01.calibration
+    offs = sims[1].sense_offsets()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    pm = fleet.recalibrate_shard(1, subs, offs,
+                                 assumed_temp_c=cfg["drift_temp_c"])
+    sync()
+    t_rec = time.perf_counter() - t0
+    n_rec = kernels["calib_iter"].launches
+    for key, (st_, plc) in others.items():
+        need(fleet.shard(*key)._state is st_
+             and fleet.shard(*key)._placement is plc,
+             f"recalibrating shard 1 touched device {key}")
+    new = s01.calibration
+    rows_ = torch.tensor(subs, device=new.levels.device)
+    keep = torch.ones(grid.n_subarrays_total, dtype=torch.bool,
+                      device=new.levels.device)
+    keep[rows_] = False
+    need(torch.equal(new.levels[keep], old.levels[keep])
+         and torch.equal(new.masks[keep], old.masks[keep]),
+         "recalibration moved rows outside the drifted subarrays")
+    need(not torch.equal(new.levels[rows_], old.levels[rows_]),
+         "recalibration moved no level")
+    want = recalibrate_subarrays(s01.seed, offs.to(s01.device), subs, grid,
+                                 s01.physics, s01.calib_cfg,
+                                 method="reference")
+    need(torch.equal(new.levels[rows_], want),
+         "recalibrated levels differ from the plain version")
+    need(fleet.packs[0] is pm and pm.placed, "lane 0 was not repacked")
+    need(n_rec == ccfg.n_iterations or not on_card,
+         f"{n_rec} calib_iter launches for one recalibration")
+    print(f"  {n_rec} calib_iter launches, {t_rec:.2f}s: shard 1's levels "
+          f"moved on {subs} only (== plain version), masks and placement "
+          "rebuilt; devices (0,0), (1,0), (1,1): state and placement "
+          "objects untouched")
+    launches["calib_iter"] += n_rec + n_mon
+
+    phase("fleet: per-shard launch plans (PUDFleetSession.tune)")
+    with torch.inference_mode():
+        x4 = torch.stack(prompts[:cfg["slots"]]).to(dev)
+        before, _ = model.prefill(fleet.packs[0].params, x4,
+                                  max_len=max_len)
+    tuned = None
+    if on_card:
+        t0 = time.perf_counter()
+        trep = fleet.tune(batches=(1, cfg["slots"]))
+        sync()
+        tuned = dict(keys=len(trep["keys"]),
+                     wall_s=time.perf_counter() - t0)
+        with torch.inference_mode():
+            after, _ = model.prefill(fleet.packs[0].params, x4,
+                                     max_len=max_len)
+        need(torch.equal(before, after),
+             "prefill through the tuned fleet differs from the untuned")
+        for key, r in sorted(trep["keys"].items()):
+            speed = (f", {r['speedup']:.2f}x vs heuristic"
+                     if "speedup" in r else "")
+            print(f"    {r['status']:<5s} {key}{speed}")
+        print(f"  {tuned['keys']} per-shard keys tuned in "
+              f"{tuned['wall_s']:.2f}s; lane 0's prefill through the tuned "
+              "packs == untuned, bit for bit")
+    else:
+        try:
+            fleet.tune()
+            need(False, "PUDFleetSession.tune ran on the CPU")
+        except RuntimeError:
+            print("  PUDFleetSession.tune on the CPU raises (it times the "
+                  "CUDA kernels)")
+
+    phase("fleet: DDR4-PUD aggregate rate model")
+    perf = engine.perf_report(2 * spec.n_active_params)
+    print(f"  aggregate {perf['aggregate_tok_s']:.2f} tok/s over "
+          f"{perf['n_devices']} devices (batched at {perf['batch_size']}: "
+          f"{perf['aggregate_batched_tok_s']:.2f}), scaling efficiency "
+          f"{perf['scaling_efficiency']:.4f}, slowest-shard work share "
+          f"{perf['shard_fraction']:.4f}")
+    st = packs[0]
+    shapes = dict(
+        wi=st.tensor("layers_0_dense/mixer/wi").shards[0].layer(0),
+        un=st.tensor("unembed/w").shards[0],
+        lwi=lwi.shards[0].layer(0), lun=lun.shards[0])
+    cache.cleanup()
+    return {"launches": launches, "walls_s": dict(
+                calibrate=t_cal, pack=t_pack, engine=t_eng,
+                recalibrate=t_rec),
+            "shard_widths": fleet.shard_widths, "occupancy": occ,
+            "used_cols": used,
+            "events": [(e.shard, e.subarray) for e in events],
+            "profile": prof, "per_step": per_step, "tuned": tuned,
+            "aggregate_tok_s": perf["aggregate_tok_s"],
+            "scaling_efficiency": perf["scaling_efficiency"],
+            "sched": sched, "shapes": shapes,
+            "grid": (grid.n_subarrays_total, grid.n_cols)}
+
+
+def fleet_group(ctx, rows: Rows, fleet: dict) -> dict:
+    """The sharded fleet phase, then each kernel at its per-shard shapes."""
+    from repro_torch.kernels import placed_gemm, plane_gemm
+
+    fl = fleet_phase(ctx, fleet)
+    sh = fl.pop("shapes")
+    phase("kernels vs plain versions at the fleet's per-shard shapes")
+    g, c = fl["grid"]
+    row, lw = ctx.gemm_row, fl["launches"]
+    gp = (placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain)
+    rows.add("calib_iter", lw["calib_iter"], [ctx.calib_row(
+        g, ctx.ccfg.n_samples, ctx.ccfg.maj_inputs, c)])
+    rows.add("gemm_placed", lw["gemm_placed"],
+             [row(*gp, sh["wi"], fleet["prompt"]),
+              row(*gp, sh["wi"], fleet["slots"]),
+              row(*gp, sh["un"], fleet["slots"])])
+    rows.add("gemv_placed", lw["gemv_placed"],
+             [row(placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain,
+                  sh["un"], 1)])
+    rows.add("gemm", lw["gemm"],
+             [row(plane_gemm.gemm, plane_gemm.gemm_plain, sh["lwi"],
+                  fleet["slots"])])
+    rows.add("gemv", lw["gemv"],
+             [row(plane_gemm.gemv, plane_gemm.gemv_plain, sh["lun"], 1)])
+    return {"fleet": fl}
+
+
+def free(ctx) -> None:
+    """Drop what the last group left, so the next one has the card."""
+    gc.collect()
+    if ctx.on_card:
+        ctx.torch.cuda.empty_cache()
+
+
+def run(torch, dev, preset: str = "full", grid: dict = GRID,
+        table1: dict = TABLE1, table1_calib=None,
+        quickstart: dict = QUICKSTART, simra: dict = SIMRA,
+        dense_cfg: dict = DENSE, sense_shapes=SENSE_SHAPES,
+        calib_shapes=CALIB_SHAPES, fleet_argv=FLEET_ARGV,
+        recal=RECAL, gemma: dict = GEMMA, deepseek: dict = DEEPSEEK,
+        monitor: dict = MONITOR,
+        figures: dict = FIGURES, tune_batches=TUNE_BATCHES,
+        weight_bits: int = WEIGHT_BITS, fleet: dict = FLEET,
+        only=None) -> dict:
+    """The groups of phases (``GROUPS``, all of them unless ``only`` names
+    some) on ``dev``.  ``main`` runs them all on the GPU at full width; a
+    CPU rehearsal (``dev`` cpu, smoke preset, small grids and Table-I
+    scales) runs the same control flow through the plain versions, without
+    the launch-count checks and the library yardstick."""
+    from repro_torch.kernels import (build, calib_iter, placed_gemm,
+                                     plane_gemm, sense)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    groups = GROUPS
+    if only is not None:
+        need(set(only) <= set(GROUPS),
+             f"unknown groups {sorted(set(only) - set(GROUPS))}")
+        groups = tuple(g for g in GROUPS if g in set(only))
+    on_card = dev.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    kernels = {"calib_iter": calib_iter.calib_iter,
+               "gemm_placed": placed_gemm.gemm_placed,
+               "gemv_placed": placed_gemm.gemv_placed,
+               "gemm": plane_gemm.gemm, "gemv": plane_gemm.gemv,
+               "majx_sense": sense.majx_sense}
+
+    if on_card:
+        phase("build")
+        t0 = time.perf_counter()
+        libs = build.build_all()
+        print(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f}s "
+              f"under {build.build_dir().relative_to(ROOT)}")
+        for name in build.SOURCES:
+            kernel = ""
+            for line in build.ptxas_report(name).splitlines():
+                if "Function properties for" in line:
+                    kernel = kernel_name(line.split()[-1])
+                elif "Used" in line or "spill" in line:
+                    print(f"  {name} {kernel}: {line.strip()}")
+
+    ctx = row_context(torch, dev, kernels, sync)
+    rows, out = Rows(), {}
+    drive = {
+        "main": lambda: main_group(ctx, rows, preset, grid, recal, monitor,
+                                   tune_batches, weight_bits),
+        "papers": lambda: papers_group(ctx, rows, table1, table1_calib,
+                                       quickstart, simra, dense_cfg,
+                                       sense_shapes, calib_shapes,
+                                       fleet_argv, figures),
+        "gemma": lambda: gemma_group(ctx, rows, gemma),
+        "deepseek": lambda: deepseek_group(ctx, rows, deepseek),
+        "fleet": lambda: fleet_group(ctx, rows, fleet),
+    }
+    for g in groups:
+        out.update(drive[g]())
+        free(ctx)
 
     phase("kernel rows: every shape against its plain version, timed")
-    for r in [e for row in rows for e in [row] + row.get("extra_shapes", [])]:
+    out["rows"] = rows.assemble()
+    for r in [e for row in out["rows"]
+              for e in [row] + row.get("extra_shapes", [])]:
         bb, bo = r["bound_by_bytes_ms"], r["bound_by_ops_ms"]
         r["bound_ms"] = max(bb, bo)
         r["bound_by"] = "bytes" if bb >= bo else "operations"
@@ -2742,15 +3313,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
                   f"{r['floor_ms']:.4f} ms")
         if r.get("plan"):
             print(f"      plan: {r['plan']}")
-    tun.pop("wq")
-    wbits.pop("wi")
-    return {"rows": rows, "mean_ecr": mean_ecr, "occupancy": occupancy,
-            "calibration_walls": walls, "table1": t1, "quickstart": qs,
-            "simra": sim, "recalibration": recal, "faults": fault,
-            "archive": archive, "fleet_calibration": fleet, "gemma": gem,
-            "deepseek": ds,
-            "monitor": mon, "figures": figs, "tuning": tun,
-            "weight_bits": wbits, "contracts": contr, "benchmarks": benches}
+    out["phase_walls_s"] = end_phases()
+    return out
 
 
 def main() -> int:

@@ -1,6 +1,5 @@
 """Fleet-scale calibration engine: Algorithm 1 across a whole device grid
-(port of ``repro/core/fleet.py``, single device; the mesh path is not
-ported yet).
+(port of ``repro/core/fleet.py``).
 
   * ``manufacture_fleet``  — per-subarray sense offsets [G, C], each row from
     its own generator, so a subarray's offsets do not depend on the grid.
@@ -12,6 +11,13 @@ ported yet).
       - ``per_subarray``: ``identify_calibration`` on each subarray with
         its own generator, the single-subarray Algorithm 1 (the oracle: it
         draws per subarray, so its levels do not follow the fleet draws).
+    With a ``mesh`` (``launch/mesh.py``) the block methods split the
+    subarray axis G over every position of the mesh (G must divide
+    evenly): each iteration's draws come from the one fleet stream, as
+    without a mesh, and each position's block of rows runs its
+    ``calib_iter`` launch on that position's device; levels and the bias
+    history gather back.  So the result equals the single-device run bit
+    for bit, however the grid is split.
   * ``recalibrate_subarrays`` — Algorithm 1 again on a subset of subarrays
     against their current offsets, each from its own stream
     (``subarray_key``), so the result does not depend on how the subsets
@@ -114,14 +120,27 @@ def ladder_tables(ladder: OffsetLadder, params: PhysicsParams
     return qsum, swing
 
 
+def _mesh_devices(mesh, g: int) -> list | None:
+    """The mesh's positions in row-major order, or None for no mesh or a
+    mesh of one; raises when ``g`` subarrays do not divide over it."""
+    if mesh is None or mesh.size == 1:
+        return None
+    if g % mesh.size != 0:
+        raise ValueError(
+            f"{g} subarrays not divisible over {mesh.size} devices")
+    return [d for row in mesh.devices for d in row]
+
+
 def calibrate_fleet(seed: int, sense_offsets: torch.Tensor, cfg: FleetConfig,
                     params: PhysicsParams,
                     config: CalibrationConfig = CalibrationConfig(), *,
-                    method: str = "fused") -> FleetCalibration:
+                    method: str = "fused", mesh=None) -> FleetCalibration:
     """Run Algorithm 1 over the whole subarray grid ``sense_offsets`` [G, C].
 
     Operand bits are drawn as uint8 {0, 1}; the kernel and the plain
-    version give identical levels and bias on the same draws.
+    version give identical levels and bias on the same draws.  ``mesh``
+    splits the grid's rows over its positions (module docstring); the
+    result stays on ``sense_offsets``' device.
     """
     if method not in METHODS:
         raise ValueError(f"method {method!r} not in {METHODS}")
@@ -142,7 +161,8 @@ def calibrate_fleet(seed: int, sense_offsets: torch.Tensor, cfg: FleetConfig,
             yield draw_iteration(gen, (g,), config, c, device)
 
     levels, hist = iterate_calibration(draws(), sense_offsets, ladder,
-                                       params, config, method)
+                                       params, config, method,
+                                       devices=_mesh_devices(mesh, g))
     return FleetCalibration(levels, hist, cfg, method)
 
 
@@ -161,28 +181,40 @@ def draw_iteration(gen: torch.Generator, lead: tuple,
 
 def iterate_calibration(draws, sense_offsets: torch.Tensor,
                         ladder: OffsetLadder, params: PhysicsParams,
-                        config: CalibrationConfig, method: str = "fused"
-                        ) -> tuple[torch.Tensor, torch.Tensor]:
+                        config: CalibrationConfig, method: str = "fused",
+                        devices=None) -> tuple[torch.Tensor, torch.Tensor]:
     """Algorithm 1 over ``sense_offsets`` [G, C] from the neutral level,
     one step per item of ``draws`` (``(inputs [G, S, M, C], noise [G, S,
     C])``): the ``calib_iter`` kernel (``fused``) or its plain version
     (``reference``).  Returns (levels [G, C] int32, mean |bias| per
-    iteration)."""
+    iteration).  ``devices`` splits the G rows into equal blocks, block i
+    stepping on ``devices[i]``; levels and bias gather on
+    ``sense_offsets``' device, so the result is the unsplit one."""
     if method not in ("fused", "reference"):
         raise ValueError(f"method {method!r} has no iteration loop")
     qsum, swing = ladder_tables(ladder, params)
     step = calib_iter if method == "fused" else calib_iter_ref
+    home = sense_offsets.device
+    devices = [torch.device(d) for d in (devices or [home])]
     offsets = sense_offsets.to(torch.float32).contiguous()
-    levels = torch.full(offsets.shape, neutral_level(ladder),
-                        dtype=torch.int32, device=offsets.device)
+    n_blk = offsets.shape[0] // len(devices)
+    blocks = [offsets[i * n_blk:(i + 1) * n_blk].to(d).contiguous()
+              for i, d in enumerate(devices)]
+    levels = [torch.full(b.shape, neutral_level(ladder), dtype=torch.int32,
+                         device=b.device) for b in blocks]
     hist = []
     for inputs, noise in draws:
-        levels, bias = step(inputs, noise, levels, offsets, params,
-                            ladder.n_fracs, qsum, swing, config.threshold,
-                            config.maj_inputs, config.const_charge_sum,
-                            config.const_swing_sq)
-        hist.append(bias.abs().mean())
-    return levels, torch.stack(hist)
+        biases = []
+        for i, (offs, d) in enumerate(zip(blocks, devices)):
+            rows = slice(i * n_blk, (i + 1) * n_blk)
+            levels[i], bias = step(
+                inputs[rows].to(d), noise[rows].to(d), levels[i], offs,
+                params, ladder.n_fracs, qsum, swing, config.threshold,
+                config.maj_inputs, config.const_charge_sum,
+                config.const_swing_sq)
+            biases.append(bias.to(home))
+        hist.append(torch.cat(biases).abs().mean())
+    return torch.cat([lv.to(home) for lv in levels]), torch.stack(hist)
 
 
 def recalibrate_subarrays(seed: int, sense_offsets: torch.Tensor, subarrays,
@@ -239,9 +271,10 @@ def load_or_calibrate(cache, device_id: str, seed: int, cfg: FleetConfig,
                       params: PhysicsParams = PhysicsParams(),
                       config: CalibrationConfig = CalibrationConfig(), *,
                       method: str = "fused", n_trials_ecr: int = 1024,
-                      device=None):
+                      device=None, mesh=None):
     """Return (levels [G, C], ecr [G], masks [G, C], cache_hit) on ``device``
-    (default the GPU; raises without one).
+    (default the GPU; raises without one).  ``mesh`` splits a miss's
+    calibration over its positions (``calibrate_fleet``).
 
     A hit recalibrates nothing.  A miss manufactures the fleet, calibrates
     it, measures ECR + error-prone masks and persists the table.
@@ -254,7 +287,8 @@ def load_or_calibrate(cache, device_id: str, seed: int, cfg: FleetConfig,
                 torch.from_numpy(hit.masks).to(device), True)
 
     offsets = manufacture_fleet(seed, cfg, params, device)
-    cal = calibrate_fleet(seed, offsets, cfg, params, config, method=method)
+    cal = calibrate_fleet(seed, offsets, cfg, params, config, method=method,
+                          mesh=mesh)
     ladder = cfg.ladder(params)
     charges = fleet_calib_charges(ladder, cal.levels, params)
     ecr, masks = measure_ecr_fleet(derive_seed(seed, 0x0ECD), offsets,

@@ -29,7 +29,8 @@ from .placed_gemm import SMS
 __all__ = [
     "majx_sense", "calib_iter_fused", "bitplane_gemv",
     "bitplane_gemv_placed", "bitplane_gemm", "bitplane_gemm_placed",
-    "pud_matmul", "pud_gemv", "pud_gemv_ref", "quantize_activations",
+    "pud_matmul", "pud_matmul_sharded", "pud_gemv", "pud_gemv_ref",
+    "quantize_activations",
     "N_BLOCK", "largest_divisor",
     # the autotuner's surface (kernels/autotune.py)
     "TunedPlan", "plan_for_entry", "row_class", "tune_kernel", "tuning_key",
@@ -116,6 +117,47 @@ def pud_matmul(
         entry = be.matmul if batched else be.gemv
         acc = entry(xq, planes, mode, **kw)
     return acc.to(torch.float32) * x_scale * w_scale
+
+
+def pud_matmul_sharded(x: torch.Tensor, st, mode: str = "folded",
+                       backend: str | None = None,
+                       check_contracts: bool = False) -> torch.Tensor:
+    """Tensor-parallel ``pud_matmul`` over a sharded pack: [B, K] float ->
+    [B, N] float32 on ``x``'s device.
+
+    ``st`` is a ``pud.packed.ShardedPackedTensor`` (duck-typed, so the
+    kernel layer does not import ``pud``).  For each shard that owns
+    columns, ``x`` is copied to the shard's device, the ordinary
+    ``pud_matmul`` runs on that shard's planes, scale, ``col_ids`` and
+    launch plan, and the [B, Np] result comes back to ``x``'s device,
+    cut to the shard's width; the parts concatenate in shard order.
+
+    Bit-exact against the unsharded path by construction: activation
+    quantization is per row (the same on every shard), each output
+    column's integer accumulation reads the same K values, and the
+    dequant ``acc * x_scale * w_scale`` is the same expression per column;
+    no float crosses a shard boundary.  One process, no collectives: a
+    gather by static column slices needs none.
+    """
+    if st.devices is None:
+        raise ValueError(
+            "sharded pack carries no devices — build it through "
+            "PUDFleetSession.pack / pack_model_sharded(devices=...)")
+    parts = []
+    for shard, width, dev in zip(st.shards, st.shard_widths, st.devices):
+        if not width:
+            continue
+        y = pud_matmul(x.to(dev), shard.planes, shard.scale, mode=mode,
+                       col_ids=shard.col_ids,
+                       backend=backend or st.backend, layout=shard.layout,
+                       logical_k=shard.logical_k,
+                       window_block=shard.window_block,
+                       check_contracts=check_contracts,
+                       tile_plan=(shard.tile_plan
+                                  if shard.tile_plan is not None
+                                  else st.tile_plan))
+        parts.append(y.to(x.device)[:, :width])
+    return torch.cat(parts, dim=-1)
 
 
 def majx_sense(charge: torch.Tensor, sense_offset: torch.Tensor,

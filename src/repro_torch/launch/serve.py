@@ -35,8 +35,16 @@ step ``--drift-at`` and corrupts the live pack to match, so the loop
 detects, recalibrates the drifted subarrays, repacks and hot-swaps while
 tokens flow, then checks post-swap decode against a fresh pack.
 
+``--mesh D,M`` (with ``--pud-gemv --engine``) serves through the
+tensor- and data-parallel fleet instead: one calibrated logical PUD device
+per mesh position (``PUDSession.open_fleet``), every projection's columns
+split over the M model shards on placement-window boundaries, one engine
+lane per data row (``FleetServingEngine``).  Positions go round the
+visible cards, lane d, shard m on card ``(d * M + m) % cards``; with one
+card, or ``--device cpu``, all positions share it (the map is printed).
+
 Runs on the GPU; ``--device cpu`` runs the plain PyTorch versions instead
-(and refuses ``--tune``).  The mesh path is not ported yet.
+(and refuses ``--tune``).
 """
 from __future__ import annotations
 
@@ -156,6 +164,13 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="canary probe cadence in engine steps")
     ap.add_argument("--n-canary", type=int, default=16,
                     help="reserved canary columns per subarray")
+    ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
+                    help="with --pud-gemv --engine: serve through a "
+                         "tensor+data-parallel fleet on a DATAxMODEL mesh "
+                         "(PUDSession.open_fleet): one calibrated device per "
+                         "mesh position, packs sharded on placement-window "
+                         "boundaries, one engine lane per data row; "
+                         "positions share cards when there are fewer cards")
     ap.add_argument("--calib-cache", default=None, metavar="DIR",
                     help="persistent calibration-table cache")
     ap.add_argument("--device-id", default="dimm0")
@@ -172,6 +187,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         ap.error("--monitor requires --pud-gemv and --engine")
     if args.drift_sim and not args.monitor:
         ap.error("--drift-sim requires --monitor")
+    if args.mesh and not (args.pud_gemv and args.engine):
+        ap.error("--mesh requires --pud-gemv and --engine")
+    if args.mesh and args.monitor:
+        ap.error("--mesh and --monitor are mutually exclusive (use "
+                 "runtime.drift.FleetDriftMonitor programmatically)")
     if args.tune and not args.pud_gemv:
         ap.error("--tune requires --pud-gemv")
     if args.tune and args.device is not None and \
@@ -207,6 +227,10 @@ def run(args: argparse.Namespace) -> dict:
            "max_len": max_len, "ref_toks": ref_toks,
            "ref_logits": ref_logits, "wall_s": {"init": t_init,
                                                 "bf16": t_ref}}
+    if args.mesh:
+        _sharded_serve(args, spec, model, params, tokens, max_len, ref_toks,
+                       res)
+        return res
     session = None
     serve_params, lock_toks = params, ref_toks
     if args.pud_gemv:
@@ -328,6 +352,89 @@ def _pud_path(args, spec, model, params, tokens, max_len, ref_toks,
               f"{perf['placed_tok_s']:.2f} "
               f"tok/s at {session.placement.occupancy:.1%} occupancy")
     return session
+
+
+def _sharded_serve(args, spec, model, params, tokens, max_len, ref_toks,
+                   res) -> None:
+    """Serve through the tensor- and data-parallel fleet (``--mesh D,M``);
+    fills ``res``.
+
+    Opens one logical ``PUDSession`` per mesh position, calibrates them,
+    packs each lane's model shards (no placement window straddles a
+    shard) and drains the requests through one ``ServingEngine`` lane per
+    data row; per-request decode stays bit-identical to the single-device
+    engine's, and tokens are held against the bf16 path as on the
+    unsharded path.
+    """
+    from repro_torch.core.calibrate import CalibrationConfig
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.launch.mesh import parse_mesh_spec
+    from repro_torch.runtime.engine import Request
+    from repro_torch.runtime.session import PUDSession
+
+    device = tokens.device
+    mesh = parse_mesh_spec(args.mesh, device=device)
+    n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+    packable = FFN_PACKABLE + (ATTN_PACKABLE if args.pud_attention else ())
+    cfg = PUDGemvConfig(weight_bits=args.weight_bits, packable=packable)
+    fleet = PUDSession.open_fleet(
+        args.arch, mesh=mesh,
+        grid=FleetConfig(n_channels=1, n_banks=1,
+                         n_subarrays=args.fleet_subarrays,
+                         n_cols=args.fleet_cols),
+        cache_dir=args.calib_cache, device_id=args.device_id,
+        calib=CalibrationConfig(n_iterations=12, n_samples=256),
+        seed=args.seed + 2, placement=args.placement)
+    res["fleet"] = fleet
+    print(f"[serve] fleet mesh {n_data}x{n_model} (data x model), "
+          f"{fleet.n_devices} logical devices: {mesh.describe()}")
+    states, t_cal = _timed(device, fleet.calibrate)
+    hits = sum(st.cache_hit for row in states for st in row)
+    print(f"  calibration: {fleet.n_devices} devices in {t_cal:.2f}s "
+          f"({hits} cache hits)")
+    packs, t_pack = _timed(device, lambda: fleet.pack(
+        params, cfg, name=f"{args.arch}-{args.preset}-fleet"))
+    statuses = [[s.placement_status or "logical" for s in row]
+                for row in fleet.sessions]
+    print(f"  placement per shard: {statuses}; "
+          f"shard widths {list(fleet.shard_widths)} "
+          f"(windows never straddle a shard); pack {t_pack:.2f}s")
+    res["wall_s"].update(calibrate=t_cal, pack=t_pack)
+    if args.tune:
+        trep, t_tune = _timed(device, lambda: fleet.tune(
+            batches=sorted({1, args.batch})))
+        n_hit = sum(r["status"] == "hit" for r in trep["keys"].values())
+        print(f"  autotune: {len(trep['keys'])} per-shard keys "
+              f"({n_hit} cache hits, {len(trep['keys']) - n_hit} searched) "
+              f"in {t_tune:.2f}s")
+        res["tuning"], res["wall_s"]["tune"] = trep, t_tune
+
+    engine = fleet.serving_engine(model, max_len=max_len,
+                                  batch_size=args.batch_size,
+                                  **_scheduler_kwargs(args))
+    requests = [Request(request_id=i, tokens=tokens[i],
+                        max_new_tokens=args.gen)
+                for i in range(args.batch)]
+    completions, t_eng = _timed(device, engine.run, requests)
+    sched = engine.scheduler_report()
+    print(f"  fleet engine: {sched['completed']} requests over "
+          f"{sched['n_lanes']} lanes in {sched['steps']} steps "
+          f"({sched['batch_size']} slots/lane, "
+          f"{sched['generated_tokens']} tokens; {t_eng:.2f}s wall)")
+    _print_scheduler_extras(sched)
+    agree = sum(c.tokens == ref_toks[c.request_id].tolist()
+                for c in completions) / len(completions)
+    print(f"    token agreement vs bf16: {100 * agree:.1f}% "
+          "(quantization only — sharded decode is bit-identical to the "
+          "single-device engine)")
+    perf = engine.perf_report(2 * spec.n_active_params)
+    print(f"    aggregate DDR4-PUD model: {perf['aggregate_tok_s']:.2f} "
+          f"tok/s over {perf['n_devices']} devices, scaling efficiency "
+          f"{perf['scaling_efficiency']:.2f} "
+          f"(slowest-shard work share {perf['shard_fraction']:.3f})")
+    res.update(packs=packs, engine=engine, completions=completions,
+               sched=sched, agreement=agree, perf=perf)
+    res["wall_s"]["engine"] = t_eng
 
 
 def _scheduler_kwargs(args) -> dict:

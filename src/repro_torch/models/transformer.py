@@ -25,7 +25,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.pud.packed import PackedTensor
+from repro_torch.pud.packed import PackedTensor, ShardedPackedTensor
 
 from . import attention as attn_mod
 from .attention import AttnConfig, MLAConfig
@@ -105,7 +105,7 @@ def layer_slice(tree, i: int):
     """Layer ``i`` of a stacked parameter (sub)tree."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
-    if isinstance(tree, PackedTensor):
+    if isinstance(tree, (PackedTensor, ShardedPackedTensor)):
         return tree.layer(i)
     return tree[i]
 

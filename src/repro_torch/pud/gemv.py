@@ -1,5 +1,5 @@
 """PUD GeMV serving path: low-bit linear layers in the bit-plane layout
-(port of ``repro/pud/gemv.py``, single device).
+(port of ``repro/pud/gemv.py``).
 
 Two halves:
 
@@ -19,11 +19,13 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels.ops import pud_matmul, quantize_activations
+from repro_torch.kernels.ops import (pud_matmul, pud_matmul_sharded,
+                                     quantize_activations)
 from repro_torch.kernels.ref import pack_bitplanes, pack_plane_words
 
 from .bitserial import add8_counts, mul8_counts
-from .packed import LAYOUT_BITPACK, PackedTensor, packed_bytes
+from .packed import (LAYOUT_BITPACK, PackedTensor, ShardedPackedTensor,
+                     packed_bytes)
 from .timing import OpCounts, SystemConfig, wave_latency_ns
 
 # Default packable set: FFN projections.  Entries are "scope.name" (scope =
@@ -85,10 +87,15 @@ def pud_linear(x: torch.Tensor, packed: PackedTensor,
 
     Backend resolution: ``backend`` > ``cfg.backend`` > the pack's stamp >
     the default (``cuda``).  The pack's tuned launch plans
-    (``tile_plan``) go with it.
+    (``tile_plan``) go with it.  A ``ShardedPackedTensor`` runs through
+    ``pud_matmul_sharded``.
     """
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1])
+    if isinstance(packed, ShardedPackedTensor):
+        y = pud_matmul_sharded(x2, packed, mode=cfg.mode,
+                               backend=backend or cfg.backend)
+        return y.reshape(lead + (y.shape[-1],))
     y = pud_matmul(x2, packed.planes, packed.scale, mode=cfg.mode,
                    col_ids=packed.col_ids,
                    backend=backend or cfg.backend or packed.backend,

@@ -7,6 +7,10 @@ serving tree (bf16 leaves plus ``<name>_pud`` packs) with its packing
 metadata.  The port builds typed packs only; ``as_packed_tensor`` reads a
 reference-style ``{"planes", "scale", "col_ids"?}`` mapping into one.
 
+``ShardedPackedTensor`` is one projection split column-wise over the
+"model" axis of a serving mesh: one ``PackedTensor`` per shard, each on its
+own device, padded to a common per-device shape.
+
 ``save_packed_npz`` / ``load_packed_npz`` keep the reference's
 ``pud-pack-v2`` archive, so either package reads what the other wrote.
 A pack's autotuned launch plans (``tile_plan``, ``kernels/autotune``) are
@@ -133,20 +137,117 @@ class PackedTensor:
             col_ids=None if self.col_ids is None else self.col_ids[index])
 
 
+@dataclasses.dataclass(eq=False)
+class ShardedPackedTensor:
+    """One projection split column-wise across the "model" axis of a mesh.
+
+    Shard ``s`` owns the whole placement windows of logical columns
+    ``[lo_s, hi_s)`` (``shard_widths[s]`` wide, a multiple of
+    ``block_cols``; ``pud.placement.shard_column_slices``), packed with that
+    shard's own calibration and placement state.  ``shards[s]`` is that
+    pack, a ``PackedTensor`` on ``devices[s]``, padded to the common
+    per-device shape of the reference's stacked children:
+
+      planes   [L?, WB, Kw, R]  R = the common padded window (placed) or
+                                the padded column count (logical layout)
+      scale    [L?, Np]         Np = the widest shard, padded with 1.0
+      col_ids  [L?, Np]         padded entries point at their own
+                                (zero-plane) window block, or None
+
+    Padding columns back zero planes and are sliced away after each
+    shard's GEMM; a zero-width shard (fewer blocks than shards) is all
+    padding and runs nothing.  ``stacked()`` gives the reference's
+    ``[L?, S, ...]`` arrays.  ``devices`` is None for a pack built without
+    a mesh, which packs but does not execute (as the reference's pack
+    without a mesh).
+    """
+
+    shards: tuple[PackedTensor, ...]
+    shard_widths: tuple[int, ...] = ()
+    block_cols: int = 0
+    backend: str | None = None
+    layout: str = LAYOUT_BITPACK
+    logical_k: int | None = None
+    window_block: int | None = None
+    tile_plan: object | None = None
+    devices: tuple | None = None
+
+    @property
+    def placed(self) -> bool:
+        return self.shards[0].col_ids is not None
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.shards)
+
+    @property
+    def n_bits(self) -> int:
+        return self.shards[0].n_bits
+
+    @property
+    def k(self) -> int:
+        return self.shards[0].k
+
+    @property
+    def n(self) -> int:
+        """Logical output columns across all shards (un-padded)."""
+        return sum(self.shard_widths)
+
+    n_cols = n
+
+    @property
+    def padded_n(self) -> int:
+        """Np: the per-shard padded column count each device computes."""
+        return self.shards[0].n
+
+    @property
+    def stored_bytes(self) -> int:
+        return sum(s.stored_bytes for s in self.shards)
+
+    @property
+    def dense_equiv_bytes(self) -> int:
+        return sum(s.dense_equiv_bytes for s in self.shards)
+
+    def replace(self, **kw) -> "ShardedPackedTensor":
+        return dataclasses.replace(self, **kw)
+
+    def map_shards(self, fn, **kw) -> "ShardedPackedTensor":
+        """The same pack with ``fn`` applied to every shard."""
+        return self.replace(shards=tuple(fn(s) for s in self.shards), **kw)
+
+    def layer(self, index: int) -> "ShardedPackedTensor":
+        """Layer ``index`` of a stacked pack, every shard kept: the
+        reference's layer scan slices ``[L, S, ...]`` to ``[S, ...]``."""
+        return self.map_shards(lambda s: s.layer(index))
+
+    def stacked(self) -> tuple:
+        """(planes [L?, S, WB, Kw, R], scale [L?, S, Np], col_ids [L?, S,
+        Np] or None) on the CPU: the reference's stacked children."""
+        def stack(name):
+            parts = [getattr(s, name) for s in self.shards]
+            if parts[0] is None:
+                return None
+            return torch.stack([p.cpu() for p in parts],
+                               dim=parts[0].dim() - (3 if name == "planes"
+                                                     else 1))
+        return stack("planes"), stack("scale"), stack("col_ids")
+
+
 def is_pack(value) -> bool:
-    """Is ``value`` a pack: a ``PackedTensor`` or a mapping that holds
-    planes and a scale?"""
-    if isinstance(value, PackedTensor):
+    """Is ``value`` a pack: a ``PackedTensor``, a ``ShardedPackedTensor``
+    or a mapping that holds planes and a scale?"""
+    if isinstance(value, (PackedTensor, ShardedPackedTensor)):
         return True
     return isinstance(value, dict) and "planes" in value and "scale" in value
 
 
 def as_packed_tensor(pack) -> PackedTensor:
-    """A ``PackedTensor`` passes through; a ``{"planes", "scale",
-    "col_ids"?}`` mapping becomes one.  A mapping carries no layout tag, so
-    the plane dtype decides: uint8 planes are bit-packed words (logical K
-    = Kw * 8), anything else the dense one-byte-per-bit layout."""
-    if isinstance(pack, PackedTensor):
+    """A ``PackedTensor`` (or ``ShardedPackedTensor``) passes through; a
+    ``{"planes", "scale", "col_ids"?}`` mapping becomes one.  A mapping
+    carries no layout tag, so the plane dtype decides: uint8 planes are
+    bit-packed words (logical K = Kw * 8), anything else the dense
+    one-byte-per-bit layout."""
+    if isinstance(pack, (PackedTensor, ShardedPackedTensor)):
         return pack
     planes = pack["planes"]
     layout = LAYOUT_BITPACK if planes.dtype == torch.uint8 else LAYOUT_DENSE
@@ -169,6 +270,9 @@ def to_dense(pt) -> PackedTensor:
     pt = as_packed_tensor(pt)
     if pt.layout == LAYOUT_DENSE:
         return pt
+    if isinstance(pt, ShardedPackedTensor):
+        return pt.map_shards(to_dense, layout=LAYOUT_DENSE, logical_k=None,
+                             tile_plan=None)
     dense = _per_layer(lambda w: unpack_plane_words(w, pt.k), pt.planes)
     return pt.replace(planes=dense.contiguous(), layout=LAYOUT_DENSE,
                       logical_k=None, tile_plan=None)
@@ -180,6 +284,9 @@ def to_bitpacked(pt) -> PackedTensor:
     pt = as_packed_tensor(pt)
     if pt.layout == LAYOUT_BITPACK:
         return pt
+    if isinstance(pt, ShardedPackedTensor):
+        return pt.map_shards(to_bitpacked, layout=LAYOUT_BITPACK,
+                             logical_k=pt.k, tile_plan=None)
     words = _per_layer(pack_plane_words, pt.planes)
     return pt.replace(planes=words, layout=LAYOUT_BITPACK,
                       logical_k=pt.planes.shape[-2], tile_plan=None)
@@ -203,7 +310,7 @@ class PackedModel:
 
     @property
     def tensors(self) -> dict[str, PackedTensor]:
-        """Flat view: tensor path -> its PackedTensor (computed once)."""
+        """Flat view: tensor path -> its pack (computed once)."""
         cached = self.__dict__.get("_tensors")
         if cached is not None:
             return cached
@@ -211,7 +318,8 @@ class PackedModel:
 
         def walk(tree, path):
             for key, sub in tree.items():
-                if key.endswith("_pud") and isinstance(sub, PackedTensor):
+                if key.endswith("_pud") and isinstance(
+                        sub, (PackedTensor, ShardedPackedTensor)):
                     out["/".join(path + (key[: -len("_pud")],))] = sub
                 elif isinstance(sub, dict):
                     walk(sub, path + (key,))
@@ -247,7 +355,8 @@ def packed_bytes(params) -> dict:
 
     def walk(tree):
         for k, v in tree.items():
-            if k.endswith("_pud") and isinstance(v, PackedTensor):
+            if k.endswith("_pud") and isinstance(
+                    v, (PackedTensor, ShardedPackedTensor)):
                 stats["stored_bytes"] += v.stored_bytes
                 stats["dense_equiv_bytes"] += v.dense_equiv_bytes
             elif isinstance(v, dict):
@@ -287,7 +396,9 @@ def save_packed_npz(path, pm: PackedModel) -> None:
     """Write a ``PackedModel``'s packs to ``path`` as one ``pud-pack-v2``
     .npz with per-tensor layout metadata and the port's launch plans
     (under ``PLAN_KEY``).  Only the packed projections serialize; the bf16
-    leaves are not part of the archive."""
+    leaves are not part of the archive.  A sharded pack writes its
+    stacked ``[L?, S, ...]`` arrays, as the reference's does (and loads
+    back, as there, as one ``PackedTensor`` of that geometry)."""
     tensors = pm.tensors
     meta = {
         "format": PACK_FORMAT,
@@ -304,11 +415,14 @@ def save_packed_npz(path, pm: PackedModel) -> None:
     }
     arrays = {"meta": np.array(json.dumps(meta))}
     for i, pt in enumerate(tensors.values()):
-        arrays[f"t{i}_planes"] = pt.planes.cpu().numpy()
-        arrays[f"t{i}_scale"] = pt.scale.cpu().numpy()
-        if pt.col_ids is not None:
-            arrays[f"t{i}_col_ids"] = pt.col_ids.cpu().numpy().astype(
-                np.int32)
+        if isinstance(pt, ShardedPackedTensor):
+            planes, scale, col_ids = pt.stacked()
+        else:
+            planes, scale, col_ids = pt.planes, pt.scale, pt.col_ids
+        arrays[f"t{i}_planes"] = planes.cpu().numpy()
+        arrays[f"t{i}_scale"] = scale.cpu().numpy()
+        if col_ids is not None:
+            arrays[f"t{i}_col_ids"] = col_ids.cpu().numpy().astype(np.int32)
     with open(path, "wb") as f:
         np.savez(f, **arrays)
 

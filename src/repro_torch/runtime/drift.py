@@ -39,8 +39,12 @@ re-baseline: their next probe becomes the EMA.
 Probe cost: a probe round is ``probe_trials`` MAJ5 waves (every subarray's
 canaries ride the same waves), priced by the ``wave_latency_ns`` model the
 serving rates come from; ``DriftMonitor.probe_overhead()`` reports the
-modeled share of DRAM time spent probing.  ``FleetDriftMonitor`` waits for
-the multi-device fleet session.
+modeled share of DRAM time spent probing.
+
+``FleetDriftMonitor`` runs one ``DriftMonitor`` per model shard of a
+``PUDFleetSession`` lane, stamps each event with its ``shard`` and routes
+a critical one through ``PUDFleetSession.recalibrate_shard``, so only the
+raising shard's table and placement move.
 """
 from __future__ import annotations
 
@@ -76,6 +80,7 @@ class DriftEvent:
     new_ecr: float
     severity: str                 # "warn" | "critical"
     probe_round: int = 0
+    shard: int = 0                # "model"-axis shard that raised it (fleet)
 
 
 class DriftDetector:
@@ -192,6 +197,52 @@ class DriftMonitor:
             "probe_overhead": self.probe_overhead(),
             "table_age": self.session.calibration_age(),
         }
+
+
+class FleetDriftMonitor:
+    """Per-shard drift monitoring of one data lane of a ``PUDFleetSession``.
+
+    One ``DriftMonitor`` (its own canaries, detector and EMA baseline) per
+    model shard of the lane, each probing its own device (``devices[m]``)
+    against its own session's live table.  ``probe()`` rounds every shard
+    and stamps each event with the owning ``shard``; ``recover()`` routes
+    a critical event through ``PUDFleetSession.recalibrate_shard``, so
+    only the raising shard's table and placement move.
+    """
+
+    def __init__(self, fleet, devices, *,
+                 config: DriftConfig = DriftConfig(), data_lane: int = 0):
+        row = fleet.sessions[data_lane]
+        if len(devices) != len(row):
+            raise ValueError(
+                f"need one probe device per model shard: got {len(devices)} "
+                f"for {len(row)} shards")
+        self.fleet = fleet
+        self.data_lane = data_lane
+        self.monitors = [DriftMonitor(s, dev, config=config)
+                         for s, dev in zip(row, devices)]
+
+    def probe(self) -> list[DriftEvent]:
+        """One probe round per shard; events carry the shard index."""
+        events: list[DriftEvent] = []
+        for m, mon in enumerate(self.monitors):
+            events.extend(dataclasses.replace(e, shard=m)
+                          for e in mon.probe())
+        return events
+
+    def recover(self, event: DriftEvent):
+        """Recalibrate and re-plan only the shard that raised ``event``."""
+        mon = self.monitors[event.shard]
+        out = self.fleet.recalibrate_shard(
+            event.shard, [event.subarray], mon.device.sense_offsets(),
+            data_lane=self.data_lane,
+            assumed_temp_c=getattr(mon.device, "temp_c", None))
+        mon.detector.rebaseline([event.subarray])
+        return out
+
+    def report(self) -> dict:
+        return {"data_lane": self.data_lane,
+                "shards": [m.report() for m in self.monitors]}
 
 
 class DriftController:

@@ -1,6 +1,6 @@
-"""ServingEngine: continuous-batching request scheduler (port of
-``repro/runtime/engine.py``; the multi-device ``FleetServingEngine`` is not
-ported yet).
+"""ServingEngine: continuous-batching request scheduler, and the
+data-parallel ``FleetServingEngine`` over it (port of
+``repro/runtime/engine.py``).
 
   * **Requests** enter a queue (``submit``); each is one prompt, a token
     budget and an optional deadline.
@@ -806,5 +806,143 @@ class ServingEngine:
         rep = self.scheduler_report()
         if self.session is not None:
             rep.update(self.session.perf_report(
+                flops_per_token, batch_size=self.batch_size))
+        return rep
+
+
+class FleetServingEngine:
+    """Data-parallel fleet of ``ServingEngine``s over per-lane sharded
+    packs.
+
+    One inner engine per "data" lane of a ``PUDFleetSession``.  Requests
+    go to the lane whose prefix cache holds the longest prefix of the
+    prompt (``prefix_probe``: repeated system prompts land where their KV
+    already lives), round-robin otherwise; every lane keeps the
+    single-engine semantics, so a request's tokens and logits equal a
+    single-device ``ServingEngine``'s over the same requests.  Scheduler
+    extensions pass through to every lane; ``prefix_cache=True`` builds
+    one cache per lane (entries hold lane-local KV and must not cross
+    lanes).  The model-parallel dimension lives inside each lane's params:
+    every packed projection is a ``ShardedPackedTensor`` that runs on its
+    shards' devices (``kernels.ops.pud_matmul_sharded``).
+    """
+
+    def __init__(self, model, lane_params, *, max_len: int,
+                 fleet=None, sessions=None, batch_size: int | None = None,
+                 **kw):
+        if not lane_params:
+            raise ValueError("need at least one data lane")
+        if sessions is None and fleet is not None:
+            # lane d's default batch size derives from its shard-0 session
+            sessions = [row[0] for row in fleet.sessions]
+        if sessions is None:
+            sessions = [None] * len(lane_params)
+        if isinstance(kw.get("prefix_cache"), PrefixCache) and \
+                len(lane_params) > 1:
+            raise ValueError(
+                "a shared PrefixCache cannot span lanes (entries hold "
+                "lane-local KV); pass prefix_cache=True for per-lane caches")
+        self.fleet = fleet
+        self.lanes = [
+            ServingEngine(model, p, session=s, max_len=max_len,
+                          batch_size=batch_size, **kw)
+            for p, s in zip(lane_params, sessions)]
+        self._next_lane = 0
+
+    @property
+    def n_lanes(self) -> int:
+        return len(self.lanes)
+
+    @property
+    def batch_size(self) -> int:
+        return self.lanes[0].batch_size
+
+    @property
+    def n_pending(self) -> int:
+        return sum(lane.n_pending for lane in self.lanes)
+
+    @property
+    def n_active(self) -> int:
+        return sum(lane.n_active for lane in self.lanes)
+
+    def submit(self, request: Request) -> int:
+        """Place the request on the lane with the longest cached prefix of
+        its prompt, else round-robin; returns the lane index."""
+        best, best_len = None, 0
+        for i, lane in enumerate(self.lanes):
+            n = lane.prefix_probe(request.tokens)
+            if n > best_len:
+                best, best_len = i, n
+        if best is None:
+            best = self._next_lane
+            self._next_lane = (best + 1) % len(self.lanes)
+        self.lanes[best].submit(request)
+        return best
+
+    def submit_all(self, requests) -> None:
+        for r in requests:
+            self.submit(r)
+
+    def stage_lane_params(self, lane: int, params) -> None:
+        """Per-lane hot swap (drift recovery repacks one lane only)."""
+        self.lanes[lane].stage_params(params)
+
+    def step(self) -> list[Completion]:
+        """Step every lane that has work; returns this step's
+        completions."""
+        done: list[Completion] = []
+        for lane in self.lanes:
+            if lane._queue or lane.n_active or lane.swap_pending:
+                done.extend(lane.step())
+        return done
+
+    def run(self, requests=None) -> list[Completion]:
+        """Drain every lane; all completions sorted by request_id."""
+        if requests is not None:
+            self.submit_all(requests)
+        while any(lane._queue or lane.n_active for lane in self.lanes):
+            self.step()
+        comps = [c for lane in self.lanes for c in lane._completions]
+        return sorted(comps, key=lambda c: c.request_id)
+
+    # -- reporting -----------------------------------------------------------
+
+    def scheduler_report(self) -> dict:
+        """Fleet-merged counters plus the per-lane reports."""
+        reps = [lane.scheduler_report() for lane in self.lanes]
+        rep = {
+            "n_lanes": len(self.lanes),
+            "batch_size": self.batch_size,
+            "steps": max(r["steps"] for r in reps),
+            "completed": sum(r["completed"] for r in reps),
+            "pending": sum(r["pending"] for r in reps),
+            "active": sum(r["active"] for r in reps),
+            "generated_tokens": sum(r["generated_tokens"] for r in reps),
+            "slot_occupancy": (sum(r["slot_occupancy"] for r in reps)
+                               / len(reps)),
+            "lanes": reps,
+        }
+        pcs = [r["prefix_cache"] for r in reps if "prefix_cache" in r]
+        if pcs:
+            hits = sum(p["hits"] for p in pcs)
+            misses = sum(p["misses"] for p in pcs)
+            rep["prefix_cache"] = {
+                "entries": sum(p["entries"] for p in pcs),
+                "bytes": sum(p["bytes"] for p in pcs),
+                "hits": hits,
+                "misses": misses,
+                "hit_rate": (hits / (hits + misses)
+                             if hits + misses else 0.0),
+                "inserts": sum(p["inserts"] for p in pcs),
+                "evictions": sum(p["evictions"] for p in pcs),
+                "invalidations": sum(p["invalidations"] for p in pcs),
+            }
+        return rep
+
+    def perf_report(self, flops_per_token: float | None = None) -> dict:
+        """Merged scheduler counters + the fleet's aggregate rate model."""
+        rep = self.scheduler_report()
+        if self.fleet is not None:
+            rep.update(self.fleet.perf_report(
                 flops_per_token, batch_size=self.batch_size))
         return rep

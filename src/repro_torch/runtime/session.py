@@ -21,7 +21,13 @@ withholds per-subarray canary columns from placement for the drift monitor
 card (``kernels/autotune.py``), persists the winners beside the
 calibration table (``<cache_dir>/tuning``, ``runtime/tune.py``) and stamps
 them on the packs; ``at_operating_point`` pins a Table-I ECR for pricing
-without a device.  The multi-device fleet session is not ported yet.
+without a device.
+
+``PUDSession.open_fleet`` opens one session per position of a ("data",
+"model") serving mesh (``launch/mesh.py``): a ``PUDFleetSession`` whose
+"model" shards split every packable projection on window-block
+boundaries and whose "data" lanes serve independent request streams
+(``runtime/engine.FleetServingEngine``).
 """
 from __future__ import annotations
 
@@ -43,13 +49,16 @@ from repro_torch.kernels.autotune import (MAX_CANDIDATES, row_class,
                                           tune_kernel, tuning_key)
 from repro_torch.kernels.backends import DEFAULT_BACKEND, backend_names
 from repro_torch.pud.gemv import (ECR_BASELINE_B300, ECR_PUDTUNE_T210,
-                                  FleetPerfModel, PUDGemvConfig,
-                                  PUDPerfModel, pud_linear, weight_traffic)
+                                  FleetPerfAggregate, FleetPerfModel,
+                                  PUDGemvConfig, PUDPerfModel, pud_linear,
+                                  weight_traffic)
 from repro_torch.pud.packed import PackedModel, packed_bytes
-from repro_torch.pud.packer import pack_model, packing_requests
+from repro_torch.pud.packer import (pack_model, pack_model_sharded,
+                                    packing_requests)
 from repro_torch.pud.physics import PhysicsParams
 from repro_torch.pud.placement import (Placement, PlacementError,
-                                       plan_for_grid, requests_fingerprint)
+                                       plan_for_grid, requests_fingerprint,
+                                       shard_column_slices)
 from repro_torch.runtime.calib_cache import CalibrationTableCache
 
 
@@ -195,6 +204,56 @@ class PUDSession:
                      backend=backend, device=device)
         s._operating_point = float(ecr)
         return s
+
+    @classmethod
+    def open_fleet(cls, arch_or_grid: "str | FleetConfig | None" = None, *,
+                   mesh=None, n_data: int | None = None,
+                   n_model: int | None = None,
+                   grid: FleetConfig | None = None,
+                   cache_dir=None, device_id: str = "dimm0",
+                   backend: str = DEFAULT_BACKEND,
+                   physics: PhysicsParams | None = None,
+                   calib: CalibrationConfig | None = None,
+                   seed: int = 0, placement: bool = True,
+                   method: str = "fused", n_trials_ecr: int = 1024,
+                   device=None) -> "PUDFleetSession":
+        """Open one logical session per position of a serving mesh.
+
+        ``mesh`` is a ("data", "model") mesh from ``launch/mesh.py``: its
+        "model" axis carries tensor-parallel shards of every packable
+        projection, its "data" axis independent serving lanes, and session
+        (d, m) runs on ``mesh.devices[d][m]``.  Without a mesh pass
+        ``n_data`` / ``n_model``; every session then runs on ``device``
+        (the GPU unless the caller asks for the CPU).
+
+        Session (d, m) gets the device id ``f"{device_id}-d{d}m{m}"``, so
+        its own calibration-cache entry, placements, canaries and drift
+        state, and the seed ``derive_seed(seed, d * n_model + m)``: the
+        positions are independent, as physically distinct DIMMs are.
+        """
+        if mesh is not None:
+            if n_data is None:
+                n_data = int(mesh.shape["data"])
+            if n_model is None:
+                n_model = int(mesh.shape["model"])
+        if not n_data or not n_model or n_data < 1 or n_model < 1:
+            raise ValueError("open_fleet needs a mesh or explicit "
+                             "n_data/n_model >= 1")
+        if mesh is None:
+            base = resolve_device(device)
+            grid_devs = [[base] * n_model for _ in range(n_data)]
+        else:
+            grid_devs = mesh.devices
+        sessions = [
+            [cls.open(arch_or_grid, grid=grid, cache_dir=cache_dir,
+                      device_id=f"{device_id}-d{d}m{m}", backend=backend,
+                      physics=physics, calib=calib,
+                      seed=derive_seed(int(seed), d * n_model + m),
+                      placement=placement, method=method,
+                      n_trials_ecr=n_trials_ecr, device=grid_devs[d][m])
+             for m in range(n_model)]
+            for d in range(n_data)]
+        return PUDFleetSession(sessions, mesh=mesh, arch=sessions[0][0].arch)
 
     # -- calibration --------------------------------------------------------
 
@@ -664,3 +723,364 @@ class PUDSession:
             **weight_traffic(self._packed),
         }
 
+
+
+def _leaves_to(tree: dict, device: torch.device) -> dict:
+    """``tree`` with its plain tensors on ``device`` (packs stay put)."""
+    out = {}
+    for key, sub in tree.items():
+        if isinstance(sub, dict):
+            out[key] = _leaves_to(sub, device)
+        elif isinstance(sub, torch.Tensor):
+            out[key] = sub.to(device)
+        else:
+            out[key] = sub
+    return out
+
+
+class PUDFleetSession:
+    """A mesh-shaped grid of ``PUDSession``s serving one sharded model.
+
+    ``sessions[d][m]`` is the device at data lane ``d``, model shard ``m``,
+    each with its own device id, and so its own calibration-cache entry,
+    placements, canaries and drift state.
+
+    The "model" axis carries tensor parallelism: every packable
+    projection's N columns split on full-tensor window-block boundaries
+    (``pud.placement.shard_column_slices``, checked by
+    ``analysis.contracts.check_shard_slices``), so shard ``m`` owns whole
+    placement windows, plans them on its own masks and runs its slice on
+    its own device (``kernels.ops.pud_matmul_sharded``, bit-exact against
+    the unsharded path).  The "data" axis carries independent serving
+    lanes: :meth:`pack` builds one ``PackedModel`` of
+    ``ShardedPackedTensor``s per lane (its plain tensors on the lane's
+    shard-0 device) and :meth:`serving_engine` runs one ``ServingEngine``
+    per lane (``runtime.engine.FleetServingEngine``).
+
+    Build one with :meth:`PUDSession.open_fleet`.
+    """
+
+    def __init__(self, sessions, *, mesh=None, arch: str | None = None):
+        if not sessions or not sessions[0]:
+            raise ValueError("open_fleet needs at least one session")
+        self.sessions = sessions
+        self.mesh = mesh
+        self.arch = arch
+        self.n_data = len(sessions)
+        self.n_model = len(sessions[0])
+        self._packs: "list[PackedModel] | None" = None
+        self._pack_cfg: PUDGemvConfig | None = None
+        self._pack_args = None          # (params, name, include_unembed)
+        self._shard_widths: tuple[int, ...] | None = None
+        self._tuning_report: dict | None = None
+
+    # -- grid views ----------------------------------------------------------
+
+    @property
+    def n_devices(self) -> int:
+        return self.n_data * self.n_model
+
+    @property
+    def device_ids(self) -> list:
+        return [[s.device_id for s in row] for row in self.sessions]
+
+    @property
+    def shard_widths(self) -> "tuple[int, ...] | None":
+        """Total N columns each model shard owns (set by :meth:`pack`)."""
+        return self._shard_widths
+
+    @property
+    def packs(self) -> "list[PackedModel] | None":
+        return self._packs
+
+    def shard(self, data_lane: int, model_shard: int) -> PUDSession:
+        return self.sessions[data_lane][model_shard]
+
+    # -- lifecycle -----------------------------------------------------------
+
+    def calibrate(self, force: bool = False) -> list:
+        """Calibrate every device; returns the [n_data][n_model] states."""
+        return [[s.calibrate(force) for s in row] for row in self.sessions]
+
+    def reserve_canaries(self, n_per_subarray: int = 16) -> list:
+        return [[s.reserve_canaries(n_per_subarray) for s in row]
+                for row in self.sessions]
+
+    def flops_per_token(self) -> float | None:
+        return self.sessions[0][0].flops_per_token()
+
+    def optimal_batch_size(self, max_batch: int | None = None) -> int:
+        """The minimum over devices, so every lane's engine sustains it."""
+        return min(s.optimal_batch_size(max_batch)
+                   for row in self.sessions for s in row)
+
+    # -- placement + packing -------------------------------------------------
+
+    def _shard_requests(self, reqs):
+        """Per-shard sliced request lists and per-shard total widths.
+
+        Every request splits on its own full-tensor window-block
+        boundaries (``shard_column_slices``), checked by
+        ``check_shard_slices`` before any planning; a zero-width shard
+        gets no request for that tensor.
+        """
+        from repro_torch.analysis.contracts import check_shard_slices
+        sliced = [[] for _ in range(self.n_model)]
+        widths = [0] * self.n_model
+        for r in reqs:
+            spans, bc = shard_column_slices(r.n_cols, self.n_model)
+            check_shard_slices(spans, r.n_cols, bc)
+            for m, (lo, hi) in enumerate(spans):
+                widths[m] += hi - lo
+                if hi > lo:
+                    sliced[m].append(dataclasses.replace(
+                        r, n_cols=hi - lo, block_cols=bc))
+        return sliced, tuple(widths)
+
+    def _plan_shard(self, data_lane: int, model_shard: int, sliced,
+                    name: str | None) -> Placement | None:
+        s = self.sessions[data_lane][model_shard]
+        s._placement_status = s._placement_error = None
+        s._placement = None
+        if not (s.placement_enabled and s._state is not None):
+            return None
+        base = (f"{name or self.arch or 'model'}"
+                f"-shard{model_shard}of{self.n_model}")
+        return s._plan_requests(sliced, base)
+
+    def _pack_lane(self, data_lane: int, params: dict, placements,
+                   sliced, cfg, include_unembed: bool) -> PackedModel:
+        """One lane's sharded pack; a live shard without a placement makes
+        the whole lane logical (a lane's shards share one layout)."""
+        if placements is not None and any(
+                placements[m] is None
+                for m in range(self.n_model) if sliced[m]):
+            placements = None
+        row = self.sessions[data_lane]
+        pm = pack_model_sharded(
+            params, cfg, n_shards=self.n_model, placements=placements,
+            include_unembed=include_unembed,
+            devices=[s.device for s in row])
+        return dataclasses.replace(pm, params=_leaves_to(pm.params,
+                                                         row[0].device))
+
+    def pack(self, params: dict, cfg: PUDGemvConfig | None = None, *,
+             name: str | None = None,
+             include_unembed: bool = True) -> "list[PackedModel]":
+        """Pack one sharded ``PackedModel`` per data lane.
+
+        Each lane's model shards plan their own column slice of every
+        request on their own masks (placement names
+        ``<name>-shard{m}of{M}-...``).  If any live shard of a lane cannot
+        place (uncalibrated, placement off, or the plan does not fit), the
+        whole lane packs the logical sharded layout.
+        """
+        if cfg is None:
+            cfg = PUDGemvConfig(backend=self.sessions[0][0].backend)
+        elif cfg.backend is None:
+            cfg = dataclasses.replace(
+                cfg, backend=self.sessions[0][0].backend)
+        reqs = packing_requests(params, cfg, include_unembed)
+        sliced, self._shard_widths = self._shard_requests(reqs)
+        packs = []
+        for d in range(self.n_data):
+            placements = [self._plan_shard(d, m, sliced[m], name)
+                          for m in range(self.n_model)]
+            packs.append(self._pack_lane(d, params, placements, sliced, cfg,
+                                         include_unembed))
+        self._packs, self._pack_cfg = packs, cfg
+        self._pack_args = (params, name, include_unembed)
+        return packs
+
+    def repack_lane(self, data_lane: int, *,
+                    changed_model: int | None = None) -> PackedModel:
+        """Rebuild one lane's sharded pack from its shards' current state.
+
+        With ``changed_model`` (the drift-recovery path) only that shard
+        plans again; every other shard of the lane reuses its
+        ``Placement`` object as it is.
+        """
+        if self._packs is None or self._pack_args is None:
+            raise RuntimeError("no packed fleet: call pack() first")
+        params, name, include_unembed = self._pack_args
+        cfg = self._pack_cfg
+        reqs = packing_requests(params, cfg, include_unembed)
+        sliced, self._shard_widths = self._shard_requests(reqs)
+        placements = []
+        for m in range(self.n_model):
+            s = self.sessions[data_lane][m]
+            if (changed_model is not None and m != changed_model
+                    and s._placement is not None):
+                placements.append(s._placement)   # untouched shard: reuse
+            else:
+                placements.append(
+                    self._plan_shard(data_lane, m, sliced[m], name))
+        pm = self._pack_lane(data_lane, params, placements, sliced, cfg,
+                             include_unembed)
+        self._packs[data_lane] = pm
+        return pm
+
+    def recalibrate_shard(self, model_shard: int, subarrays, sense_offsets,
+                          *, data_lane: int = 0,
+                          assumed_temp_c: float | None = None):
+        """Route a drift event to the owning shard only.
+
+        Partial recalibration on ``sessions[data_lane][model_shard]``
+        (``PUDSession.recalibrate_subarrays``), then that shard's slice
+        plans again and the lane's sharded pack is rebuilt.  Every other
+        shard's table, placement and canaries are not read.  Returns the
+        refreshed lane pack (also in :attr:`packs`), or the refreshed
+        ``CalibrationState`` when the fleet has not packed yet.
+        """
+        s = self.sessions[data_lane][model_shard]
+        state = s.recalibrate_subarrays(subarrays, sense_offsets,
+                                        assumed_temp_c=assumed_temp_c)
+        if self._packs is None:
+            return state
+        return self.repack_lane(data_lane, changed_model=model_shard)
+
+    # -- kernel autotuning ---------------------------------------------------
+
+    def tune(self, *, batches=(1, 8), force: bool = False, warmup: int = 1,
+             reps: int = 5, max_candidates: int = MAX_CANDIDATES) -> dict:
+        """Autotune the per-shard kernel geometry and stamp every lane.
+
+        Every shard of a pack has the same padded per-device shape, so one
+        search per (pack, batch), on shard (0, 0)'s first layer, covers
+        the mesh.  Keys carry the padded per-shard width ``Np``, so they
+        differ from the unsharded session's.  Winners persist in shard
+        (0, 0)'s tuning cache.  A lane whose placed windows are wider than
+        a plan admits keeps the heuristic for that pack (the contract
+        checker decides).  Needs the GPU, as ``PUDSession.tune``.
+        """
+        if self._packs is None:
+            raise RuntimeError("no packed fleet: call pack() first")
+        s0 = self.sessions[0][0]
+        if s0.device.type != "cuda":
+            raise RuntimeError(
+                f"PUDFleetSession.tune: the fleet runs on {s0.device}; "
+                "tuning times the CUDA kernels and needs the GPU")
+        cache = s0._tuning_cache()
+        mode = (self._pack_cfg or PUDGemvConfig()).mode
+        report: dict = {"fingerprint": cache.fingerprint if cache else None,
+                        "cache_dir": str(cache.directory) if cache else None,
+                        "keys": {}}
+        tile_plans: dict[str, tuple] = {}
+        for pname, st in self._packs[0].tensors.items():
+            pt = st.shards[0]
+            if pt.planes.dim() == 4:               # stacked layers
+                pt = pt.layer(0)
+            plans = {}
+            for batch in batches:
+                batch = int(batch)
+                entry = "gemm" if batch > 1 else "gemv"
+                key = tuning_key(entry, batch, pt.k, pt.n, pt.n_bits,
+                                 pt.layout, pt.placed)
+                row = {"name": pname, "entry": entry, "batch": batch,
+                       "row_class": row_class(batch)}
+                plan = None if (force or cache is None) else cache.load(key)
+                if plan is not None and s0._plan_fits(plan, entry, batch,
+                                                      pt.planes, pt):
+                    row.update(status="hit",
+                               **cache.load_entry(key)["stats"])
+                else:
+                    x = ((torch.arange(batch * pt.k, device=s0.device)
+                          % 255) - 127).to(torch.int8).reshape(batch, pt.k)
+                    res = tune_kernel(
+                        entry, x, pt.planes, col_ids=pt.col_ids,
+                        window_block=pt.window_block, layout=pt.layout,
+                        logical_k=pt.logical_k, mode=mode,
+                        backend=s0.backend, warmup=warmup, reps=reps,
+                        max_candidates=max_candidates)
+                    plan = res.plan
+                    row.update(status="tuned", **res.to_stats())
+                    if cache is not None:
+                        cache.save(key, plan, res.to_stats())
+                row["plan"] = plan.to_dict()
+                report["keys"][key] = row
+                plans[row_class(batch)] = (entry, batch, plan)
+            tile_plans[pname] = plans
+        for d, pm in enumerate(self._packs):
+            stamped = {}
+            for n, plans in tile_plans.items():
+                st = pm.tensor(n)
+                pt = st.shards[0]
+                pt = pt.layer(0) if pt.planes.dim() == 4 else pt
+                fits = tuple(sorted(
+                    (cls, plan) for cls, (entry, batch, plan) in plans.items()
+                    if s0._plan_fits(plan, entry, batch, pt.planes, pt)))
+                stamped[n] = st.replace(tile_plan=fits or None)
+            self._packs[d] = _restamp_model(pm, stamped)
+        self._tuning_report = report
+        return report
+
+    def tuning_report(self) -> dict | None:
+        return self._tuning_report
+
+    # -- execution + reporting -----------------------------------------------
+
+    def serving_engine(self, model, *, max_len: int,
+                       batch_size: int | None = None,
+                       chunk_prefill: int | None = None,
+                       prefix_cache=False, slo=None, **kw):
+        """A ``FleetServingEngine``: one continuous-batching lane per
+        "data" row, tensor parallelism inside each lane's packs.  The
+        scheduler extensions pass through to every lane
+        (``prefix_cache=True`` builds one cache per lane, and ``submit``
+        routes by cache affinity before round-robin)."""
+        from repro_torch.runtime.engine import FleetServingEngine
+        if self._packs is None:
+            raise RuntimeError("no packed fleet: call pack() first")
+        return FleetServingEngine(
+            model, [pm.params for pm in self._packs], fleet=self,
+            max_len=max_len, batch_size=batch_size,
+            chunk_prefill=chunk_prefill, prefix_cache=prefix_cache,
+            slo=slo, **kw)
+
+    def fleet_perf_model(self) -> FleetPerfAggregate:
+        """The aggregate Eq.-1 rate model: the slowest device of each model
+        shard bounds that shard, the slowest shard bounds every lane, and
+        lanes add up (``pud.gemv.FleetPerfAggregate``)."""
+        shards = []
+        for m in range(self.n_model):
+            worst = None
+            for row in self.sessions:
+                s = row[m]
+                pm = s.placement_perf_model() or s.tuned_perf_model()
+                if not isinstance(pm, FleetPerfModel):
+                    pm = FleetPerfModel.from_table(
+                        [1.0 - pm.error_free_frac])
+                if worst is None or \
+                        pm.macs_per_second < worst.macs_per_second:
+                    worst = pm
+            shards.append(worst)
+        return FleetPerfAggregate(shards=tuple(shards), n_data=self.n_data,
+                                  shard_widths=self._shard_widths)
+
+    def perf_report(self, flops_per_token: float | None = None,
+                    batch_size: int | None = None) -> dict:
+        """Mesh shape, per-device reports and the aggregate rates: tokens/s
+        over the whole fleet and the scaling efficiency against
+        ``n_devices`` copies of shard (0, 0)."""
+        agg = self.fleet_perf_model()
+        flops = flops_per_token or self.flops_per_token()
+        rep: dict = {
+            "n_data": self.n_data,
+            "n_model": self.n_model,
+            "n_devices": self.n_devices,
+            "device_ids": self.device_ids,
+            "shard_widths": self._shard_widths,
+            "shard_fraction": agg.shard_fraction,
+            "aggregate_model": agg,
+            "shards": [[s.perf_report(flops) for s in row]
+                       for row in self.sessions],
+        }
+        if flops is not None:
+            rep["flops_per_token"] = flops
+            rep["aggregate_tok_s"] = agg.tokens_per_second(flops)
+            rep["scaling_efficiency"] = agg.scaling_efficiency(flops)
+            if batch_size is not None:
+                rep["batch_size"] = int(batch_size)
+                rep["aggregate_batched_tok_s"] = \
+                    agg.batched_tokens_per_second(flops, batch_size)
+        return rep

@@ -17,6 +17,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 from repro_torch.benchmarks import (common, drift_recovery,  # noqa: E402
                                     fig3_offsets, fig6_reliability,
                                     fleet_calibration, placement, run,

@@ -14,6 +14,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 from repro.core.fleet import FleetConfig as JFleet  # noqa: E402
 from repro.pud import placement as jpl  # noqa: E402
 from repro.pud.physics import PhysicsParams as JPhys  # noqa: E402

@@ -10,6 +10,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 from repro.analysis import contracts as jc  # noqa: E402
 from repro.analysis.errors import ContractViolation as JViolation  # noqa: E402
 from repro.pud.placement import (PlacementError as JPlacementError,  # noqa: E402

@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 from repro_torch.core.fleet import FleetConfig, ladder_tables  # noqa: E402
 from repro_torch.kernels import (calib_iter, ops, placed_gemm,  # noqa: E402
                                   plane_gemm, ref, sense)

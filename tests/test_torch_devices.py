@@ -14,6 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 from repro_torch import devices  # noqa: E402
 from repro_torch.core.fleet import FleetConfig, ladder_tables  # noqa: E402
 from repro_torch.kernels import (build, calib_iter, placed_gemm,  # noqa: E402
@@ -197,3 +199,36 @@ def test_launches_follow_the_tensor_device_on_a_second_card():
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     torch.cuda.synchronize(dev)
     assert torch.cuda.current_device() == 0
+
+
+@pytest.mark.gpu
+def test_fleet_shards_on_two_cards_equal_one_card():
+    """A sharded pack with its shards on cuda:0 and cuda:1 gives the same
+    floats as with both on cuda:0, and the mesh path of calibrate_fleet
+    split over the two cards equals the single-card run."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from repro_torch.core.calibrate import CalibrationConfig
+    from repro_torch.core.fleet import calibrate_fleet, manufacture_fleet
+    from repro_torch.kernels.ops import pud_matmul_sharded
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.pud.packer import pack_linear_sharded
+    g = torch.Generator().manual_seed(0)
+    w = torch.randn((2048, 6144), generator=g).to(torch.bfloat16)
+    x = torch.randn((4, 2048), generator=g)
+    c0, c1 = torch.device("cuda", 0), torch.device("cuda", 1)
+    one = pack_linear_sharded(w.to(c0), 2, devices=[c0, c0])
+    two = pack_linear_sharded(w.to(c0), 2, devices=[c0, c1])
+    assert two.shards[1].planes.device == c1
+    for rows in (x[:1], x):
+        got = pud_matmul_sharded(rows.to(c0), two)
+        assert got.device == c0
+        assert torch.equal(got, pud_matmul_sharded(rows.to(c0), one))
+    cfg = FleetConfig(n_channels=1, n_banks=1, n_subarrays=4, n_cols=4096)
+    p, cal = PhysicsParams(), CalibrationConfig(n_iterations=3)
+    offs = manufacture_fleet(1, cfg, p, device=c0)
+    single = calibrate_fleet(1, offs, cfg, p, cal)
+    split = calibrate_fleet(1, offs, cfg, p, cal,
+                            mesh=make_host_mesh(1, 2, device="cuda"))
+    assert torch.equal(split.levels, single.levels)
+    assert torch.equal(split.mean_abs_bias, single.mean_abs_bias)

@@ -14,6 +14,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 from repro_torch.benchmarks import (calibration_convergence,  # noqa: E402
                                     common, fig5_frac_sensitivity,
                                     fig6_reliability, majx_general)

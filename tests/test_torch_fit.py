@@ -12,6 +12,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 from repro.core import fit as jfit  # noqa: E402
 from repro.pud.physics import PhysicsParams as JPhys  # noqa: E402
 from repro_torch.core import fit  # noqa: E402

@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 from repro_torch.configs import get  # noqa: E402
 from repro_torch.kernels import placed_gemm, plane_gemm  # noqa: E402
 from repro_torch.launch.serve import main  # noqa: E402

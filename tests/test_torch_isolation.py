@@ -9,6 +9,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "repro")
 
@@ -38,8 +40,9 @@ def test_sources_exist():
 #: and the paper's benchmarks, then of the drift-reliability loop and the
 #: paper's remaining figures, then of the autotuner, the contract checker,
 #: the session surface and the kernel benchmarks, then of MLA, MoE and the
-#: serving-engine benchmark: each is among the scanned sources (its CUDA
-#: source among the built ones).
+#: serving-engine benchmark, then of the serving mesh and the API surface:
+#: each is among the scanned sources (its CUDA source among the built
+#: ones).
 SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "pud/bitserial.py", "core/calibrate.py", "core/fleet.py",
                  "core/ecr.py", "core/throughput.py", "runtime/session.py",
@@ -63,7 +66,8 @@ SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "benchmarks/mvdram_serving.py", "benchmarks/kernel_bench.py",
                  "benchmarks/kernel_microbench.py", "models/attention.py",
                  "models/moe.py", "models/transformer.py",
-                 "configs/archs.py", "benchmarks/serving_engine.py")
+                 "configs/archs.py", "benchmarks/serving_engine.py",
+                 "launch/mesh.py", "api.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 

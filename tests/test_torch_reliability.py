@@ -16,6 +16,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 import jax  # noqa: E402
 
 from repro.core.reliability import reliability_sweep as j_sweep  # noqa: E402

@@ -18,6 +18,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
@@ -260,117 +262,37 @@ def test_session_without_device_needs_a_gpu(entry):
 
 
 def _chip_smoke():
-    import importlib.util
-    root = __import__("pathlib").Path(__file__).resolve().parents[1]
-    spec = importlib.util.spec_from_file_location("chip_smoke",
-                                                  root / "chip_smoke.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    from _rehearsal import chip_smoke
+    return chip_smoke()
 
 
-def test_chip_smoke_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
-    """The chip script's phases, on the CPU at smoke size through the plain
-    versions: every check passes and every kernel row is complete."""
-    from repro_torch.benchmarks import common
-    from repro_torch.core.calibrate import CalibrationConfig
-    monkeypatch.setattr(common, "ART", tmp_path)
+def test_chip_smoke_rows_assemble_in_group_order():
+    """The kernels line's rows as the groups fill them: the six kernels in
+    order, each group's shapes after the earlier groups', the dense layout
+    last, launches summed; a kernel without a shape has no row.  (The
+    groups' own phases run in ``tests/test_torch_rehearsal_*.py``.)"""
     cs = _chip_smoke()
-    out = cs.run(torch, torch.device("cpu"), preset="smoke",
-                 grid=dict(n_channels=1, n_banks=1, n_subarrays=8,
-                           n_cols=512),
-                 table1=dict(n_cols=1024, n_trials_maj5=256,
-                             n_cols_arith=64, n_trials_arith=64),
-                 table1_calib=CalibrationConfig(n_iterations=8,
-                                                n_samples=128),
-                 quickstart=dict(n_channels=1, n_banks=1, n_subarrays=2,
-                                 n_cols=512),
-                 simra=dict(n_cols=2048, events=64),
-                 dense_cfg=dict(b=4, k=256, n=512, wb=4),
-                 sense_shapes=[(1, 8, 2048, 3), (16, 8, 512, 0),
-                               (3, 5, 100, 3)],
-                 calib_shapes=[(4, 512, 5, 256), (3, 64, 5, 1001)],
-                 fleet_argv=["--subarrays", "4", "--n-cols", "256",
-                             "--n-trials", "256", "--check-full",
-                             "--device", "cpu"],
-                 recal=(3, 5),
-                 gemma=dict(cs.GEMMA, preset="smoke",
-                            grid=dict(n_channels=1, n_banks=1,
-                                      n_subarrays=8, n_cols=512)),
-                 deepseek=dict(cs.DEEPSEEK, preset="smoke",
-                               grid=dict(n_channels=1, n_banks=1,
-                                         n_subarrays=8, n_cols=512)),
-                 figures=dict(n_cols=128, n_trials_maj5=32,
-                              check_plain=True))
-    names = [r["name"] for r in out["rows"]]
-    assert names == ["calib_iter", "gemm_placed", "gemv_placed", "gemm",
-                     "gemv", "majx_sense"]
-    t1 = out["table1"]
-    assert t1["T210"]["ecr"] < t1["B300"]["ecr"]
-    assert out["quickstart"]["tuned"] < out["quickstart"]["baseline"]
-    assert abs(out["simra"]["ecr_cmd"] - out["simra"]["ecr_fast"]) \
-        <= out["simra"]["tol"]
-    for r in out["rows"][1:5]:           # the dense layout on every entry
-        assert [e["layout"] for e in r["extra_shapes"]][-2:] == ["dense"] * 2
-    for r in out["rows"]:
-        for e in [r] + r.get("extra_shapes", []):
-            assert e["max_abs_err"] == 0 and e["bound_ms"] > 0
-            assert e["bound_by"] in ("bytes", "operations")
-    text = capsys.readouterr().out
-    assert "placement HIT" in text and "bit for bit" in text
-    assert "gains T210/B300" in text and "command level" in text
-    assert "unplaced engine path" in text and "100.0% of requests" in text
-    assert "plan: dp4a" in text and "plan: tensor cores" in text
-    assert "other 6 rows of levels, ECR and masks unchanged" in text
-    assert out["faults"]["delta"] > 0.1
-    assert set(out["archive"]) == {"placed", "unplaced"}
-    assert "#csv fleet_calibration" in text and "#csv table1" in text
-    assert "main leg == reference on the same inputs" in text
-    gem = out["gemma"]                   # the gemma phase's scheduler runs
-    assert gem["hits"] == (2, 7)
-    assert gem["prefilled"][0] < gem["prefilled"][1]
-    assert gem["slo"]["shed_on_admit"] >= 1 and gem["slo"]["met"] >= 1
-    assert "gemma-7b (smoke)" in text and "bit for bit" in text
-    assert [len(r["extra_shapes"]) for r in out["rows"][:3]] == [3, 16, 4]
-    ds = out["deepseek"]                 # the deepseek-v2-lite phase
-    assert 0 < ds["placed_cols"] < ds["attn_cols"]
-    assert ds["engine"]["steps"] > 0 and ds["peak_gib"] is None
-    assert "deepseek-v2-lite-16b (smoke)" in text
-    assert "requests equal to lockstep" in text
-    assert "--pud-attention: MLA wq / wo packed too" in text
-    mon = out["monitor"]                 # the monitored serving phase
-    assert {g for g, sev in mon["events"] if sev == "critical"} == {1, 5}
-    assert mon["latency_steps"] >= 0 and mon["recalibrate_ms"] > 0
-    assert "post-swap spot check: 2/2" in text
-    assert "other rows of the persisted table unchanged" in text
-    figs = out["figures"]                # the paper's figures phase
-    assert list(figs["walls_s"]) == ["fig3", "fig5", "fig6", "convergence",
-                                     "drift", "majx", "placement"]
-    for name in ("fig3_offsets", "fig5_frac_sensitivity", "fig6_temperature",
-                 "fig6_time", "calibration_convergence", "drift_recovery",
-                 "majx_general", "placement"):
-        assert f"#csv {name}" in text
-    for name in ("drift_recovery", "placement"):
-        assert (f"{name}: kernels == plain versions on the same inputs"
-                in text)
-    tun = out["tuning"]                  # the tuning phase (untimed stamps)
-    assert 0 < tun["occupancy"] < 1 and tun["used_cols"] > 0
-    assert "PUDSession.tune on the CPU raises" in text
-    assert "tuned kernels == plain versions, bit for bit" in text
-    assert "tokens and logits bit-identical" in text
-    assert set(tun["single_split"]) == {"wi", "wo"} and "one split" in text
-    assert tun["plan_path_us"] > 0 and "stamped-plan host path" in text
-    assert "saved and loaded: plans equal" in text
-    assert "packs of 8 planes: prefill logits" in text
-    assert out["contracts"]["sms"] == 132 and "0 findings" in text
-    assert set(out["benchmarks"]) == {"serving", "serving_engine",
-                                      "kernels", "kernel_microbench"}
-    assert "#csv serving_trace" in text
-    for name in ("mvdram_serving", "kernel_bench", "kernel_microbench"):
-        assert f"#csv {name}" in text
-    for name in ("kernel_bench", "kernel_microbench"):
-        assert (f"{name}: kernels == plain versions on the same inputs"
-                in text)
+    rows = cs.Rows()
+    rows.add("gemm_placed", 3, [dict(shape="a", layout="bitpack8"),
+                                dict(shape="d", layout="dense")])
+    rows.add("majx_sense", 2, [dict(shape="s", floor_ms=0.01)])
+    rows.add("gemm_placed", 4, [dict(shape="b", layout="bitpack8"),
+                                dict(shape="e", layout="dense", launches=9)])
+    rows.add("calib_iter", 5)
+    out = rows.assemble()
+    assert [r["name"] for r in out] == ["gemm_placed", "majx_sense"]
+    gp, mx = out
+    assert gp["shape"] == "a" and gp["launches"] == 7
+    assert [e["shape"] for e in gp["extra_shapes"]] == ["b", "d", "e"]
+    assert gp["source"].endswith("placed_gemm.cu") and gp["route"] == "cuda"
+    assert gp["replaces"] == "src/repro/kernels/bitplane_gemm.py:166"
+    assert mx["floor_ms"] == 0.01 and mx["extra_shapes"] == []
+    assert list(cs.KERNEL_ROWS) == ["calib_iter", "gemm_placed",
+                                    "gemv_placed", "gemm", "gemv",
+                                    "majx_sense"]
+    assert cs.GROUPS == ("main", "papers", "gemma", "deepseek", "fleet")
+    with pytest.raises(cs.PhaseError, match=r"unknown groups \['nope'\]"):
+        cs.run(torch, torch.device("cpu"), only=["nope"])
 
 
 def test_chip_smoke_fails_without_gpu_or_sources(tmp_path):

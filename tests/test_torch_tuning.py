@@ -17,6 +17,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
 from repro.kernels.autotune import tuning_key as j_tuning_key  # noqa: E402
 from repro_torch.analysis.contracts import (KernelCall,  # noqa: E402
                                             check_placed_plan,
