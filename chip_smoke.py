@@ -170,10 +170,35 @@ Phases (any failure exits nonzero and prints no result line):
      moves only shard 1; a profiled batch-4 decode step of a lane
      (device time by kernel, busy share, launches per step) and the
      aggregate DDR4-PUD rate; then each kernel at its per-shard shapes;
- 16. print the ``kernels`` JSON line and, last, the device JSON line.
+ 16. the SSM, hybrid, encoder-decoder and VLM families (``FAMILIES``),
+     after the fleet's state is freed, on one 16 x 65,536 calibration
+     cache, random weights from the seed, 4-bit placed packs: (a)
+     zamba2-7b at full width and depth (81 blocks, 5.75 B parameters)
+     through ``serve --pud-gemv --pud-attention --engine``: a calibration
+     miss, 46,336 placed columns (the shared attention's four projections
+     and the unembed), lockstep decode of 4 prompts of 32 tokens for 16,
+     the engine refused (its Mamba2 segment caches carry the batch on axis
+     2; the reference's engine fails on it), prefill logits through the
+     kernels == plain versions, a batch-1 request (placed GEMV), 53 placed
+     GEMM launches per batch-4 decode step (13 uses x 4 + the unembed), a
+     profiled decode step and peak memory; (b) mamba2-1.3b at full width
+     and depth (48 layers): a table hit, 50,280 placed columns (the
+     unembed), the engine equal to lockstep (4 requests on 4 slots through
+     serve, then 8 on 4 against lockstep in batches of 4), a ragged engine
+     run == its plain-version replay, the unplaced packs through the
+     ``plane_gemm`` kernels at batch 4 and 1, a profiled decode step; (c)
+     whisper-large-v3 at full width and depth (32 + 32 layers, 1,500
+     frames) with the encoder's attention packed (215,706 columns, its
+     projections at 4 x 1,500 rows), prefill == plain, lockstep decode,
+     the engine skip line; (d) pixtral-12b at full width with 4 of its 40
+     layers (266,240 columns: FFN + unembed), prefill == plain, the cache
+     filled over patches + prompt and lockstep decode after the prefix;
+     then the placed GEMM / GEMV at their shapes;
+ 17. print the ``kernels`` JSON line and, last, the device JSON line.
 
 The phases run in groups that share no state (``GROUPS``: main = 3-9,
-papers = 9 (Table I on) - 12, gemma = 13, deepseek = 14, fleet = 15); each
+papers = 9 (Table I on) - 12, gemma = 13, deepseek = 14, fleet = 15,
+families = 16); each
 group adds its launches and timed shapes to the kernel rows (``Rows``),
 which are assembled and printed last.  ``run(only=[...])`` drives some
 groups, as the CPU rehearsal does (``tests/test_torch_rehearsal_*.py``);
@@ -212,6 +237,7 @@ BATCH, PROMPT, GEN, SEED = 4, 32, 16, 0
 ENGINE_BATCH, ENGINE_SLOTS = 8, 4
 RAGGED = dict(n=12, prompt=(8, 128), budget=(4, 32))
 LIB_ROWS = 32                # torch._int_mm takes more than 16 rows
+                             # (and N padded to a multiple of 8)
 # benchmarks/table1.py's scales (the reference's evaluate_method defaults)
 TABLE1 = dict(n_cols=65536, n_trials_maj5=8192, n_cols_arith=4096,
               n_trials_arith=512)
@@ -299,6 +325,22 @@ FLEET = dict(arch=ARCH, preset="full", mesh=(2, 2),
              requests=ENGINE_BATCH, prompt=PROMPT, gen=GEN,
              slots=ENGINE_SLOTS, drift=(2, 5), drift_temp_c=3000.0,
              ragged=dict(n=8, prompt=(8, 64), budget=(4, 16)), widen=None)
+
+
+# the SSM, hybrid, encoder-decoder and VLM families on one 16 x 65,536
+# calibration cache (zamba2 misses, the others hit and place anew): 4
+# prompts of 32 tokens for 16 (mamba2: 8 requests on 4 engine slots, and a
+# ragged run replayed on the plain versions); pixtral's 40-layer backbone
+# is the ported TransformerLM, so it runs 4 layers (its placed FFN +
+# unembed: 4 x 33,792 + 131,072 columns).  ``placed_cols`` are the full
+# configs' placements.
+FAMILIES = dict(preset="full", grid=GRID, batch=BATCH, prompt=PROMPT,
+                gen=GEN, requests=ENGINE_BATCH, slots=ENGINE_SLOTS,
+                ragged=dict(n=8, prompt=(5, 40), budget=(4, 16)),
+                pixtral_layers=4,
+                placed_cols={"zamba2-7b": 46_336, "mamba2-1.3b": 50_280,
+                             "whisper-large-v3": 215_706,
+                             "pixtral-12b": 266_240})
 
 
 class PhaseError(RuntimeError):
@@ -2281,7 +2323,7 @@ KERNEL_ROWS = {
 #: state with another: it adds its launches and its timed shapes to the
 #: kernel rows, and ``run(only=...)`` drives a subset (the CPU rehearsal
 #: runs one group per test file).
-GROUPS = ("main", "papers", "gemma", "deepseek", "fleet")
+GROUPS = ("main", "papers", "gemma", "deepseek", "fleet", "families")
 
 
 class Rows:
@@ -2415,12 +2457,14 @@ def row_context(torch, dev, kernels, sync):
         lib_ms = None
         if on_card:
             w8 = library_weights(pt)
+            if n % 8:      # torch._int_mm takes N in multiples of 8
+                w8 = torch.nn.functional.pad(w8, (0, -n % 8))
             xl = x
             if b < LIB_ROWS:
                 xl = torch.zeros((LIB_ROWS, pt.k), dtype=torch.int8,
                                  device=x.device)
                 xl[:b] = x
-            need(torch.equal(torch._int_mm(xl, w8)[:b], want),
+            need(torch.equal(torch._int_mm(xl, w8)[:b, :n], want),
                  "library yardstick disagrees")
             lib_ms = time_ms(torch, lambda: torch._int_mm(xl, w8), flush)
             del w8
@@ -3220,6 +3264,430 @@ def fleet_group(ctx, rows: Rows, fleet: dict) -> dict:
     return {"fleet": fl}
 
 
+def serve_family(ctx, cfg: dict, arch: str, cache_dir: str, batch: int,
+                 extra=()) -> tuple:
+    """One family through the serving entry point (``serve.run``) at the
+    group's grid, prompts and budgets; returns (its result, the launches
+    it made)."""
+    from repro_torch.launch import serve
+    grid = cfg["grid"]
+    argv = ["--arch", arch, "--preset", cfg["preset"], "--pud-gemv",
+            "--calib-cache", cache_dir,
+            "--fleet-subarrays", str(grid["n_subarrays"]),
+            "--fleet-cols", str(grid["n_cols"]), "--batch", str(batch),
+            "--prompt-len", str(cfg["prompt"]), "--gen", str(cfg["gen"]),
+            "--seed", str(SEED), "--device", str(ctx.dev), *extra]
+    reset_counts(ctx.kernels)
+    res = serve.run(serve.parse_args(argv))
+    ctx.sync()
+    counts = read_counts(ctx.kernels)
+    s = res["session"]
+    need(s.placement_status == "planned" and res["packed"].placed,
+         f"{arch}: placement {s.placement_status}: {s.placement_error}")
+    need(counts["gemm_placed"] > 0 or not ctx.on_card,
+         f"{arch}: lockstep never launched gemm_placed")
+    need(counts["gemm"] == counts["gemv"] == 0,
+         f"{arch}: the placed path launched an unplaced kernel")
+    need(bool(ctx.torch.isfinite(res["logits"]).all()), f"{arch}: bad logits")
+    rep = s.placement.capacity_report()
+    print(f"  {arch}: {len(res['packed'].packed_names)} packs "
+          f"{list(res['packed'].packed_names)}; {rep['used_cols']:,} placed "
+          f"columns (occupancy {rep['occupancy']:.4f}); table "
+          f"{'HIT' if s.calibration.cache_hit else 'MISS'}; launches "
+          f"{counts}")
+    return res, counts, rep
+
+
+def kernels_equal_plain(ctx, label: str, model, packed_params, tokens,
+                        max_len: int, extras=None) -> None:
+    """The whole-model prefill through the kernels == the same packs
+    through the plain versions on the same device, bit for bit."""
+    torch = ctx.torch
+    ex = tuple((extras or {}).values())
+    with torch.inference_mode():
+        got, _ = model.prefill(packed_params, tokens, *ex, max_len=max_len)
+        want, _ = model.prefill(restamp(packed_params, "reference"), tokens,
+                                *ex, max_len=max_len)
+    ctx.sync()
+    need(torch.equal(got, want), f"{label}: prefill logits through the "
+         "kernels differ from the plain versions")
+    print(f"  {label}: prefill logits {list(got.shape)} through the kernels "
+          "== plain versions, bit for bit")
+
+
+def families_group(ctx, rows: Rows, cfg: dict) -> dict:
+    """The SSM, hybrid, encoder-decoder and VLM families (``FAMILIES``) on
+    one calibration cache: zamba2-7b (a table miss) at full width and
+    depth, mamba2-1.3b and whisper-large-v3 at full width and depth,
+    pixtral-12b at full width with ``pixtral_layers`` layers (each a table
+    hit and a new placement); then the placed GEMM / GEMV at their
+    shapes."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.core.calibrate import CalibrationConfig
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.core.rng import generator
+    from repro_torch.kernels import placed_gemm
+    from repro_torch.launch import serve
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.pud.gemv import FFN_PACKABLE, PUDGemvConfig
+    from repro_torch.runtime.engine import Request, ServingEngine
+    from repro_torch.runtime.session import PUDSession
+
+    torch, dev, on_card, sync = ctx.torch, ctx.dev, ctx.on_card, ctx.sync
+    kernels = ctx.kernels
+    full = cfg["preset"] == "full"
+    b, gen, prompt = cfg["batch"], cfg["gen"], cfg["prompt"]
+    cache = tempfile.TemporaryDirectory(prefix="pud-families-")
+    launches = dict.fromkeys(kernels, 0)
+    keep, out = {}, {}
+    card = card_line() if on_card else "the CPU (rehearsal)"
+
+    def count(c):
+        for k, v in c.items():
+            launches[k] += v
+
+    def peak():
+        return (torch.cuda.max_memory_allocated() / 2**30 if on_card
+                else None)
+
+    def expect_cols(arch, rep):
+        want = cfg["placed_cols"][arch]
+        need(not full or rep["used_cols"] == want,
+             f"{arch}: {rep['used_cols']} placed columns, expected {want}")
+
+    # -- (a) zamba2-7b: the slice's full-width path --------------------------
+    arch = "zamba2-7b"
+    phase(f"families: {arch} ({cfg['preset']}) through serve --pud-gemv "
+          f"--pud-attention --engine, a calibration miss on a "
+          f"{cfg['grid']['n_subarrays']} x {cfg['grid']['n_cols']:,} grid")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, c, rep = serve_family(ctx, cfg, arch, cache.name, b,
+                               ["--pud-attention", "--engine"])
+    count(c)
+    model, packed, session = res["model"], res["packed"], res["session"]
+    mc = model.cfg
+    need(not session.calibration.cache_hit, "a fresh cache reported a hit")
+    need(c["calib_iter"] > 0 or not on_card,
+         "the calibration never launched calib_iter")
+    need("engine" not in res, "the engine served the hybrid")
+    expect_cols(arch, rep)
+    print(f"  {param_count(model.param_defs()):,} parameters ({mc.n_blocks} "
+          f"blocks: {mc.n_shared_uses} shared-attention uses x "
+          f"{mc.mamba_per_segment} Mamba2 + {mc.n_tail}; d {mc.d_model}, "
+          f"{mc.n_heads} heads, d_ff {mc.d_ff}, d_state {mc.d_state}, vocab "
+          f"{mc.vocab}); calibration {session.calibration.wall_s:.3f}s, mean "
+          f"ECR {session.calibration.mean_ecr:.4f}; serve wall "
+          f"{time.perf_counter() - t0:.2f}s; the engine refused the hybrid "
+          "(the reference's engine fails on it)")
+    kernels_equal_plain(ctx, arch, model, packed.params, res["tokens"],
+                        res["max_len"])
+    phase(f"{arch}: one batch-1 request (placed GEMV decode), then the "
+          f"placed launches of one batch-{b} decode step")
+    reset_counts(kernels)
+    one, _ = serve.greedy_generate(model, packed.params, res["tokens"][:1],
+                                   gen, res["max_len"])
+    sync()
+    c1 = read_counts(kernels)
+    count(c1)
+    need(c1["gemv_placed"] > 0 or not on_card,
+         "batch-1 decode never launched gemv_placed")
+    need(tuple(one.shape) == (1, gen), "bad batch-1 tokens")
+    with torch.inference_mode():
+        lg, kv = model.prefill(packed.params, res["tokens"],
+                               max_len=res["max_len"])
+        nxt = torch.argmax(lg, dim=-1).to(torch.int32)[:, None]
+        sync()
+        reset_counts(kernels)
+        model.decode_step(packed.params, kv, nxt, prompt)
+        sync()
+        per_step = read_counts(kernels)["gemm_placed"]
+    want_step = 4 * mc.n_shared_uses + 1
+    need(per_step == want_step or not on_card,
+         f"{per_step} placed GEMM launches per step, expected {want_step}")
+    print(f"  batch-1 launches {c1}; {per_step} placed GEMM launches per "
+          f"batch-{b} step ({mc.n_shared_uses} uses x 4 attention "
+          f"projections + the unembed); on {card}")
+    del lg, kv
+    phase(f"profile: one batch-{b} {arch} decode step")
+    z_prof = profile_step(torch, model, packed.params, res["tokens"],
+                          res["max_len"], sync)
+    z_peak = peak()
+    print(f"  {arch} decode step measured on {card}")
+    out["zamba"] = dict(placed_cols=rep["used_cols"],
+                        occupancy=rep["occupancy"], per_step=per_step,
+                        profile=z_prof, peak_gib=z_peak,
+                        calib_wall_s=session.calibration.wall_s,
+                        mean_ecr=session.calibration.mean_ecr,
+                        agreement=res["agreement"])
+    keep["z_un"] = packed.tensor("unembed/w")
+    keep["z_wq"] = packed.tensor("shared/attn/wq")
+    print(f"  peak device memory "
+          + (f"{z_peak:.2f} GiB" if z_peak is not None else "not measured"))
+    del res, model, packed, session, one
+    free(ctx)
+
+    # -- (b) mamba2-1.3b -----------------------------------------------------
+    arch = "mamba2-1.3b"
+    phase(f"families: {arch} ({cfg['preset']}) through serve --pud-gemv "
+          f"--engine: {b} requests on {cfg['slots']} slots")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    res, c, rep = serve_family(
+        ctx, cfg, arch, cache.name, b,
+        ["--engine", "--batch-size", str(cfg["slots"])])
+    count(c)
+    model, packed, session = res["model"], res["packed"], res["session"]
+    mc = model.cfg
+    need(session.calibration.cache_hit, f"{arch} missed the table")
+    expect_cols(arch, rep)
+    need(res["engine_agreement"] == 1.0,
+         "the engine's tokens differ from lockstep's")
+    print(f"  {mc.n_layers} layers, d {mc.d_model}, d_state {mc.d_state}, "
+          f"{model.ssm.n_heads} SSM heads, vocab {mc.vocab}; engine == "
+          f"lockstep on {b} / {b} requests")
+    kernels_equal_plain(ctx, arch, model, packed.params, res["tokens"],
+                        res["max_len"])
+
+    phase(f"{arch}: engine, {cfg['requests']} requests on {cfg['slots']} "
+          "slots, against lockstep in batches of the slot count")
+    g = generator(SEED, "mamba-prompts")
+    prompts = torch.randint(0, mc.vocab, (cfg["requests"], prompt),
+                            generator=g, dtype=torch.int32).to(dev)
+    reset_counts(kernels)
+    lock = [serve.greedy_generate(model, packed.params,
+                                  prompts[i:i + cfg["slots"]], gen,
+                                  res["max_len"])
+            for i in range(0, cfg["requests"], cfg["slots"])]
+    lock_toks = torch.cat([t for t, _ in lock]).tolist()
+    lock_logits = torch.cat([lg for _, lg in lock])
+    eng = session.serving_engine(model, max_len=res["max_len"],
+                                 batch_size=cfg["slots"],
+                                 collect_logits=True)
+    sync()
+    t0 = time.perf_counter()
+    comps = eng.run([Request(i, prompts[i], gen)
+                     for i in range(cfg["requests"])])
+    sync()
+    t_eng = time.perf_counter() - t0
+    count(read_counts(kernels))
+    erep = eng.scheduler_report()
+    same = [c_.tokens == lock_toks[c_.request_id] for c_ in comps]
+    for c_ in comps:
+        want = lock_toks[c_.request_id]
+        if c_.tokens != want:
+            first = next(i for i, (x, y) in enumerate(zip(c_.tokens, want))
+                         if x != y)
+            d = (c_.logits - lock_logits[c_.request_id, :gen]).abs()
+            print(f"    request {c_.request_id}: tokens differ from step "
+                  f"{first}; max |logit delta| per step "
+                  f"{d.amax(-1).tolist()}")
+    print(f"  {erep['generated_tokens']} tokens in {erep['steps']} steps, "
+          f"slot occupancy {erep['slot_occupancy']:.4f}, decode "
+          f"{erep['wall_tok_s']:.1f} tok/s ({t_eng:.2f}s wall); "
+          f"{sum(same)} / {len(comps)} requests equal to lockstep")
+    need(len(comps) == cfg["requests"] and all(same),
+         "the engine's tokens differ from lockstep's")
+    del eng, comps, lock, lock_logits
+
+    phase(f"{arch}: ragged engine run, kernels vs plain versions")
+    gr = generator(SEED, "mamba-ragged")
+    (p0, p1), (b0, b1) = cfg["ragged"]["prompt"], cfg["ragged"]["budget"]
+    n_r = cfg["ragged"]["n"]
+    lens = torch.randint(p0, p1 + 1, (n_r,), generator=gr).tolist()
+    budgets = torch.randint(b0, b1 + 1, (n_r,), generator=gr).tolist()
+    rreqs = [Request(i, torch.randint(0, model.cfg.vocab, (n,),
+                                      generator=gr, dtype=torch.int32), m)
+             for i, (n, m) in enumerate(zip(lens, budgets))]
+    eng_k = session.serving_engine(model, max_len=p1 + b1,
+                                   batch_size=cfg["slots"],
+                                   collect_logits=True)
+    eng_p = ServingEngine(model, restamp(packed.params, "reference"),
+                          session=session, max_len=p1 + b1,
+                          batch_size=cfg["slots"], collect_logits=True)
+    reset_counts(kernels)
+    got_r = eng_k.run(rreqs)
+    sync()
+    count(read_counts(kernels))
+    reset_counts(kernels)
+    want_r = eng_p.run(rreqs)
+    sync()
+    need(sum(read_counts(kernels).values()) == 0,
+         "the plain replay launched a kernel")
+    for g_, w_ in zip(got_r, want_r):
+        need(g_.tokens == w_.tokens and torch.equal(g_.logits, w_.logits),
+             f"request {g_.request_id}: kernels differ from plain versions")
+    rrep = eng_k.scheduler_report()
+    print(f"  {n_r} requests (prompts {lens}, budgets {budgets}), "
+          f"{rrep['generated_tokens']} tokens in {rrep['steps']} steps, "
+          f"{rrep['prefill_traces']} prefill shapes: tokens and logits "
+          "through the kernels == plain versions, bit for bit")
+    del eng_k, eng_p, got_r, want_r
+
+    phase(f"{arch}: the unplaced packs (--no-placement): plane_gemm "
+          "kernels at batch 4 and 1")
+    s_np = PUDSession.open(
+        arch, grid=FleetConfig(**cfg["grid"]), cache_dir=cache.name,
+        calib=CalibrationConfig(n_iterations=12, n_samples=256),
+        seed=SEED + 2, placement=False, device=dev)
+    need(s_np.calibrate().cache_hit, "the unplaced session missed")
+    pk_np = s_np.pack(res["params"], PUDGemvConfig(weight_bits=4,
+                                                   packable=FFN_PACKABLE),
+                      name=f"{arch}-{cfg['preset']}-logical")
+    need(not pk_np.placed, "the unplaced session placed its packs")
+    kernels_equal_plain(ctx, f"{arch} unplaced", model, pk_np.params,
+                        res["tokens"], res["max_len"])
+    reset_counts(kernels)
+    serve.greedy_generate(model, pk_np.params, res["tokens"], gen,
+                          res["max_len"])
+    serve.greedy_generate(model, pk_np.params, res["tokens"][:1], gen,
+                          res["max_len"])
+    sync()
+    c_np = read_counts(kernels)
+    count(c_np)
+    need((c_np["gemm"] > 0 and c_np["gemv"] > 0) or not on_card,
+         "the unplaced packs never launched plane_gemm's kernels")
+    need(c_np["gemm_placed"] == c_np["gemv_placed"] == 0,
+         "the unplaced packs launched a placed kernel")
+    print(f"  lockstep at batch {b} and 1 on logical columns: launches "
+          f"{c_np}")
+    phase(f"profile: one batch-{b} {arch} decode step")
+    m_prof = profile_step(torch, model, packed.params, res["tokens"],
+                          res["max_len"], sync)
+    m_peak = peak()
+    print(f"  {arch} decode step measured on {card}")
+    out["mamba"] = dict(placed_cols=rep["used_cols"],
+                        occupancy=rep["occupancy"], profile=m_prof,
+                        peak_gib=m_peak, engine_tok_s=erep["wall_tok_s"],
+                        engine_steps=erep["steps"],
+                        agreement=res["agreement"])
+    keep["m_un"] = packed.tensor("unembed/w")
+    del res, model, packed, session, s_np, pk_np
+    free(ctx)
+
+    # -- (c) whisper-large-v3 ------------------------------------------------
+    arch = "whisper-large-v3"
+    phase(f"families: {arch} ({cfg['preset']}) through serve --pud-gemv "
+          "--pud-attention --engine (the encoder's attention packed)")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    res, c, rep = serve_family(ctx, cfg, arch, cache.name, b,
+                               ["--pud-attention", "--engine"])
+    count(c)
+    model, packed, session = res["model"], res["packed"], res["session"]
+    mc = model.cfg
+    need(session.calibration.cache_hit, f"{arch} missed the table")
+    need("engine" not in res, "the engine served the encoder-decoder")
+    expect_cols(arch, rep)
+    print(f"  {mc.n_enc_layers} + {mc.n_dec_layers} layers, d "
+          f"{mc.d_model}, {mc.n_heads} heads, d_ff {mc.d_ff}, vocab "
+          f"{mc.vocab}, {mc.n_frames} frames; the encoder's wq / wk / wv / "
+          f"wo run at {b} x {mc.n_frames} rows; engine skipped (as the "
+          "reference)")
+    kernels_equal_plain(ctx, arch, model, packed.params, res["tokens"],
+                        res["max_len"], res["frontend"])
+    w_peak = peak()
+    out["whisper"] = dict(placed_cols=rep["used_cols"],
+                          occupancy=rep["occupancy"], peak_gib=w_peak,
+                          agreement=res["agreement"],
+                          pud_wall_s=res["wall_s"]["pud"])
+    keep["w_wq"] = packed.tensor("enc_layers/attn/wq").layer(0)
+    keep["w_un"] = packed.tensor("unembed/w")
+    keep["w_rows"] = b * mc.n_frames
+    del res, model, packed, session
+    free(ctx)
+
+    # -- (d) pixtral-12b, depth cut ------------------------------------------
+    arch = "pixtral-12b"
+    spec = get(arch)
+    model = spec.make_model() if full else spec.make_smoke()
+    lm = dataclasses.replace(model.cfg.lm, n_layers=min(
+        cfg["pixtral_layers"], model.cfg.lm.n_layers))
+    model = type(model)(dataclasses.replace(model.cfg, lm=lm))
+    phase(f"families: {arch} ({cfg['preset']}, {lm.n_layers} of "
+          f"{spec.make_model().cfg.lm.n_layers} layers): placed FFN + "
+          "unembed, the patch prefix")
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = init_params(model.param_defs(), SEED, dev)
+    session = PUDSession.open(
+        arch, grid=FleetConfig(**cfg["grid"]), cache_dir=cache.name,
+        calib=CalibrationConfig(n_iterations=12, n_samples=256),
+        seed=SEED + 2, device=dev)
+    need(session.calibrate().cache_hit, f"{arch} missed the table")
+    packed = session.pack(params, PUDGemvConfig(weight_bits=4,
+                                                packable=FFN_PACKABLE),
+                          name=f"{arch}-{cfg['preset']}-{lm.n_layers}l")
+    need(session.placement_status == "planned" and packed.placed,
+         f"placement {session.placement_status}: {session.placement_error}")
+    rep = session.placement.capacity_report()
+    expect_cols(arch, rep)
+    tokens = torch.randint(0, lm.vocab, (b, prompt),
+                           generator=generator(SEED + 1, "prompt",
+                                               device=dev),
+                           device=dev, dtype=torch.int32)
+    extras, prefix = serve.frontend_extras(model, spec.family, b, SEED + 1,
+                                           dev)
+    max_len = prompt + gen + 1 + prefix
+    print(f"  {param_count(model.param_defs()):,} parameters (d "
+          f"{lm.d_model}, d_ff {lm.d_ff}, vocab {lm.vocab}, "
+          f"{model.cfg.n_patches} patches of d_vit {model.cfg.d_vit}); "
+          f"{len(packed.packed_names)} packs, {rep['used_cols']:,} placed "
+          f"columns (occupancy {rep['occupancy']:.4f})")
+    kernels_equal_plain(ctx, arch, model, packed.params, tokens, max_len,
+                        extras)
+    phase(f"{arch}: lockstep greedy decode after the {prefix}-patch prefix")
+    with torch.inference_mode():
+        _, kv = model.prefill(packed.params, tokens, *extras.values(),
+                              max_len=max_len)
+        k0 = kv[next(iter(kv))]["k"][0]            # layer 0 [B, max_len, ..]
+        filled = k0.abs().flatten(2).amax(-1) > 0      # [B, max_len]
+        need(bool(filled[:, :prefix + prompt].all())
+             and not bool(filled[:, prefix + prompt:].any()),
+             "the prefill did not fill exactly patches + prompt rows")
+    reset_counts(kernels)
+    toks, logits = serve.greedy_generate(model, packed.params, tokens, gen,
+                                         max_len, extras, prefix)
+    sync()
+    c = read_counts(kernels)
+    count(c)
+    need(c["gemm_placed"] > 0 or not on_card,
+         "lockstep never launched gemm_placed")
+    need(tuple(toks.shape) == (b, gen) and bool(torch.isfinite(logits).all())
+         and int(toks.max()) < lm.vocab, "bad lockstep tokens or logits")
+    print(f"  cache rows [0, {prefix + prompt}) filled by the prefill "
+          f"(patches + prompt), decode from position {prefix + prompt}; "
+          f"{b * gen} tokens, launches {c}")
+    p_peak = peak()
+    out["pixtral"] = dict(placed_cols=rep["used_cols"], layers=lm.n_layers,
+                          occupancy=rep["occupancy"], peak_gib=p_peak)
+    keep["p_wi"] = packed.tensor("layers_0_dense/mixer/wi").layer(0)
+    del params, packed, session, model, kv, toks, logits
+    free(ctx)
+    cache.cleanup()
+
+    phase("kernels vs plain versions at the families' shapes")
+    gp = (placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain)
+    rows.add("calib_iter", launches["calib_iter"])
+    rows.add("gemm", launches["gemm"])
+    rows.add("gemv", launches["gemv"])
+    rows.add("gemm_placed", launches["gemm_placed"],
+             [ctx.gemm_row(*gp, keep["z_un"], b),
+              ctx.gemm_row(*gp, keep["z_wq"], b),
+              ctx.gemm_row(*gp, keep["w_wq"], keep["w_rows"]),
+              ctx.gemm_row(*gp, keep["w_un"], b),
+              ctx.gemm_row(*gp, keep["p_wi"], b)])
+    rows.add("gemv_placed", launches["gemv_placed"],
+             [ctx.gemm_row(placed_gemm.gemv_placed,
+                           placed_gemm.gemv_placed_plain, keep["m_un"], 1)])
+    out["launches"] = launches
+    print(f"  families launches {launches}; kernel rows on {card}")
+    return {"families": out}
+
+
 def free(ctx) -> None:
     """Drop what the last group left, so the next one has the card."""
     gc.collect()
@@ -3236,7 +3704,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         monitor: dict = MONITOR,
         figures: dict = FIGURES, tune_batches=TUNE_BATCHES,
         weight_bits: int = WEIGHT_BITS, fleet: dict = FLEET,
-        only=None) -> dict:
+        families: dict = FAMILIES, only=None) -> dict:
     """The groups of phases (``GROUPS``, all of them unless ``only`` names
     some) on ``dev``.  ``main`` runs them all on the GPU at full width; a
     CPU rehearsal (``dev`` cpu, smoke preset, small grids and Table-I
@@ -3290,6 +3758,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         "gemma": lambda: gemma_group(ctx, rows, gemma),
         "deepseek": lambda: deepseek_group(ctx, rows, deepseek),
         "fleet": lambda: fleet_group(ctx, rows, fleet),
+        "families": lambda: families_group(ctx, rows, families),
     }
     for g in groups:
         out.update(drive[g]())

@@ -1,3 +1,3 @@
-"""Architecture configs of the port: the dense GQA family (qwen3-1.7b,
-gemma-7b, deepseek-67b, granite-8b)."""
+"""Architecture configs of the port: the reference's ten archs, in its
+dense, MoE, VLM, encoder-decoder, hybrid and SSM families."""
 from .registry import ArchSpec, all_archs, get  # noqa: F401

@@ -1,13 +1,19 @@
-"""Ported architectures, with the reference's full and smoke configs
+"""The reference's ten architectures, with its full and smoke configs
 (``repro/configs/archs.py``): the MoE family, deepseek-v2-lite-16b (MLA)
-and llama4-scout-17b-a16e, and the dense GQA family, qwen3-1.7b, gemma-7b,
-deepseek-67b and granite-8b.  The port's ``LMConfig`` has no
-``loss_chunk`` (no training path), so the smoke configs leave it out."""
+and llama4-scout-17b-a16e; the dense GQA family, qwen3-1.7b, gemma-7b,
+deepseek-67b and granite-8b; the VLM pixtral-12b, the encoder-decoder
+whisper-large-v3, the hybrid zamba2-7b and the SSM mamba2-1.3b.  The
+port's configs have no ``loss_chunk`` or ``remat`` (no training path), so
+the smoke configs leave them out."""
 from __future__ import annotations
 
+from repro_torch.models.encdec import EncDecConfig, EncDecLM
+from repro_torch.models.hybrid import HybridConfig, HybridLM
+from repro_torch.models.multimodal import VLM, VLMConfig
+from repro_torch.models.ssm_lm import SSMLM, SSMLMConfig
 from repro_torch.models.transformer import LMConfig, TransformerLM
 
-from .registry import ArchSpec, register
+from .registry import ALL_SHAPES, QUADRATIC_SHAPES, ArchSpec, register
 
 # --- deepseek-v2-lite-16b [moe, MLA] [arXiv:2405.04434] ---------------------
 
@@ -109,4 +115,78 @@ register(ArchSpec(
         name="smoke", n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
         d_ff=160, vocab=256, head_dim=8)),
     n_params=8.3e9, n_active_params=8.3e9,
+))
+
+
+# --- pixtral-12b [vlm] --------------------------------------------------------
+
+register(ArchSpec(
+    arch_id="pixtral-12b",
+    family="vlm",
+    make_model=lambda: VLM(VLMConfig(lm=LMConfig(
+        name="pixtral-12b", n_layers=40, d_model=5120, n_heads=32,
+        n_kv_heads=8, d_ff=14336, vocab=131072, head_dim=128,
+        rope_theta=1e9), n_patches=256, d_vit=1024)),
+    make_smoke=lambda: VLM(VLMConfig(lm=LMConfig(
+        name="smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+        d_ff=128, vocab=256, head_dim=16), n_patches=8, d_vit=32)),
+    shapes=QUADRATIC_SHAPES,
+    n_params=12.3e9, n_active_params=12.3e9,
+    notes="ViT frontend stubbed: the caller gives [B, 256, 1024] patch "
+          "embeddings; projector + text backbone implemented",
+))
+
+
+# --- whisper-large-v3 [audio, enc-dec] [arXiv:2212.04356] --------------------
+
+register(ArchSpec(
+    arch_id="whisper-large-v3",
+    family="encdec",
+    make_model=lambda: EncDecLM(EncDecConfig(
+        name="whisper-large-v3", n_enc_layers=32, n_dec_layers=32,
+        d_model=1280, n_heads=20, n_kv_heads=20, d_ff=5120, vocab=51866,
+        n_frames=1500)),
+    make_smoke=lambda: EncDecLM(EncDecConfig(
+        name="smoke", n_enc_layers=2, n_dec_layers=2, d_model=64, n_heads=4,
+        n_kv_heads=4, d_ff=128, vocab=256, n_frames=16)),
+    shapes=QUADRATIC_SHAPES,
+    n_params=1.6e9, n_active_params=1.6e9,
+    notes="conv/mel frontend stubbed: the caller gives [B, 1500, 1280] "
+          "frame embeddings; enc-dec (not encoder-only) so decode runs",
+))
+
+
+# --- zamba2-7b [hybrid] [arXiv:2411.15242] ------------------------------------
+
+register(ArchSpec(
+    arch_id="zamba2-7b",
+    family="hybrid",
+    make_model=lambda: HybridLM(HybridConfig(
+        name="zamba2-7b", n_blocks=81, shared_every=6, d_model=3584,
+        n_heads=32, n_kv_heads=32, d_ff=14336, vocab=32000, d_state=64)),
+    make_smoke=lambda: HybridLM(HybridConfig(
+        name="smoke", n_blocks=12, shared_every=4, d_model=64, n_heads=4,
+        n_kv_heads=4, d_ff=128, vocab=256, d_state=16, ssm_head_dim=16,
+        lora_rank=8, ssd_chunk=16)),
+    shapes=ALL_SHAPES,
+    n_params=5.9e9, n_active_params=5.9e9,
+    notes="Mamba2 backbone + shared attn block every 6th position with "
+          "per-occurrence FFN LoRA; sub-quadratic decode -> runs long_500k",
+))
+
+
+# --- mamba2-1.3b [ssm, SSD] [arXiv:2405.21060] --------------------------------
+
+register(ArchSpec(
+    arch_id="mamba2-1.3b",
+    family="ssm",
+    make_model=lambda: SSMLM(SSMLMConfig(
+        name="mamba2-1.3b", n_layers=48, d_model=2048, d_state=128,
+        vocab=50280)),
+    make_smoke=lambda: SSMLM(SSMLMConfig(
+        name="smoke", n_layers=3, d_model=64, d_state=16, vocab=256,
+        head_dim=16, ssd_chunk=16)),
+    shapes=ALL_SHAPES,
+    n_params=1.44e9, n_active_params=1.44e9,
+    notes="attention-free SSD; O(1) decode state -> runs long_500k",
 ))

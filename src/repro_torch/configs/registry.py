@@ -7,12 +7,20 @@ import dataclasses
 from typing import Any, Callable
 
 
+#: The reference's shape cells by name (its dry-run grid is not ported):
+#: long_500k applies only to the sub-quadratic-decode families (ssm,
+#: hybrid).
+ALL_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+QUADRATIC_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+
+
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     arch_id: str
     family: str
     make_model: Callable[[], Any]
     make_smoke: Callable[[], Any]
+    shapes: tuple[str, ...] = QUADRATIC_SHAPES
     # approximate parameter counts (total, active)
     n_params: float = 0.0
     n_active_params: float = 0.0

@@ -1,13 +1,23 @@
 """Batched serving driver: prefill + greedy decode, optional PUD GEMM path
 and continuous-batching engine (port of ``repro/launch/serve.py``: the
 ``--pud-gemv --calib-cache [--no-placement] [--engine]`` paths and the
-engine's scheduler flags).
+engine's scheduler flags) for every family of the registry.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
         --preset full --pud-gemv --calib-cache DIR \
         --fleet-subarrays 16 --fleet-cols 65536 [--no-placement] [--engine]
     # gemma-7b needs 1,718,272 placed columns: --fleet-subarrays 32;
-    # deepseek-v2-lite-16b 326,016 (MoE: whole-prompt prefill only)
+    # deepseek-v2-lite-16b 326,016 (MoE: whole-prompt prefill only);
+    # zamba2-7b 46,336 with --pud-attention, mamba2-1.3b 50,280,
+    # whisper-large-v3 215,706 with --pud-attention, pixtral-12b 1,482,752
+
+The VLM (pixtral) and the encoder-decoder (whisper) draw their stub
+frontends' inputs from the seed (patch / frame embeddings, 0.1 x N(0, 1)
+in bf16); the VLM's cache spans its patches too, so decode positions start
+after them.  As in the reference, ``--engine`` and ``--mesh`` skip those
+two families with a message; the hybrid's engine is refused (its cache
+has the batch on axis 2), and the SSM and hybrid are not served on a
+mesh yet.
 
 The driver decodes the batch once through the bf16 weights, then, with
 ``--pud-gemv``, opens a ``PUDSession``: calibration (a cached table, or
@@ -58,6 +68,7 @@ from repro_torch.core.rng import generator
 from repro_torch.devices import resolve_device
 from repro_torch.models.params import init_params, param_count
 from repro_torch.pud.gemv import ATTN_PACKABLE, FFN_PACKABLE, PUDGemvConfig
+from repro_torch.runtime.engine import engine_refusal
 from repro_torch.runtime.steps import make_serve_step
 
 #: The seed of the model weights, prompts and device when the caller gives
@@ -67,15 +78,21 @@ DEFAULT_SEED = 0
 
 @torch.inference_mode()
 def greedy_generate(model, params, tokens: torch.Tensor, gen: int,
-                    max_len: int):
+                    max_len: int, extras: dict | None = None,
+                    prefix_len: int = 0):
     """Prefill then ``gen`` greedy steps.
 
-    Returns (tokens [B, gen] int32, logits [B, gen + 1, V] float32): the
-    logits of the prefill and of every decode step.
+    ``extras``: the stub frontends' embeddings, passed to the prefill after
+    the tokens (the VLM's ``{"patches": ...}``, the encoder-decoder's
+    ``{"frames": ...}``); ``prefix_len``: positions before the prompt in
+    the cache (the VLM's patch prefix), so decode positions start at
+    prompt + prefix.  Returns (tokens [B, gen] int32, logits [B, gen + 1,
+    V] float32): the logits of the prefill and of every decode step.
     """
     step = make_serve_step(model)
-    logits, cache = model.prefill(params, tokens, max_len=max_len)
-    cur = tokens.shape[1]
+    logits, cache = model.prefill(params, tokens, *(extras or {}).values(),
+                                  max_len=max_len)
+    cur = tokens.shape[1] + prefix_len
     nxt = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
     out, all_logits = [], [logits]
     for i in range(gen):
@@ -83,6 +100,26 @@ def greedy_generate(model, params, tokens: torch.Tensor, gen: int,
         nxt, logits, cache = step(params, cache, nxt, cur + i)
         all_logits.append(logits)
     return torch.cat(out, dim=1), torch.stack(all_logits, dim=1)
+
+
+def frontend_extras(model, family: str, batch: int, seed: int,
+                    device) -> tuple[dict, int]:
+    """The stub frontends' inputs drawn from the seed, as the reference's
+    serve draws them (0.1 x a standard normal, bf16): (extras, prefix
+    length in the cache).  The VLM gets ``patches`` [batch, n_patches,
+    d_vit] and a prefix of n_patches; the encoder-decoder ``frames``
+    [batch, n_frames, d_model]; the other families nothing."""
+    c = model.cfg
+    if family == "vlm":
+        shape, name, prefix = (batch, c.n_patches, c.d_vit), "patches", \
+            c.n_patches
+    elif family == "encdec":
+        shape, name, prefix = (batch, c.n_frames, c.d_model), "frames", 0
+    else:
+        return {}, 0
+    x = torch.randn(shape, generator=generator(seed, name, device=device),
+                    device=device)
+    return {name: (0.1 * x).to(torch.bfloat16)}, prefix
 
 
 def _sync(device: torch.device) -> None:
@@ -214,22 +251,34 @@ def run(args: argparse.Namespace) -> dict:
           f"{param_count(model.param_defs()):,} params) on {device} "
           f"batch={args.batch} prompt={args.prompt_len} gen={args.gen} "
           f"(init {t_init:.2f}s)")
-    tokens = torch.randint(0, model.cfg.vocab, (args.batch, args.prompt_len),
+    vocab = getattr(model.cfg, "lm", model.cfg).vocab
+    tokens = torch.randint(0, vocab, (args.batch, args.prompt_len),
                            generator=generator(args.seed + 1, "prompt",
                                                device=device),
                            device=device, dtype=torch.int32)
     max_len = args.prompt_len + args.gen + 1
+    extras, prefix_len = frontend_extras(model, spec.family, args.batch,
+                                         args.seed + 1, device)
+    max_len += prefix_len          # the VLM's cache spans patches + text
     (ref_toks, ref_logits), t_ref = _timed(
-        device, greedy_generate, model, params, tokens, args.gen, max_len)
+        device, greedy_generate, model, params, tokens, args.gen, max_len,
+        extras, prefix_len)
     print(f"  bf16 path: {args.batch * args.gen} tokens in {t_ref:.2f}s "
           "wall")
     res = {"model": model, "params": params, "tokens": tokens,
-           "max_len": max_len, "ref_toks": ref_toks,
-           "ref_logits": ref_logits, "wall_s": {"init": t_init,
-                                                "bf16": t_ref}}
+           "max_len": max_len, "frontend": extras, "prefix_len": prefix_len,
+           "ref_toks": ref_toks, "ref_logits": ref_logits,
+           "wall_s": {"init": t_init, "bf16": t_ref}}
     if args.mesh:
-        _sharded_serve(args, spec, model, params, tokens, max_len, ref_toks,
-                       res)
+        if extras:
+            print("  fleet: vlm/encdec families not supported yet "
+                  "(extras require family-specific prefill); skipping")
+        elif spec.family in ("ssm", "hybrid"):
+            print(f"  fleet: the {spec.family} family is not served on a "
+                  "mesh in this port yet; skipping")
+        else:
+            _sharded_serve(args, spec, model, params, tokens, max_len,
+                           ref_toks, res)
         return res
     session = None
     serve_params, lock_toks = params, ref_toks
@@ -238,6 +287,14 @@ def run(args: argparse.Namespace) -> dict:
                             ref_toks, ref_logits, res)
         serve_params, lock_toks = res["packed"].params, res["toks"]
     if args.engine:
+        if extras:
+            print("  engine: vlm/encdec families not supported yet "
+                  "(extras require family-specific prefill); skipping")
+            return res
+        refusal = engine_refusal(model)
+        if refusal is not None:
+            print(f"  engine: {refusal}; skipping")
+            return res
         _engine_path(args, spec, model, serve_params, session, tokens,
                      max_len, lock_toks, res)
     return res
@@ -324,7 +381,7 @@ def _pud_path(args, spec, model, params, tokens, max_len, ref_toks,
     extras = session.decode_extras()
     (toks, logits), t_pud = _timed(
         device, greedy_generate, model, packed.params, tokens, args.gen,
-        max_len)
+        max_len, res["frontend"], res["prefix_len"])
     agree = float((toks == ref_toks).float().mean())
     delta = float((logits - ref_logits).abs().max())
     print(f"  pud-gemv path ({cfg.weight_bits}-bit planes, "

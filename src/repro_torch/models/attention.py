@@ -1,8 +1,10 @@
 """Attention: GQA and MLA (DeepSeek's multi-head latent attention), each
 full-sequence (chunked softmax), one prefill chunk resumed into a cache,
 and one-token decode against a cache, at one position for all rows or at a
-position per row (port of ``repro/models/attention.py``; the encoder's
-cross-attention is not ported yet).
+position per row; and the encoder-decoder's attention: a non-causal pass
+over keys and values given from outside (``kv_override``), the encoder's
+K/V (``encoder_kv``), and cross-attention decode against a static cache
+(port of ``repro/models/attention.py``).
 
 Layouts are the reference's: q/k/v [B, S, H, Dh], caches [B, Smax, KV, Dh]
 (MLA: the latents ckv [B, Smax, R] and kr [B, Smax, dr]), weights wq/wk/wv
@@ -117,22 +119,41 @@ def _flash(q, k, v, *, causal: bool, kv_chunk: int, q_offset: int = 0):
 
 
 def gqa_attention(p, cfg: AttnConfig, x: torch.Tensor,
-                  positions: torch.Tensor):
-    """Full-sequence causal attention (prefill). x: [B, S, D].
+                  positions: torch.Tensor, kv_override=None):
+    """Full-sequence attention (prefill). x: [B, S, D].
 
     Returns (out [B, S, D], (k, v)) with k, v [B, S, KV, Dh] for the cache.
+    ``kv_override``: (k, v) [B, Skv, KV, Dh] from an encoder
+    (``encoder_kv``): q is neither roped nor masked, and the (k, v)
+    returned are the override's.  The reference pads heads only on a
+    model-sharded mesh; on one device its result is this one.
     """
     q = head_proj(p, "wq", x, cfg.n_heads, cfg.head_dim)
-    k = head_proj(p, "wk", x, cfg.n_kv_heads, cfg.head_dim)
-    v = head_proj(p, "wv", x, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q)
-        k = rmsnorm(p["k_norm"], k)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
-    out = _flash(q, k, v, causal=cfg.causal,
+    if kv_override is None:
+        k = head_proj(p, "wk", x, cfg.n_kv_heads, cfg.head_dim)
+        v = head_proj(p, "wv", x, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rmsnorm(p["q_norm"], q)
+            k = rmsnorm(p["k_norm"], k)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        causal = cfg.causal
+    else:
+        k, v = kv_override
+        if cfg.qk_norm:
+            q = rmsnorm(p["q_norm"], q)
+        causal = False
+    out = _flash(q, k, v, causal=causal,
                  kv_chunk=min(cfg.kv_chunk, k.shape[1]))
     return merge_proj(p, "wo", out), (k, v)
+
+
+def encoder_kv(p, cfg: AttnConfig, memory: torch.Tensor):
+    """Cross-attention K/V [B, Sm, KV, Dh] of encoder output memory [B, Sm,
+    D]: projected, neither normalised nor roped."""
+    k = head_proj(p, "wk", memory, cfg.n_kv_heads, cfg.head_dim)
+    v = head_proj(p, "wv", memory, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
 
 
 def gqa_prefill_chunk(p, cfg: AttnConfig, x: torch.Tensor,
@@ -185,8 +206,8 @@ def _write_rows(cache: torch.Tensor, lens: torch.Tensor,
 
 
 def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
-               cache_v: torch.Tensor,
-               cur_len: "int | torch.Tensor") -> torch.Tensor:
+               cache_v: torch.Tensor, cur_len: "int | torch.Tensor",
+               cross: bool = False) -> torch.Tensor:
     """One-token decode. x: [B, 1, D]; cache_k/v: [B, Smax, KV, Dh].
 
     ``cur_len`` is the cache fill: an int (all rows at that position) or a
@@ -194,7 +215,9 @@ def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
     its own position, with a per-row RoPE, cache write and causal mask).
     Rows are independent either way.  The new key/value row is written into
     the caches in place; a row whose length is already ``Smax`` writes
-    nothing (the reference drops that write).  Returns out [B, 1, D].
+    nothing (the reference drops that write).  ``cross``: the caches hold
+    an encoder's K/V: q is not roped, nothing is written and every one of
+    the ``Smax`` rows is attended.  Returns out [B, 1, D].
     """
     b, smax = cache_k.shape[0], cache_k.shape[1]
     per_slot = isinstance(cur_len, torch.Tensor) and cur_len.dim() == 1
@@ -203,35 +226,40 @@ def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
     else:
         cur_len = int(cur_len)
     q = head_proj(p, "wq", x, cfg.n_heads, cfg.head_dim)
-    k_new = head_proj(p, "wk", x, cfg.n_kv_heads, cfg.head_dim)
-    v_new = head_proj(p, "wv", x, cfg.n_kv_heads, cfg.head_dim)
-    if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q)
-        k_new = rmsnorm(p["k_norm"], k_new)
-    pos = (lens[:, None] if per_slot else
-           torch.full((b, 1), cur_len, dtype=torch.int64, device=x.device))
-    q = rope(q, pos, cfg.rope_theta)
-    k_new = rope(k_new, pos, cfg.rope_theta)
-    if per_slot:
-        _write_rows(cache_k, lens, k_new[:, 0])
-        _write_rows(cache_v, lens, v_new[:, 0])
-        valid = lens + 1
+    if cross:
+        if cfg.qk_norm:
+            q = rmsnorm(p["q_norm"], q)
+        mask = None
     else:
-        cache_k[:, cur_len:cur_len + 1] = k_new.to(cache_k.dtype)
-        cache_v[:, cur_len:cur_len + 1] = v_new.to(cache_v.dtype)
+        k_new = head_proj(p, "wk", x, cfg.n_kv_heads, cfg.head_dim)
+        v_new = head_proj(p, "wv", x, cfg.n_kv_heads, cfg.head_dim)
+        if cfg.qk_norm:
+            q = rmsnorm(p["q_norm"], q)
+            k_new = rmsnorm(p["k_norm"], k_new)
+        pos = (lens[:, None] if per_slot else
+               torch.full((b, 1), cur_len, dtype=torch.int64,
+                          device=x.device))
+        q = rope(q, pos, cfg.rope_theta)
+        k_new = rope(k_new, pos, cfg.rope_theta)
+        if per_slot:
+            _write_rows(cache_k, lens, k_new[:, 0])
+            _write_rows(cache_v, lens, v_new[:, 0])
+            mask = (torch.arange(smax, device=x.device)[None, :]
+                    < (lens + 1)[:, None])[:, None, None, :]
+        else:
+            cache_k[:, cur_len:cur_len + 1] = k_new.to(cache_k.dtype)
+            cache_v[:, cur_len:cur_len + 1] = v_new.to(cache_v.dtype)
+            mask = (torch.arange(smax, device=x.device)
+                    < cur_len + 1)[None, None, None, :]
     h, kvh, d = q.shape[2], cache_k.shape[2], q.shape[3]
     g = h // kvh
     qr = q.reshape(b, kvh, g, d).to(torch.float32)
     scale = torch.tensor(d ** -0.5, dtype=torch.float32, device=x.device)
     s = torch.einsum("bkgd,bpkd->bkgp", qr,
                      cache_k.to(torch.float32)) * scale
-    if per_slot:
-        mask = (torch.arange(smax, device=x.device)[None, :]
-                < valid[:, None])[:, None, None, :]
-    else:
-        mask = (torch.arange(smax, device=x.device)
-                < cur_len + 1)[None, None, None, :]
-    s = torch.where(mask, s, torch.tensor(float("-inf"), device=x.device))
+    if mask is not None:
+        s = torch.where(mask, s,
+                        torch.tensor(float("-inf"), device=x.device))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgp,bpkd->bkgd",
                      w.to(cache_v.dtype).to(torch.float32),

@@ -35,6 +35,16 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """Softplus in the reference's operation order (``jax.nn.softplus`` is
+    ``logaddexp(x, 0)``: ``max(x, 0) + log1p(exp(-|x|))``, a NaN passed
+    through), in x's dtype.  ``F.softplus`` returns x itself above its
+    threshold of 20 and computes ``log1p(exp(x))`` below it, which rounds
+    differently."""
+    out = torch.clamp(x, min=0) + torch.log1p(torch.exp(-x.abs()))
+    return torch.where(torch.isnan(x), x, out)
+
+
 ACT = {
     "silu": silu,
     "gelu": gelu_tanh,

@@ -1,0 +1,140 @@
+"""Attention-free SSM language model, the mamba2-1.3b family (port of
+``repro/models/ssm_lm.py``; training is not ported yet).
+
+A stack of Mamba2 / SSD blocks with pre-RMSNorm residuals over stacked
+layer parameters, walked in a Python loop.  Decode carries a (conv
+window, SSM state) per layer: O(1) in the sequence length.  The cache is
+the flat tree ``{"conv": [L, B, W - 1, C], "state": [L, B, H, P, N]
+float32}``: the batch on axis 1, as the serving engine needs, but no
+sequence axis, so the engine's prefix cache (which keeps sequence rows)
+does not apply to it.  Prompts prefill whole, at their exact length.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from .layers import (embed, embed_defs, logits_last, rmsnorm, rmsnorm_defs,
+                     unembed_defs)
+from .params import ParamDef, stack_defs
+from .ssm import SSMConfig, mamba2_block, mamba2_decode, mamba2_defs
+from .transformer import layer_slice
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMLMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    d_state: int
+    vocab: int
+    d_inner: int | None = None
+    head_dim: int = 64
+    dtype: torch.dtype = torch.bfloat16
+    ssd_chunk: int = 128
+
+    def ssm_config(self) -> SSMConfig:
+        return SSMConfig(self.d_model, self.d_inner or 2 * self.d_model,
+                         self.d_state, self.head_dim, chunk=self.ssd_chunk)
+
+
+def mamba_cache_defs(s: SSMConfig, n: int, batch: int, dtype) -> dict:
+    """The (conv window, SSM state) cache of ``n`` stacked Mamba2 blocks."""
+    return {
+        "conv": ParamDef((n, batch, s.d_conv - 1, s.conv_channels),
+                         ("stack", "batch", None, "ssm"), dtype=dtype,
+                         init="zeros"),
+        "state": ParamDef((n, batch, s.n_heads, s.head_dim, s.d_state),
+                          ("stack", "batch", "ssm", None, None),
+                          dtype=torch.float32, init="zeros"),
+    }
+
+
+def mamba_stack_full(ssm: SSMConfig, stacked, h: torch.Tensor, n: int):
+    """``n`` pre-norm Mamba2 residual blocks over a full sequence.
+    Returns (h, conv tails [n, B, W - 1, C], final states [n, B, H, P,
+    N])."""
+    convs, states = [], []
+    for i in range(n):
+        lp = layer_slice(stacked, i)
+        out, (conv, state) = mamba2_block(lp["mamba"], ssm,
+                                          rmsnorm(lp["ln"], h))
+        h = h + out
+        convs.append(conv)
+        states.append(state)
+    return h, torch.stack(convs), torch.stack(states)
+
+
+def mamba_stack_decode(ssm: SSMConfig, stacked, h: torch.Tensor,
+                       cache: dict, n: int) -> torch.Tensor:
+    """``n`` Mamba2 residual blocks on one token; the blocks' windows and
+    states in ``cache`` (``{"conv", "state"}``, leading axis n) are
+    replaced in place."""
+    for i in range(n):
+        lp = layer_slice(stacked, i)
+        out, (conv, state) = mamba2_decode(
+            lp["mamba"], ssm, rmsnorm(lp["ln"], h),
+            (cache["conv"][i], cache["state"][i]))
+        h = h + out
+        cache["conv"][i] = conv
+        cache["state"][i] = state
+    return h
+
+
+class SSMLM:
+    def __init__(self, cfg: SSMLMConfig):
+        self.cfg = cfg
+        self.ssm = cfg.ssm_config()
+
+    def param_defs(self) -> dict:
+        c = self.cfg
+        layer = {"ln": rmsnorm_defs(c.d_model),
+                 "mamba": mamba2_defs(self.ssm, c.dtype)}
+        return {
+            "embed": embed_defs(c.vocab, c.d_model, c.dtype),
+            "layers": stack_defs(layer, c.n_layers),
+            "final_norm": rmsnorm_defs(c.d_model),
+            "unembed": unembed_defs(c.d_model, c.vocab, c.dtype),
+        }
+
+    def cache_defs(self, batch: int, max_len: int) -> dict:
+        return mamba_cache_defs(self.ssm, self.cfg.n_layers, batch,
+                                self.cfg.dtype)
+
+    def prefill(self, params, tokens: torch.Tensor,
+                max_len: int | None = None):
+        """Process whole prompts: (logits [B, V] float32 of their last
+        position, cache).  ``max_len`` is accepted for the serving
+        protocol; the cache does not depend on it.
+
+        Each row runs the stack on its own, at batch 1, as the serving
+        engine prefills a request: a row's logits and cache then do not
+        depend on the batch.  On the GPU cuBLAS picks a bf16 GEMM's
+        algorithm, and with it the summation order, by the row count:
+        mamba2-1.3b's ``wo`` (K 4,096) over 4 x 32 rows rounds differently
+        from 32 rows on the H100, and the engine's tokens then leave
+        lockstep's."""
+        rows = []
+        for r in range(tokens.shape[0]):
+            h = embed(params["embed"], tokens[r:r + 1]).to(self.cfg.dtype)
+            h, conv, state = mamba_stack_full(self.ssm, params["layers"], h,
+                                              self.cfg.n_layers)
+            h = rmsnorm(params["final_norm"], h)
+            rows.append((logits_last(params["unembed"], h[:, -1]), conv,
+                         state))
+        logits, conv, state = zip(*rows)
+        return (torch.cat(logits),
+                {"conv": torch.cat(conv, dim=1),
+                 "state": torch.cat(state, dim=1)})
+
+    def decode_step(self, params, cache, tokens: torch.Tensor,
+                    cur_len=None):
+        """tokens [B, 1] -> (logits [B, V], cache updated in place);
+        ``cur_len`` (an int or a [B] tensor) is not needed: the state
+        holds the position."""
+        h = embed(params["embed"], tokens).to(self.cfg.dtype)
+        h = mamba_stack_decode(self.ssm, params["layers"], h, cache,
+                               self.cfg.n_layers)
+        h = rmsnorm(params["final_norm"], h)
+        return logits_last(params["unembed"], h[:, -1]), cache

@@ -1,5 +1,6 @@
 """Decoder-only transformer LM covering the dense, MoE and MLA families
-(port of ``repro/models/transformer.py``; training is not ported yet).
+(port of ``repro/models/transformer.py``; training is not ported yet), and
+the text backbone of the VLM.
 
 The parameter tree is the reference's: layers are stacked per homogeneous
 run under ``layers_<g>_<kind>`` with a leading layer axis, and packed
@@ -10,6 +11,8 @@ homogeneous runs (deepseek-v2-lite: ``layers_0_dense`` then
 ``layers_1_moe``).
 
 Entry points: ``param_defs()``, ``cache_defs(batch, max_len)``,
+``apply_backbone(params, h, positions)`` from embeddings (the VLM's
+prefix, through ``_backbone``, which ``prefill`` runs too),
 ``prefill(params, tokens, max_len, last_idx)`` -> (logits [B, V] of the last
 or the ``last_idx`` row, cache), ``prefill_chunk(params, tokens, cache,
 start, kv_len=, last_idx=)`` -> (logits [B, V], cache), one chunk of a
@@ -196,27 +199,28 @@ class TransformerLM:
         positions), so MoE models keep the exact-length whole prompt."""
         return not self.cfg.is_moe
 
-    def prefill(self, params, tokens: torch.Tensor,
-                max_len: int | None = None, last_idx: int | None = None):
-        """Process a full prompt; returns (logits [B, V] float32, cache
-        {group: leaves [L, B, max_len, ...]}: "k" / "v", or MLA's latents
-        "ckv" / "kr").
-
-        ``last_idx`` is the row whose logits are returned (the true last
-        prompt position of a prompt zero-padded to a length bucket); by
-        default the final row."""
+    def _backbone(self, params, h: torch.Tensor, positions: torch.Tensor,
+                  collect_cache: bool = False, max_len: int | None = None):
+        """Every layer group over the embeddings h [B, S, D] (tokens or a
+        wrapper's prefix, as the VLM's).  Returns (h before the final
+        norm, cache, MoE aux loss summed over the layers): with
+        ``collect_cache`` the cache {group: leaves [L, B, max_len, ...]}
+        holds rows [0, S) ("k" / "v", or MLA's latents "ckv" / "kr"),
+        else it is None."""
         cfg = self.cfg
-        b, s = tokens.shape
-        max_len = max_len or s
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-        h = self._embed_tokens(params, tokens)
+        b, s = h.shape[:2]
         mla = cfg.attention == "mla"
-        cache = {}
+        cache = {} if collect_cache else None
+        aux = 0.0
         for gi, (kind, count) in enumerate(cfg.groups()):
             name = f"layers_{gi}_{kind}"
-            leaves = {n: torch.zeros(shape, dtype=cfg.dtype, device=h.device)
-                      for n, (shape, _) in self._cache_leaves(
-                          count, b, max_len).items()}
+            leaves = None
+            if collect_cache:
+                leaves = {n: torch.zeros(shape, dtype=cfg.dtype,
+                                         device=h.device)
+                          for n, (shape, _) in self._cache_leaves(
+                              count, b, max_len or s).items()}
+                cache[name] = leaves
             for i in range(count):
                 lp = layer_slice(params[name], i)
                 hn = self._norm(lp["ln1"], h)
@@ -226,10 +230,37 @@ class TransformerLM:
                 else:
                     a, rows = attn_mod.gqa_attention(
                         lp["attn"], cfg.attn_config(), hn, positions)
-                for leaf, r in zip(leaves.values(), rows):
-                    leaf[i, :, :s] = r
-                h = self._ffn_residual(kind, lp, h + a)
-            cache[name] = leaves
+                if leaves is not None:
+                    for leaf, r in zip(leaves.values(), rows):
+                        leaf[i, :, :s] = r
+                h = h + a
+                f, aux_l = self._mix(kind, lp["mixer"],
+                                     self._norm(lp["ln2"], h))
+                h, aux = h + f, aux + aux_l
+        return h, cache, aux
+
+    def apply_backbone(self, params, h: torch.Tensor,
+                       positions: torch.Tensor):
+        """The hidden-state pipeline for wrappers (the VLM): (final-normed
+        h [B, S, D], MoE aux loss)."""
+        h, _, aux = self._backbone(params, h, positions)
+        return self._norm(params["final_norm"], h), aux
+
+    def prefill(self, params, tokens: torch.Tensor,
+                max_len: int | None = None, last_idx: int | None = None):
+        """Process a full prompt; returns (logits [B, V] float32, cache
+        {group: leaves [L, B, max_len, ...]}: "k" / "v", or MLA's latents
+        "ckv" / "kr").
+
+        ``last_idx`` is the row whose logits are returned (the true last
+        prompt position of a prompt zero-padded to a length bucket); by
+        default the final row."""
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        h, cache, _ = self._backbone(params, self._embed_tokens(params,
+                                                                tokens),
+                                     positions, collect_cache=True,
+                                     max_len=max_len)
         h = self._norm(params["final_norm"], h)
         h_last = h[:, -1] if last_idx is None else h[:, int(last_idx)]
         return logits_last(params["unembed"], h_last), cache

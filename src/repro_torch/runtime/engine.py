@@ -4,10 +4,13 @@ data-parallel ``FleetServingEngine`` over it (port of
 
   * **Requests** enter a queue (``submit``); each is one prompt, a token
     budget and an optional deadline.
-  * **Slots**: the engine owns ``batch_size`` decode slots and one KV cache
-    ``{group: {"k", "v": [L, batch_size, max_len, ...]}}`` (MLA models:
-    the latents ``"ckv"``, ``"kr"``); every slot holds at most one
-    in-flight request.
+  * **Slots**: the engine owns ``batch_size`` decode slots and one cache
+    whose leaves carry the batch on axis 1: ``{group: {"k", "v": [L,
+    batch_size, max_len, ...]}}`` (MLA models: the latents ``"ckv"``,
+    ``"kr"``), or the SSM's ``{"conv", "state"}`` (no sequence axis, so no
+    prefix cache); every slot holds at most one in-flight request.  A
+    model whose cache has the batch elsewhere (the hybrid's Mamba2
+    segments) is refused (``engine_refusal``).
   * **Continuous batching**: admission and eviction happen at step
     granularity.  Before every decode step free slots are filled from the
     queue; after it finished requests are evicted and their slots freed at
@@ -17,8 +20,9 @@ data-parallel ``FleetServingEngine`` over it (port of
     true last token, and its cache goes into the slot's lane of the shared
     cache.  The pad rows' K/V stay in the lane, hidden by the per-row causal
     mask and overwritten as the request decodes.  Models whose padded
-    prefill is not exact (``supports_chunked_prefill`` False: MoE routing
-    is sequence-global) prefill at the exact prompt length instead.
+    prefill is not exact (``supports_chunked_prefill`` False or absent:
+    MoE routing is sequence-global, the SSM's state would take in the pad
+    tokens) prefill at the exact prompt length instead.
   * **Chunked prefill** (``chunk_prefill=N``): a slot spends several steps
     prefilling, one N-token chunk per step resumed into a private batch-1
     cache (``model.prefill_chunk``), interleaved with the decode waves of
@@ -173,8 +177,51 @@ def _tree_device(tree) -> torch.device | None:
 
 
 def _map_cache(fn, cache: dict) -> dict:
-    """``fn`` over every leaf of a {group: {leaf name: tensor}} cache."""
-    return {g: {n: fn(c) for n, c in kv.items()} for g, kv in cache.items()}
+    """``fn`` over every leaf of a cache tree (nested dicts of tensors or
+    ``ParamDef``s): the transformer's {group: {leaf}}, the SSM's flat
+    {"conv", "state"}."""
+    return {k: _map_cache(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in cache.items()}
+
+
+def _cache_leaves(cache: dict, path=()):
+    """(path, leaf) of every leaf of a cache tree, in tree order."""
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            yield from _cache_leaves(v, path + (k,))
+        else:
+            yield path + (k,), v
+
+
+def engine_refusal(model) -> str | None:
+    """Why ``ServingEngine`` cannot serve ``model``, or None.
+
+    The engine keeps one cache for all slots and installs a batch-1
+    prefill into a slot's lane on axis 1, so every cache leaf must carry
+    the batch on axis 1 (its logical axes, ``cache_defs``).  The hybrid's
+    Mamba2 segment caches are [uses, per_segment, B, ...]: the reference's
+    engine fails on that model too (``jax.lax.scan`` of its decode step
+    raises "scan got values with different leading axis sizes"), so the
+    port refuses it."""
+    off = [("/".join(path), d.axes) for path, d in
+           _cache_leaves(model.cache_defs(1, 1))
+           if len(d.axes) < 2 or d.axes[1] != "batch"]
+    if off:
+        name, axes = off[0]
+        return (f"the continuous-batching engine needs the batch on axis 1 "
+                f"of every cache leaf; {getattr(model.cfg, 'name', model)}'s "
+                f"{name} has axes {axes} (the reference's engine fails on "
+                "such a cache: on the hybrid, scan got values with "
+                "different leading axis sizes)")
+    return None
+
+
+def _has_sequence_axis(model) -> bool:
+    """Whether every cache leaf keeps sequence rows on axis 2 (the prefix
+    cache trims and pads that axis); the SSM's (conv window, state) cache
+    does not."""
+    return all(len(d.axes) > 2 and d.axes[2] == "kv_seq"
+               for _, d in _cache_leaves(model.cache_defs(1, 1)))
 
 
 class ServingEngine:
@@ -213,6 +260,9 @@ class ServingEngine:
                  prefill_budget: int | None = None,
                  prefix_cache: bool | PrefixCache = False,
                  slo: SLOConfig | float | None = None):
+        refusal = engine_refusal(model)
+        if refusal is not None:
+            raise ValueError(refusal)
         if batch_size is None:
             batch_size = self._default_batch_size(session, max_batch)
         if batch_size < 1:
@@ -233,13 +283,20 @@ class ServingEngine:
                 raise ValueError(
                     "chunk_prefill requires a model with bit-exact chunked "
                     "prefill (supports_chunked_prefill); MoE routing is "
-                    "sequence-global")
+                    "sequence-global, and the SSM has no prefill_chunk")
             if chunk_prefill < 1:
                 raise ValueError(
                     f"chunk_prefill must be >= 1, got {chunk_prefill}")
             chunk_prefill = min(_next_pow2(int(chunk_prefill)), self.max_len)
         self.chunk_prefill = chunk_prefill
         self.prefill_budget = prefill_budget
+        if prefix_cache is not False and not _has_sequence_axis(model):
+            raise ValueError(
+                "prefix_cache keeps a prompt's cache rows on axis 2, and "
+                f"{getattr(model.cfg, 'name', model)}'s cache has no "
+                "sequence axis (an SSM's conv window and state); the "
+                "reference's engine raises on such a hit (dynamic_update_"
+                "slice of the padded window into the slot's cache)")
         if prefix_cache is True:
             prefix_cache = PrefixCache()
         elif prefix_cache is False:
@@ -542,8 +599,11 @@ class ServingEngine:
                 deadline_vms=self._deadlines.get(req.request_id))
             return
 
+        # an exact-length prompt's last row is its last token: only a
+        # bucketed prefill needs last_idx (which the SSM does not take)
+        kw = {"last_idx": s - 1} if self._bucketed else {}
         logits, cache1 = self.model.prefill(
-            self.params, padded[None], max_len=self.max_len, last_idx=s - 1)
+            self.params, padded[None], max_len=self.max_len, **kw)
         self._prefill_buckets.add(sb)
         self._prefilled_tokens += sb
         row = logits[0]
@@ -559,9 +619,9 @@ class ServingEngine:
                 lambda c: torch.zeros(c.shape[:1] + (self.batch_size,)
                                       + c.shape[2:], dtype=c.dtype,
                                       device=c.device), cache1)
-        for g, kv in cache1.items():
-            for n, c in kv.items():
-                self._cache[g][n][:, slot] = c[:, 0]
+        lanes = dict(_cache_leaves(self._cache))
+        for path, c in _cache_leaves(cache1):
+            lanes[path][:, slot] = c[:, 0]
         first = int(torch.argmax(logits_row))
         st = self._slots[slot]
         if st is None:                 # whole-prefill / full-hit admission

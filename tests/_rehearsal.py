@@ -52,7 +52,10 @@ def cpu_scales(cs) -> dict:
         figures=dict(n_cols=64, n_trials_maj5=32, check_plain=True),
         fleet=dict(cs.FLEET, preset="smoke", grid=SMALL_GRID,
                    widen=dict(d_ff=512, vocab=512), prompt=8, gen=4,
-                   ragged=dict(n=6, prompt=(4, 12), budget=(2, 6))))
+                   ragged=dict(n=6, prompt=(4, 12), budget=(2, 6))),
+        families=dict(cs.FAMILIES, preset="smoke", grid=SMALL_GRID,
+                      prompt=8, gen=4,
+                      ragged=dict(n=6, prompt=(4, 12), budget=(2, 6))))
 
 
 def rehearse(group: str, capsys, tmp_path, monkeypatch):

@@ -95,11 +95,13 @@ def _smoke(arch, seed=0):
 def test_registry_lists_the_dense_family():
     assert all_archs() == ["deepseek-67b", "deepseek-v2-lite-16b",
                            "gemma-7b", "granite-8b",
-                           "llama4-scout-17b-a16e", "qwen3-1.7b"]
+                           "llama4-scout-17b-a16e", "mamba2-1.3b",
+                           "pixtral-12b", "qwen3-1.7b", "whisper-large-v3",
+                           "zamba2-7b"]
     assert [a for a in all_archs() if get(a).family == "dense"] == \
         ["deepseek-67b", "gemma-7b", "granite-8b", "qwen3-1.7b"]
     with pytest.raises(KeyError, match="not ported yet"):
-        get("zamba2-7b")
+        get("zamba3-1b")
 
 
 @pytest.mark.parametrize("arch", NEW + ["qwen3-1.7b"])

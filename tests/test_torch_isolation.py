@@ -67,7 +67,10 @@ SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "benchmarks/kernel_microbench.py", "models/attention.py",
                  "models/moe.py", "models/transformer.py",
                  "configs/archs.py", "benchmarks/serving_engine.py",
-                 "launch/mesh.py", "api.py")
+                 "launch/mesh.py", "api.py", "models/ssm.py",
+                 "models/ssm_lm.py", "models/hybrid.py", "models/encdec.py",
+                 "models/multimodal.py", "models/layers.py",
+                 "runtime/steps.py", "runtime/engine.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

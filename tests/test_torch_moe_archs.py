@@ -93,6 +93,9 @@ def _meta_tree(defs):
 
 def test_registry_lists_the_moe_family():
     assert [a for a in all_archs() if get(a).family == "moe"] == MOE
+    assert len(all_archs()) == 10 and sorted(
+        {get(a).family for a in all_archs()}) == [
+        "dense", "encdec", "hybrid", "moe", "ssm", "vlm"]
     assert (get(MOE[0]).n_active_params, get(MOE[1]).n_active_params) == \
         (2.7e9, 17e9)
 

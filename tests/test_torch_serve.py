@@ -290,7 +290,8 @@ def test_chip_smoke_rows_assemble_in_group_order():
     assert list(cs.KERNEL_ROWS) == ["calib_iter", "gemm_placed",
                                     "gemv_placed", "gemm", "gemv",
                                     "majx_sense"]
-    assert cs.GROUPS == ("main", "papers", "gemma", "deepseek", "fleet")
+    assert cs.GROUPS == ("main", "papers", "gemma", "deepseek", "fleet",
+                         "families")
     with pytest.raises(cs.PhaseError, match=r"unknown groups \['nope'\]"):
         cs.run(torch, torch.device("cpu"), only=["nope"])
 
