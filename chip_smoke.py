@@ -194,11 +194,28 @@ Phases (any failure exits nonzero and prints no result line):
      layers (266,240 columns: FFN + unembed), prefill == plain, the cache
      filled over patches + prompt and lockstep decode after the prefix;
      then the placed GEMM / GEMV at their shapes;
- 17. print the ``kernels`` JSON line and, last, the device JSON line.
+ 17. training on one card (``TRAIN``), after the families' state is
+     freed: (a) qwen3-1.7b at full width and depth through the training
+     entry point (``launch.train``; bf16 parameters, float32 moments,
+     2,048-token rows, batch 8 in 4 microbatches, random weights from the
+     seed): run A is the 6-step run stopped before step 3 as a preemption
+     would stop it (``launch.train.run(..., stop_at=3)``: the schedule
+     depends on ``--steps``, so a 3-step run is another run), after its
+     async checkpoint of step 3; run B resumes it to step 6 (the parameters and moments restored equal A's
+     final state bit for bit, the data stream at step 3 with batches equal
+     to run C's bit for bit, its losses within ``loss_tol`` of C's); run C
+     takes 6 steps uninterrupted, each profiled, and its loss falls (exit
+     code 0).  Per step: host wall, device time, tokens/s; the peak memory
+     and the checkpoint's bytes and write / read walls.  (b) one
+     ``make_train_step`` of every arch's smoke config on the card against
+     the same step on the CPU (same parameters, same batch): loss, every
+     gradient leaf and the updated parameters within the bf16 tolerances
+     of the CPU parity tests;
+ 18. print the ``kernels`` JSON line and, last, the device JSON line.
 
 The phases run in groups that share no state (``GROUPS``: main = 3-9,
 papers = 9 (Table I on) - 12, gemma = 13, deepseek = 14, fleet = 15,
-families = 16); each
+families = 16, train = 17); each
 group adds its launches and timed shapes to the kernel rows (``Rows``),
 which are assembled and printed last.  ``run(only=[...])`` drives some
 groups, as the CPU rehearsal does (``tests/test_torch_rehearsal_*.py``);
@@ -211,11 +228,13 @@ It needs the port's sources beside it (``src/repro_torch``) and a GPU.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
 import os
 import pathlib
+import shutil
 import statistics
 import subprocess
 import sys
@@ -341,6 +360,25 @@ FAMILIES = dict(preset="full", grid=GRID, batch=BATCH, prompt=PROMPT,
                 placed_cols={"zamba2-7b": 46_336, "mamba2-1.3b": 50_280,
                              "whisper-large-v3": 215_706,
                              "pixtral-12b": 266_240})
+
+# training (item 17): qwen3-1.7b at full width and depth, 2,048-token rows,
+# batch 8 in 4 microbatches; run A (6 steps, stopped at 3) saves at step 3,
+# run B resumes it to 6, run C takes 6 steps without a checkpoint.
+# ``loss_tol``: B's losses against C's (the card's scatter-adds need not
+# add in one order).  The smoke step of every arch is held to the CPU's:
+# in float32, the loss and each gradient leaf (as a share of its largest
+# magnitude) within ``f32_tol``, 10x the CPU tests' port-vs-reference
+# tolerance (``tests/_train.py``): the two devices sum GEMMs and
+# scatter-adds in other orders (gemma's embedding: 2.8e-4, zamba2's shared
+# FFN: 6.8e-4).  In bf16, within ``bf16_loss_tol`` / ``bf16_grad_tol`` (the
+# CPU tests' hybrid tolerance) or, where larger, the CPU's own difference
+# between its bf16 and float32 steps on that leaf: bf16 rounding's noise
+# floor (the hybrid's smoke model moves its bf16 gradients by up to 3.5x a
+# leaf's scale against float32 on the CPU alone).
+TRAIN = dict(arch=ARCH, preset="full", seq_len=2048, global_batch=8,
+             microbatches=4, steps_a=3, steps=6, loss_tol=1e-2,
+             smoke=dict(seq_len=40, global_batch=4, microbatches=2),
+             f32_tol=1e-3, bf16_loss_tol=1e-3, bf16_grad_tol=0.1)
 
 
 class PhaseError(RuntimeError):
@@ -2323,7 +2361,8 @@ KERNEL_ROWS = {
 #: state with another: it adds its launches and its timed shapes to the
 #: kernel rows, and ``run(only=...)`` drives a subset (the CPU rehearsal
 #: runs one group per test file).
-GROUPS = ("main", "papers", "gemma", "deepseek", "fleet", "families")
+GROUPS = ("main", "papers", "gemma", "deepseek", "fleet", "families",
+          "train")
 
 
 class Rows:
@@ -3688,6 +3727,301 @@ def families_group(ctx, rows: Rows, cfg: dict) -> dict:
     return {"families": out}
 
 
+def kernel_family(name: str) -> str:
+    """A device event's name cut to its kernel family (template arguments
+    and launch bounds dropped), for a per-step breakdown."""
+    return name.split("<")[0].split("(")[0][:80]
+
+
+def train_argv(cfg: dict, dev, steps: int, *extra) -> list:
+    return ["--arch", cfg["arch"], "--preset", cfg["preset"],
+            "--seq-len", str(cfg["seq_len"]),
+            "--global-batch", str(cfg["global_batch"]),
+            "--microbatches", str(cfg["microbatches"]), "--steps", str(steps),
+            "--seed", str(SEED), "--log-every", "1", "--device", str(dev),
+            *extra]
+
+
+def print_steps(label: str, res: dict, device_ms=None) -> None:
+    """Per step: loss, grad norm, lr, host wall, tokens/s (and the
+    profiled device time)."""
+    tok = res["tokens_per_step"]
+    for i, (loss, gn, lr, wall) in enumerate(zip(
+            res["losses"], res["grad_norms"], res["lrs"], res["step_s"])):
+        dev = ("" if device_ms is None else
+               f", device {device_ms[i]:.1f} ms "
+               f"({device_ms[i] / 1e3 / wall:.1%} busy)")
+        print(f"  {label} step {res['start_step'] + i}: loss {loss:.6f}, "
+              f"grad norm {gn:.4f}, lr {lr:.3e}, host wall {wall:.3f} s"
+              f"{dev}, {tok / wall:,.0f} tokens/s")
+
+
+def leaf_errors(a, b) -> dict:
+    """{leaf path: (max |a - b|, max |b|)} of two gradient trees (b on the
+    CPU; empty leaves left out)."""
+    out = {}
+
+    def walk(x, y, path):
+        if isinstance(x, dict):
+            for n in x:
+                walk(x[n], y[n], path + (n,))
+        elif y.numel():
+            out["/".join(path)] = (float((x.cpu() - y).abs().max()),
+                                   float(y.abs().max()))
+    walk(a, b, ())
+    return out
+
+
+def train_smoke_step(ctx, arch: str, cfg: dict) -> dict:
+    """One ``make_train_step`` of ``arch``'s smoke config on the card and
+    on the CPU from the same parameters and batch, in float32 (the bf16
+    parameters cast up) and in bf16.  Returns per dtype: the |loss diff|;
+    ``grad_ratio``, the worst gradient leaf's card-vs-CPU max |diff| over
+    its tolerance (float32: ``f32_tol`` x the leaf's largest magnitude;
+    bf16: that with ``bf16_grad_tol``, or the CPU's own bf16-vs-float32
+    difference on the leaf where larger, the noise floor of bf16 rounding)
+    and the worst parameter |diff| after the step over the bound a sign
+    flip of a near-zero gradient allows (two lr, one bf16 ulp)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.launch.train import family_extras
+    from repro_torch.models.params import init_params
+    from repro_torch.runtime.data import DataConfig, DataPipeline
+    from repro_torch.runtime.optim import OptConfig, init_opt_state, tree_map
+    from repro_torch.runtime.steps import make_train_step, microbatch_grads
+    torch, dev = ctx.torch, ctx.dev
+    spec = get(arch)
+    m16 = spec.make_smoke()
+    mc = m16.cfg
+    m32 = type(m16)(
+        dataclasses.replace(mc, lm=dataclasses.replace(
+            mc.lm, dtype=torch.float32)) if hasattr(mc, "lm") else
+        dataclasses.replace(mc, dtype=torch.float32))
+    sm = cfg["smoke"]
+    b16 = DataPipeline(DataConfig(vocab=getattr(mc, "lm", mc).vocab,
+                                  seq_len=sm["seq_len"],
+                                  global_batch=sm["global_batch"],
+                                  seed=SEED)).batch_at(0)
+    b16.update(family_extras(spec, m16, b16["tokens"].shape, 0, SEED))
+    b32 = {k: v.float() if v.dtype == torch.bfloat16 else v
+           for k, v in b16.items()}
+    p16 = init_params(m16.param_defs(), SEED, "cpu")
+    opt = OptConfig(warmup_steps=1)
+    k = sm["microbatches"]
+    runs = {}
+    for tag, model, batch, cast in (("float32", m32, b32, torch.float32),
+                                    ("bf16", m16, b16, None)):
+        cpu = tree_map(lambda t: t.to(cast or t.dtype, copy=True), p16)
+        card = tree_map(lambda t: t.to(dev, copy=True), cpu)  # in place
+        cbatch = {n: v.to(dev) for n, v in batch.items()}
+        loss_c, g_c = microbatch_grads(model, cpu, batch, k)
+        loss_g, g_g = microbatch_grads(model, card, cbatch, k)
+        step = make_train_step(model, opt, k)
+        _, _, m_c = step(cpu, init_opt_state(cpu, opt), batch)
+        _, _, m_g = step(card, init_opt_state(card, opt), cbatch)
+        ctx.sync()
+        lr, worst = float(m_c["lr"]), [0.0]
+
+        def param_ratio(a, b):
+            a = a.float()
+            d = (a - b.cpu().float()).abs()
+            if d.numel():   # two lr with 1% to spare, one bf16 ulp
+                worst[0] = max(worst[0], float(
+                    (d / (2.02 * lr + a.abs() / 128)).max()))
+        tree_map(param_ratio, cpu, card)
+        runs[tag] = dict(loss_cpu=float(loss_c), loss_card=float(loss_g),
+                         g_cpu=g_c, g_card=g_g, param_ratio=worst[0],
+                         step_loss_err=abs(float(m_c["loss"])
+                                           - float(m_g["loss"])),
+                         gnorm_cpu=float(m_c["grad_norm"]),
+                         gnorm_card=float(m_g["grad_norm"]))
+    floor = leaf_errors(runs["bf16"]["g_cpu"], runs["float32"]["g_cpu"])
+    out = {}
+    for tag, r in runs.items():
+        ratios = {}
+        for path, (err, scale) in leaf_errors(r["g_card"],
+                                              r["g_cpu"]).items():
+            if tag == "float32":
+                tol = cfg["f32_tol"] * scale
+            else:
+                tol = max(cfg["bf16_grad_tol"] * scale, floor[path][0])
+            ratios[path] = err / tol if tol > 0 else (0.0 if err == 0
+                                                      else math.inf)
+        leaf = max(ratios, key=ratios.get)
+        ltol = cfg["f32_tol"] if tag == "float32" else max(
+            cfg["bf16_loss_tol"], abs(runs["bf16"]["loss_cpu"]
+                                      - runs["float32"]["loss_cpu"]))
+        out[tag] = dict(
+            loss_cpu=r["loss_cpu"], loss_card=r["loss_card"],
+            loss_err=abs(r["loss_cpu"] - r["loss_card"]), loss_tol=ltol,
+            step_loss_err=r["step_loss_err"], grad_leaf=leaf,
+            grad_ratio=ratios[leaf], param_ratio=r["param_ratio"],
+            gnorm_cpu=r["gnorm_cpu"], gnorm_card=r["gnorm_card"])
+    return out
+
+
+def train_group(ctx, cfg: dict) -> dict:
+    """Training on one card (``TRAIN``): (a) qwen3-1.7b at full width and
+    depth through ``launch.train`` (runs A, B resumed from A, C
+    uninterrupted and profiled), (b) every arch's smoke step on the card
+    against the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import all_archs
+    from repro_torch.launch import train
+    torch, dev, sync = ctx.torch, ctx.dev, ctx.sync
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-train-")
+    try:
+        phase(f"train (a) run A: {cfg['arch']} ({cfg['preset']}), "
+              f"{cfg['steps']} steps of {cfg['global_batch']} x "
+              f"{cfg['seq_len']} tokens in {cfg['microbatches']} "
+              f"microbatches, stopped before step {cfg['steps_a']} after an "
+              "async checkpoint")
+        if ctx.on_card:
+            torch.cuda.reset_peak_memory_stats()
+        a = train.run(train.parse_args(train_argv(
+            cfg, dev, cfg["steps"], "--save-every", str(cfg["steps_a"]),
+            "--ckpt-dir", tmp)), stop_at=cfg["steps_a"])
+        print_steps("A", a)
+        peak_a = (torch.cuda.max_memory_allocated() / 2**30
+                  if ctx.on_card else None)
+        save, = a["ckpt"]["saves"]
+        write, = a["ckpt"]["writes"]
+        print(f"  {a['n_params']:,} parameters; checkpoint of step "
+              f"{write['step']}: {write['bytes']:,} bytes, host snapshot "
+              f"{save['snapshot_s']:.2f} s, background write "
+              f"{write['seconds']:.2f} s "
+              f"({write['bytes'] / write['seconds'] / 1e9:.2f} GB/s); "
+              f"peak memory {peak_a and f'{peak_a:.2f} GiB'}")
+        final_a = {"params": a.pop("params"), "opt": a.pop("opt_state")}
+        free(ctx)
+
+        phase(f"train (a) run B: resume from step {cfg['steps_a']} to "
+              f"{cfg['steps']}")
+        restored = {}
+
+        def on_restore(tree):
+            from repro_torch.runtime.checkpoint import _flatten
+            want, got = _flatten(final_a), _flatten(tree)
+            need(list(want) == list(got), "run B restored other leaves")
+            restored["leaves"] = len(got)
+            restored["equal"] = sum(torch.equal(want[k], got[k])
+                                    for k in want)
+            restored["bytes"] = sum(t.numel() * t.element_size()
+                                    for t in got.values())
+            final_a.clear()
+
+        b = train.run(train.parse_args(train_argv(
+            cfg, dev, cfg["steps"], "--resume", "--ckpt-dir", tmp)),
+            on_restore=on_restore)
+        b.pop("params"), b.pop("opt_state")
+        need(restored.get("leaves") and
+             restored["equal"] == restored["leaves"],
+             f"run B's restored state differs from run A's: {restored}")
+        need(b["start_step"] == cfg["steps_a"],
+             f"run B resumed at {b['start_step']}")
+        print(f"  restored {restored['leaves']} leaves "
+              f"({restored['bytes']:,} bytes) equal to run A's final state, "
+              f"bit for bit; read wall {b['ckpt']['restore_s']:.2f} s")
+        print_steps("B", b)
+        bw = b["ckpt"]["writes"][-1]
+        print(f"  final checkpoint (step {bw['step']}): {bw['bytes']:,} "
+              f"bytes in {bw['seconds']:.2f} s")
+        free(ctx)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    phase(f"train (a) run C: {cfg['steps']} steps uninterrupted, each "
+          "profiled")
+    device_ms, by_kernel = [], {}
+
+    @contextlib.contextmanager
+    def profiled(step):
+        # the card's events only, read from the raw trace: building the
+        # profiler's event tree for a step's ~10^5 events took ~50 s a step
+        from torch.autograd import DeviceType
+        acts = [ProfilerActivity.CUDA if ctx.on_card else
+                ProfilerActivity.CPU]
+        with profile(activities=acts) as prof:
+            yield
+            sync()
+        total = 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                total += e.duration_ns()
+                key = kernel_family(e.name())
+                n, t = by_kernel.get(key, (0, 0))
+                by_kernel[key] = (n + 1, t + e.duration_ns())
+        device_ms.append(total / 1e6 if ctx.on_card else float("nan"))
+
+    if ctx.on_card:
+        torch.cuda.reset_peak_memory_stats()
+    c = train.run(train.parse_args(train_argv(cfg, dev, cfg["steps"])),
+                  step_context=profiled)
+    c.pop("params"), c.pop("opt_state")
+    peak_c = (torch.cuda.max_memory_allocated() / 2**30
+              if ctx.on_card else None)
+    print_steps("C", c, device_ms if ctx.on_card else None)
+    if by_kernel:
+        steps = len(device_ms)
+        print(f"  device time per step by kernel family (mean of {steps}):")
+        for key, (n, t) in sorted(by_kernel.items(), key=lambda kv:
+                                  -kv[1][1])[:10]:
+            print(f"    {t / steps / 1e6:9.1f} ms  x{n // steps:<6d} {key}")
+    need(c["rc"] == 0, f"run C's loss did not fall: {c['losses']}")
+    k = cfg["steps_a"]
+    need(b["digests"] == c["digests"][k:],
+         "run B's batches differ from run C's at the same steps")
+    need(a["digests"] == c["digests"][:k], "run A's batches differ from C's")
+    err_b = max(abs(x - y) for x, y in zip(b["losses"], c["losses"][k:]))
+    err_a = max(abs(x - y) for x, y in zip(a["losses"], c["losses"][:k]))
+    print(f"  batches of B (steps {k}-{cfg['steps'] - 1}) == C's, bit for "
+          f"bit; max |loss B - loss C| {err_b:.3e}, max |loss A - loss C| "
+          f"{err_a:.3e} (tolerance {cfg['loss_tol']}); loss "
+          f"{c['losses'][0]:.4f} -> {c['losses'][-1]:.4f}; peak memory "
+          f"{peak_c and f'{peak_c:.2f} GiB'}")
+    need(err_b <= cfg["loss_tol"] and err_a <= cfg["loss_tol"],
+         f"resumed losses differ from the uninterrupted run: {err_b}, "
+         f"{err_a}")
+    out["a"] = dict(losses=a["losses"], step_s=a["step_s"], peak_gib=peak_a,
+                    ckpt=a["ckpt"])
+    out["b"] = dict(losses=b["losses"], step_s=b["step_s"], ckpt=b["ckpt"],
+                    restored=restored)
+    out["c"] = dict(losses=c["losses"], step_s=c["step_s"],
+                    device_ms=device_ms, peak_gib=peak_c,
+                    by_kernel=by_kernel,
+                    tokens_per_step=c["tokens_per_step"])
+    out["loss_err"] = (err_a, err_b)
+    free(ctx)
+
+    phase("train (b): one make_train_step of every arch's smoke config on "
+          f"{dev} against the CPU, in float32 and in bf16")
+    smoke = {}
+    for arch in all_archs():
+        for tag, r in train_smoke_step(ctx, arch, cfg).items():
+            label = f"{arch} ({tag})"
+            print(f"  {label}: loss {r['loss_card']:.6f} (CPU "
+                  f"{r['loss_cpu']:.6f}, |diff| {r['loss_err']:.2e} of "
+                  f"{r['loss_tol']:.2e} allowed); worst gradient leaf "
+                  f"{r['grad_leaf']} at {r['grad_ratio']:.3f} of its "
+                  f"tolerance; grad norm {r['gnorm_card']:.4f} (CPU "
+                  f"{r['gnorm_cpu']:.4f}); worst parameter |diff| "
+                  f"{r['param_ratio']:.3f} of its bound")
+            need(r["loss_err"] <= r["loss_tol"]
+                 and r["step_loss_err"] <= r["loss_tol"],
+                 f"{label}: the card's loss differs from the CPU's")
+            need(r["grad_ratio"] <= 1, f"{label}: gradient {r['grad_leaf']}"
+                 f" differs from the CPU's ({r['grad_ratio']} of its "
+                 "tolerance)")
+            need(r["param_ratio"] <= 1, f"{label}: the update moved a "
+                 f"parameter past its bound ({r['param_ratio']} of it)")
+            smoke[label] = r
+    out["smoke"] = smoke
+    return {"train": out}
+
+
 def free(ctx) -> None:
     """Drop what the last group left, so the next one has the card."""
     gc.collect()
@@ -3704,7 +4038,8 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         monitor: dict = MONITOR,
         figures: dict = FIGURES, tune_batches=TUNE_BATCHES,
         weight_bits: int = WEIGHT_BITS, fleet: dict = FLEET,
-        families: dict = FAMILIES, only=None) -> dict:
+        families: dict = FAMILIES, train: dict = TRAIN,
+        only=None) -> dict:
     """The groups of phases (``GROUPS``, all of them unless ``only`` names
     some) on ``dev``.  ``main`` runs them all on the GPU at full width; a
     CPU rehearsal (``dev`` cpu, smoke preset, small grids and Table-I
@@ -3759,6 +4094,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         "deepseek": lambda: deepseek_group(ctx, rows, deepseek),
         "fleet": lambda: fleet_group(ctx, rows, fleet),
         "families": lambda: families_group(ctx, rows, families),
+        "train": lambda: train_group(ctx, train),
     }
     for g in groups:
         out.update(drive[g]())

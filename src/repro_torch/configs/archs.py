@@ -2,9 +2,9 @@
 (``repro/configs/archs.py``): the MoE family, deepseek-v2-lite-16b (MLA)
 and llama4-scout-17b-a16e; the dense GQA family, qwen3-1.7b, gemma-7b,
 deepseek-67b and granite-8b; the VLM pixtral-12b, the encoder-decoder
-whisper-large-v3, the hybrid zamba2-7b and the SSM mamba2-1.3b.  The
-port's configs have no ``loss_chunk`` or ``remat`` (no training path), so
-the smoke configs leave them out."""
+whisper-large-v3, the hybrid zamba2-7b and the SSM mamba2-1.3b.  The smoke
+configs train with the reference's ``loss_chunk=32``; ``microbatch`` holds
+the reference's per-shape microbatch counts (``MB``, ``MB_BIG``)."""
 from __future__ import annotations
 
 from repro_torch.models.encdec import EncDecConfig, EncDecLM
@@ -14,6 +14,9 @@ from repro_torch.models.ssm_lm import SSMLM, SSMLMConfig
 from repro_torch.models.transformer import LMConfig, TransformerLM
 
 from .registry import ALL_SHAPES, QUADRATIC_SHAPES, ArchSpec, register
+
+MB = {"train_4k": 8, "prefill_32k": 4, "decode_32k": 1, "long_500k": 1}
+MB_BIG = {"train_4k": 16, "prefill_32k": 8, "decode_32k": 1, "long_500k": 1}
 
 # --- deepseek-v2-lite-16b [moe, MLA] [arXiv:2405.04434] ---------------------
 
@@ -30,8 +33,9 @@ register(ArchSpec(
         name="smoke", n_layers=3, d_model=64, n_heads=4, n_kv_heads=4,
         d_ff=160, vocab=256, attention="mla", mla_kv_rank=32, mla_qk_nope=16,
         mla_qk_rope=8, mla_v_dim=16, n_experts=8, top_k=2, moe_d_ff=64,
-        n_shared_experts=1, first_dense_layers=1)),
+        n_shared_experts=1, first_dense_layers=1, loss_chunk=32)),
     n_params=15.8e9, n_active_params=2.7e9,
+    microbatch=MB,
     notes="MLA kv_lora=512; 64 routed + 2 shared, top-6 (V2-Lite)",
 ))
 
@@ -48,8 +52,9 @@ register(ArchSpec(
     make_smoke=lambda: TransformerLM(LMConfig(
         name="smoke", n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
         d_ff=128, vocab=256, head_dim=8, n_experts=4, top_k=1, moe_d_ff=128,
-        n_shared_experts=1)),
+        n_shared_experts=1, loss_chunk=32)),
     n_params=107e9, n_active_params=17e9,
+    microbatch=MB_BIG,
     notes="16 routed top-1 + 1 shared expert; iRoPE/NoPE simplified to "
           "full-attention RoPE",
 ))
@@ -66,8 +71,9 @@ register(ArchSpec(
         rope_theta=1e6)),
     make_smoke=lambda: TransformerLM(LMConfig(
         name="smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-        d_ff=128, vocab=256, head_dim=16, qk_norm=True)),
+        d_ff=128, vocab=256, head_dim=16, qk_norm=True, loss_chunk=32)),
     n_params=2.03e9, n_active_params=2.03e9,
+    microbatch=MB,
 ))
 
 
@@ -83,8 +89,9 @@ register(ArchSpec(
     make_smoke=lambda: TransformerLM(LMConfig(
         name="smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=4,
         d_ff=256, vocab=512, head_dim=32, activation="gelu",
-        embed_scale=True, zero_centered_norm=True)),
+        embed_scale=True, zero_centered_norm=True, loss_chunk=32)),
     n_params=9.3e9, n_active_params=9.3e9,
+    microbatch=MB,
 ))
 
 
@@ -98,8 +105,9 @@ register(ArchSpec(
         n_kv_heads=8, d_ff=22016, vocab=102400, head_dim=128)),
     make_smoke=lambda: TransformerLM(LMConfig(
         name="smoke", n_layers=3, d_model=64, n_heads=8, n_kv_heads=2,
-        d_ff=160, vocab=256, head_dim=8)),
+        d_ff=160, vocab=256, head_dim=8, loss_chunk=32)),
     n_params=67.4e9, n_active_params=67.4e9,
+    microbatch=MB_BIG,
 ))
 
 
@@ -113,8 +121,9 @@ register(ArchSpec(
         n_kv_heads=8, d_ff=14336, vocab=49152, head_dim=128)),
     make_smoke=lambda: TransformerLM(LMConfig(
         name="smoke", n_layers=2, d_model=64, n_heads=8, n_kv_heads=2,
-        d_ff=160, vocab=256, head_dim=8)),
+        d_ff=160, vocab=256, head_dim=8, loss_chunk=32)),
     n_params=8.3e9, n_active_params=8.3e9,
+    microbatch=MB,
 ))
 
 
@@ -129,9 +138,11 @@ register(ArchSpec(
         rope_theta=1e9), n_patches=256, d_vit=1024)),
     make_smoke=lambda: VLM(VLMConfig(lm=LMConfig(
         name="smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
-        d_ff=128, vocab=256, head_dim=16), n_patches=8, d_vit=32)),
+        d_ff=128, vocab=256, head_dim=16, loss_chunk=32),
+        n_patches=8, d_vit=32)),
     shapes=QUADRATIC_SHAPES,
     n_params=12.3e9, n_active_params=12.3e9,
+    microbatch=MB_BIG,
     notes="ViT frontend stubbed: the caller gives [B, 256, 1024] patch "
           "embeddings; projector + text backbone implemented",
 ))
@@ -148,9 +159,10 @@ register(ArchSpec(
         n_frames=1500)),
     make_smoke=lambda: EncDecLM(EncDecConfig(
         name="smoke", n_enc_layers=2, n_dec_layers=2, d_model=64, n_heads=4,
-        n_kv_heads=4, d_ff=128, vocab=256, n_frames=16)),
+        n_kv_heads=4, d_ff=128, vocab=256, n_frames=16, loss_chunk=32)),
     shapes=QUADRATIC_SHAPES,
     n_params=1.6e9, n_active_params=1.6e9,
+    microbatch=MB,
     notes="conv/mel frontend stubbed: the caller gives [B, 1500, 1280] "
           "frame embeddings; enc-dec (not encoder-only) so decode runs",
 ))
@@ -167,9 +179,10 @@ register(ArchSpec(
     make_smoke=lambda: HybridLM(HybridConfig(
         name="smoke", n_blocks=12, shared_every=4, d_model=64, n_heads=4,
         n_kv_heads=4, d_ff=128, vocab=256, d_state=16, ssm_head_dim=16,
-        lora_rank=8, ssd_chunk=16)),
+        lora_rank=8, ssd_chunk=16, loss_chunk=32)),
     shapes=ALL_SHAPES,
     n_params=5.9e9, n_active_params=5.9e9,
+    microbatch=MB,
     notes="Mamba2 backbone + shared attn block every 6th position with "
           "per-occurrence FFN LoRA; sub-quadratic decode -> runs long_500k",
 ))
@@ -185,8 +198,9 @@ register(ArchSpec(
         vocab=50280)),
     make_smoke=lambda: SSMLM(SSMLMConfig(
         name="smoke", n_layers=3, d_model=64, d_state=16, vocab=256,
-        head_dim=16, ssd_chunk=16)),
+        head_dim=16, ssd_chunk=16, loss_chunk=32)),
     shapes=ALL_SHAPES,
     n_params=1.44e9, n_active_params=1.44e9,
+    microbatch=MB,
     notes="attention-free SSD; O(1) decode state -> runs long_500k",
 ))

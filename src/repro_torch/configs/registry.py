@@ -24,6 +24,8 @@ class ArchSpec:
     # approximate parameter counts (total, active)
     n_params: float = 0.0
     n_active_params: float = 0.0
+    # microbatches per shape cell (configs/archs.MB, MB_BIG)
+    microbatch: dict[str, int] = dataclasses.field(default_factory=dict)
     notes: str = ""
 
 

@@ -1,5 +1,5 @@
 """Encoder-decoder transformer, the whisper-large-v3 backbone (port of
-``repro/models/encdec.py``; training is not ported yet).
+``repro/models/encdec.py``).
 
 The conv / mel frontend is a stub, as in the reference: the caller gives
 frame embeddings [B, n_frames, d_model] (after the conv).  The encoder
@@ -15,6 +15,9 @@ With attention packing the encoder's ``enc_layers/attn`` projections are
 packed (they run once per prompt, on B x n_frames rows); the decoder's
 ``self_attn`` / ``cross_attn`` are in no packable scope and stay in bf16,
 as in the reference.
+
+``train_loss(params, batch)`` takes the batch's ``"frames"``; every encoder
+and decoder layer is rematerialised under ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -24,10 +27,10 @@ import torch
 
 from . import attention as attn_mod
 from .attention import AttnConfig
-from .layers import (embed, embed_defs, ffn, ffn_defs, logits_last, rmsnorm,
-                     rmsnorm_defs, unembed_defs)
+from .layers import (chunked_softmax_xent, embed, embed_defs, ffn, ffn_defs,
+                     logits_last, remat, rmsnorm, rmsnorm_defs, unembed_defs)
 from .params import ParamDef, stack_defs
-from .transformer import layer_slice
+from .transformer import layer_slice, layer_slices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +46,8 @@ class EncDecConfig:
     n_frames: int = 1500
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    loss_chunk: int = 512
     kv_chunk: int = 1024
 
     @property
@@ -107,6 +112,15 @@ class EncDecLM:
 
     # -- encoder -------------------------------------------------------------
 
+    def _enc_layer(self, lp, h, positions):
+        acfg = self.cfg.attn_config(False)
+        hn = rmsnorm(lp["ln1"], h)
+        kv = attn_mod.encoder_kv(lp["attn"], acfg, hn)
+        a, _ = attn_mod.gqa_attention(lp["attn"], acfg, hn, positions,
+                                      kv_override=kv)
+        h = h + a
+        return h + ffn(lp["ffn"], rmsnorm(lp["ln2"], h), "gelu")
+
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """frames: [B, n_frames, d_model] (the stub frontend's output) ->
         the encoder output [B, n_frames, d_model]."""
@@ -115,44 +129,54 @@ class EncDecLM:
         h = (frames + _sinusoid(n, c.d_model, frames.device)[None]).to(
             c.dtype)
         positions = torch.arange(n, device=frames.device).expand(b, n)
-        acfg = c.attn_config(False)
-        for i in range(c.n_enc_layers):
-            lp = layer_slice(params["enc_layers"], i)
-            hn = rmsnorm(lp["ln1"], h)
-            kv = attn_mod.encoder_kv(lp["attn"], acfg, hn)
-            a, _ = attn_mod.gqa_attention(lp["attn"], acfg, hn, positions,
-                                          kv_override=kv)
-            h = h + a
-            h = h + ffn(lp["ffn"], rmsnorm(lp["ln2"], h), "gelu")
+        for lp in layer_slices(params["enc_layers"], c.n_enc_layers):
+            h = remat(c.remat, self._enc_layer, lp, h, positions)
         return rmsnorm(params["enc_norm"], h)
 
     # -- decoder -------------------------------------------------------------
+
+    def _dec_layer(self, lp, h, memory, positions):
+        """(h, self K/V (k, v), cross K/V)."""
+        c = self.cfg
+        self_cfg, cross_cfg = c.attn_config(True), c.attn_config(False)
+        a, kv = attn_mod.gqa_attention(
+            lp["self_attn"], self_cfg, rmsnorm(lp["ln1"], h), positions)
+        h = h + a
+        xkv = attn_mod.encoder_kv(lp["cross_attn"], cross_cfg, memory)
+        a, _ = attn_mod.gqa_attention(
+            lp["cross_attn"], cross_cfg, rmsnorm(lp["lnx"], h),
+            positions, kv_override=xkv)
+        h = h + a
+        return h + ffn(lp["ffn"], rmsnorm(lp["ln2"], h), "gelu"), kv, xkv
 
     def _decoder_full(self, params, tokens: torch.Tensor,
                       memory: torch.Tensor, cache: dict | None = None):
         """The decoder over a whole prompt; with ``cache`` (``cache_defs``
         leaves), its self K/V rows [0, S) and the cross K/V are written
-        there.  Returns the final-normed hidden states [B, S, D]."""
+        there, else each layer is rematerialised under ``cfg.remat``.
+        Returns the final-normed hidden states [B, S, D]."""
         c = self.cfg
         b, s = tokens.shape
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         h = embed(params["embed"], tokens).to(c.dtype)
-        self_cfg, cross_cfg = c.attn_config(True), c.attn_config(False)
-        for i in range(c.n_dec_layers):
-            lp = layer_slice(params["dec_layers"], i)
-            a, (k, v) = attn_mod.gqa_attention(
-                lp["self_attn"], self_cfg, rmsnorm(lp["ln1"], h), positions)
-            h = h + a
-            xkv = attn_mod.encoder_kv(lp["cross_attn"], cross_cfg, memory)
-            a, _ = attn_mod.gqa_attention(
-                lp["cross_attn"], cross_cfg, rmsnorm(lp["lnx"], h),
-                positions, kv_override=xkv)
-            h = h + a
-            h = h + ffn(lp["ffn"], rmsnorm(lp["ln2"], h), "gelu")
+        for i, lp in enumerate(layer_slices(params["dec_layers"],
+                                            c.n_dec_layers)):
+            h, (k, v), xkv = remat(c.remat and cache is None, self._dec_layer,
+                                   lp, h, memory, positions)
             if cache is not None:
                 cache["self_k"][i, :, :s], cache["self_v"][i, :, :s] = k, v
                 cache["cross_k"][i], cache["cross_v"][i] = xkv
         return rmsnorm(params["final_norm"], h)
+
+    def train_loss(self, params, batch: dict, rng=None):
+        """batch: {"frames" [B, n_frames, d_model], "tokens", "labels",
+        optional "mask"} -> (xent, {"xent"})."""
+        memory = self.encode(params, batch["frames"])
+        h = self._decoder_full(params, batch["tokens"], memory)
+        loss, _ = chunked_softmax_xent(
+            params["unembed"], h, batch["labels"], batch.get("mask"),
+            chunk=min(self.cfg.loss_chunk, batch["tokens"].shape[1]))
+        return loss, {"xent": loss}
 
     def prefill(self, params, tokens: torch.Tensor, frames: torch.Tensor,
                 max_len: int | None = None):

@@ -1,5 +1,5 @@
 """Zamba2-style hybrid: a Mamba2 backbone and one *shared* transformer
-block (port of ``repro/models/hybrid.py``; training is not ported yet).
+block (port of ``repro/models/hybrid.py``).
 
 zamba2-7b has 81 positions: every 6th (5, 11, ..., 77: 13 uses) runs the
 one shared attention + FFN block, specialised per use by a LoRA on the FFN
@@ -20,6 +20,9 @@ reference's engine, which fails on this model).
 With attention packing the shared block's wq / wk / wv / wo are packed
 once and serve every use; its FFN sits under ``shared/ffn``, outside the
 packable ``mixer`` scope, so it stays in bf16 as in the reference.
+
+``train_loss`` rematerialises every Mamba2 block and every use of the
+shared block under ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -29,12 +32,12 @@ import torch
 
 from . import attention as attn_mod
 from .attention import AttnConfig
-from .layers import (embed, embed_defs, ffn, ffn_defs, logits_last, rmsnorm,
-                     rmsnorm_defs, unembed_defs)
+from .layers import (chunked_softmax_xent, embed, embed_defs, ffn, ffn_defs,
+                     logits_last, remat, rmsnorm, rmsnorm_defs, unembed_defs)
 from .params import ParamDef, stack_defs
 from .ssm import SSMConfig, mamba2_defs
 from .ssm_lm import mamba_cache_defs, mamba_stack_decode, mamba_stack_full
-from .transformer import layer_slice
+from .transformer import layer_slice, layer_slices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,6 +55,8 @@ class HybridConfig:
     lora_rank: int = 64
     rope_theta: float = 10000.0
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    loss_chunk: int = 512
     kv_chunk: int = 1024
     ssd_chunk: int = 128
 
@@ -164,6 +169,29 @@ class HybridLM:
         return h + self._ffn_with_lora(shared, lora, hn)
 
     # -- forward -------------------------------------------------------------
+
+    def train_loss(self, params, batch: dict, rng=None):
+        """batch: {"tokens", "labels", optional "mask"} -> (xent,
+        {"xent"})."""
+        c = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        h = embed(params["embed"], tokens).to(c.dtype)
+        shared = params["shared"]
+        for seg in layer_slices(params["segments"], c.n_shared_uses):
+            h, _, _ = mamba_stack_full(self.ssm, seg["mamba"], h,
+                                       c.mamba_per_segment, c.remat)
+            h, _ = remat(c.remat, self._shared_block_full, shared,
+                         seg["lora"], h, positions)
+        if c.n_tail:
+            h, _, _ = mamba_stack_full(self.ssm, params["tail"], h, c.n_tail,
+                                       c.remat)
+        h = rmsnorm(params["final_norm"], h)
+        loss, _ = chunked_softmax_xent(params["unembed"], h, batch["labels"],
+                                       batch.get("mask"),
+                                       chunk=min(c.loss_chunk, s))
+        return loss, {"xent": loss}
 
     def prefill(self, params, tokens: torch.Tensor,
                 max_len: int | None = None):

@@ -1,5 +1,6 @@
 """Shared layer library (port of ``repro/models/layers.py``): RMSNorm,
-projections with PUD dispatch, embeddings, RoPE, the gated FFN.
+projections with PUD dispatch, embeddings, RoPE, the gated FFN and the
+chunked cross-entropy of training.
 
 Plain functions over a parameter dict and tensors, in the reference's
 dtype flow: norms compute in float32 and return the input dtype, RoPE
@@ -11,6 +12,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from .params import ParamDef
 
@@ -64,6 +66,15 @@ def rmsnorm(p, x: torch.Tensor, eps: float = 1e-6,
     x = x * torch.rsqrt(var + eps)
     scale = p["scale"] + 1.0 if zero_centered else p["scale"]
     return (x * scale).to(dtype)
+
+
+def dense_defs(d_in: int, d_out: int, axes: tuple,
+               dtype=torch.bfloat16) -> dict:
+    return {"w": ParamDef((d_in, d_out), axes, dtype=dtype, init="scaled")}
+
+
+def dense(p, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["w"].to(x.dtype)
 
 
 def embed_defs(vocab: int, d_model: int, dtype=torch.bfloat16) -> dict:
@@ -137,3 +148,49 @@ def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
 def logits_last(unembed_p, h_last: torch.Tensor) -> torch.Tensor:
     """Decode-time logits for the last position only. h_last: [B, D]."""
     return linear(unembed_p, "w", h_last).to(torch.float32)
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``, rematerialised in the backward pass when ``enabled``
+    and autograd is recording (``torch.utils.checkpoint``, the counterpart
+    of ``jax.checkpoint``): only the inputs are kept, the activations inside
+    are recomputed.  The values are the same either way."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _chunk_loss(hc: torch.Tensor, w: torch.Tensor, yc: torch.Tensor,
+                mc: torch.Tensor):
+    logits = (hc @ w.to(hc.dtype)).to(torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
+    return ((logz - gold) * mc).sum(), mc.sum()
+
+
+def chunked_softmax_xent(unembed_p, h: torch.Tensor, labels: torch.Tensor,
+                         mask: torch.Tensor | None = None, chunk: int = 512):
+    """Cross-entropy without materialising [B, S, V] logits.
+
+    Loops over sequence chunks; each chunk's [B, chunk, V] float32 logits
+    are recomputed in the backward pass (``torch.utils.checkpoint``).
+    h: [B, S, D]; labels: [B, S] int; mask: [B, S] (1 = count).  S is padded
+    to a chunk multiple with zero weight.  Returns (mean loss, total
+    weight), float32 0-d tensors."""
+    b, s, _ = h.shape
+    w = unembed_p["w"]
+    m = (torch.ones(labels.shape, dtype=torch.float32, device=h.device)
+         if mask is None else mask.to(torch.float32))
+    if s % chunk:
+        pad = chunk - s % chunk
+        h = F.pad(h, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad))
+        m = F.pad(m, (0, pad))
+        s += pad
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c in range(s // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        loss, n = remat(True, _chunk_loss, h[:, sl], w, labels[:, sl],
+                        m[:, sl])
+        tot, cnt = tot + loss, cnt + n
+    return tot / torch.clamp(cnt, min=1.0), cnt

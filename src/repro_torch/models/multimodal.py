@@ -1,6 +1,6 @@
 """VLM wrapper, the pixtral-12b backbone (port of
-``repro/models/multimodal.py``; training is not ported yet): a text
-decoder with a projected patch prefix.
+``repro/models/multimodal.py``): a text decoder with a projected patch
+prefix.
 
 The ViT frontend is a stub, as in the reference: the caller gives patch
 embeddings [B, n_patches, d_vit].  A two-layer MLP projector, ``gelu(
@@ -10,6 +10,8 @@ they are prepended to the prompt's embeddings.  The cache therefore spans
 patches + text: decode positions start at prompt + n_patches, and a
 serving ``max_len`` counts the patches too.  The text backbone is
 ``TransformerLM`` (its FFN under ``mixer``, packed as the dense archs').
+``train_loss`` takes the batch's ``"patches"`` and scores the text
+positions only.
 """
 from __future__ import annotations
 
@@ -17,7 +19,7 @@ import dataclasses
 
 import torch
 
-from .layers import gelu_tanh, logits_last, rmsnorm
+from .layers import chunked_softmax_xent, gelu_tanh, logits_last, rmsnorm
 from .params import ParamDef
 from .transformer import LMConfig, TransformerLM
 
@@ -58,6 +60,22 @@ class VLM:
         prefix = self._prefix(params, patches)               # [B, P, D]
         text = self.lm._embed_tokens(params, tokens)         # [B, S, D]
         return torch.cat([prefix, text], dim=1)
+
+    def train_loss(self, params, batch: dict, rng=None):
+        """batch: {"patches" [B, P, d_vit], "tokens", "labels": [B, St],
+        optional "mask"} -> (xent over the text positions + the LM's
+        aux_loss_weight x aux, {"xent", "aux"})."""
+        c = self.cfg
+        h = self._embed_all(params, batch["patches"], batch["tokens"])
+        b, s, _ = h.shape
+        positions = torch.arange(s, device=h.device).expand(b, s)
+        h, aux = self.lm.apply_backbone(params, h, positions)
+        h_text = h[:, c.n_patches:]
+        loss, _ = chunked_softmax_xent(
+            params["unembed"], h_text, batch["labels"], batch.get("mask"),
+            chunk=min(c.lm.loss_chunk, h_text.shape[1]))
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        return loss + c.lm.aux_loss_weight * aux, {"xent": loss, "aux": aux}
 
     def prefill(self, params, tokens: torch.Tensor, patches: torch.Tensor,
                 max_len: int | None = None):

@@ -10,11 +10,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any, Callable
 
 import numpy as np
 import torch
 
 from repro_torch.core.rng import generator
+
+#: An initialiser's signature: (generator, shape, dtype) -> tensor.
+Initializer = Callable[[torch.Generator, tuple[int, ...], Any], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +87,14 @@ def init_params(defs: dict, seed: int, device) -> dict:
         return {k: walk(tree[k], path + (k,)) for k in sorted(tree)}
 
     return walk(defs, ())
+
+
+def abstract_params(defs: dict) -> dict:
+    """The ParamDef tree as meta tensors: shapes and dtypes, no storage
+    (a restore template)."""
+    if is_def(defs):
+        return torch.empty(defs.shape, dtype=defs.dtype, device="meta")
+    return {k: abstract_params(defs[k]) for k in sorted(defs)}
 
 
 def param_count(defs: dict) -> int:

@@ -1,5 +1,5 @@
 """Attention-free SSM language model, the mamba2-1.3b family (port of
-``repro/models/ssm_lm.py``; training is not ported yet).
+``repro/models/ssm_lm.py``).
 
 A stack of Mamba2 / SSD blocks with pre-RMSNorm residuals over stacked
 layer parameters, walked in a Python loop.  Decode carries a (conv
@@ -8,6 +8,8 @@ the flat tree ``{"conv": [L, B, W - 1, C], "state": [L, B, H, P, N]
 float32}``: the batch on axis 1, as the serving engine needs, but no
 sequence axis, so the engine's prefix cache (which keeps sequence rows)
 does not apply to it.  Prompts prefill whole, at their exact length.
+``train_loss`` runs the whole batch through the stack at once, each block
+rematerialised under ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -15,11 +17,11 @@ import dataclasses
 
 import torch
 
-from .layers import (embed, embed_defs, logits_last, rmsnorm, rmsnorm_defs,
-                     unembed_defs)
+from .layers import (chunked_softmax_xent, embed, embed_defs, logits_last,
+                     remat, rmsnorm, rmsnorm_defs, unembed_defs)
 from .params import ParamDef, stack_defs
 from .ssm import SSMConfig, mamba2_block, mamba2_decode, mamba2_defs
-from .transformer import layer_slice
+from .transformer import layer_slice, layer_slices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +34,8 @@ class SSMLMConfig:
     d_inner: int | None = None
     head_dim: int = 64
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    loss_chunk: int = 512
     ssd_chunk: int = 128
 
     def ssm_config(self) -> SSMConfig:
@@ -51,16 +55,19 @@ def mamba_cache_defs(s: SSMConfig, n: int, batch: int, dtype) -> dict:
     }
 
 
-def mamba_stack_full(ssm: SSMConfig, stacked, h: torch.Tensor, n: int):
-    """``n`` pre-norm Mamba2 residual blocks over a full sequence.
-    Returns (h, conv tails [n, B, W - 1, C], final states [n, B, H, P,
-    N])."""
+def _mamba_residual(ssm: SSMConfig, lp, h: torch.Tensor):
+    out, (conv, state) = mamba2_block(lp["mamba"], ssm, rmsnorm(lp["ln"], h))
+    return h + out, conv, state
+
+
+def mamba_stack_full(ssm: SSMConfig, stacked, h: torch.Tensor, n: int,
+                     rematerialise: bool = False):
+    """``n`` pre-norm Mamba2 residual blocks over a full sequence, each
+    rematerialised in the backward pass with ``rematerialise``.  Returns
+    (h, conv tails [n, B, W - 1, C], final states [n, B, H, P, N])."""
     convs, states = [], []
-    for i in range(n):
-        lp = layer_slice(stacked, i)
-        out, (conv, state) = mamba2_block(lp["mamba"], ssm,
-                                          rmsnorm(lp["ln"], h))
-        h = h + out
+    for lp in layer_slices(stacked, n):
+        h, conv, state = remat(rematerialise, _mamba_residual, ssm, lp, h)
         convs.append(conv)
         states.append(state)
     return h, torch.stack(convs), torch.stack(states)
@@ -101,6 +108,21 @@ class SSMLM:
     def cache_defs(self, batch: int, max_len: int) -> dict:
         return mamba_cache_defs(self.ssm, self.cfg.n_layers, batch,
                                 self.cfg.dtype)
+
+    def train_loss(self, params, batch: dict, rng=None):
+        """batch: {"tokens", "labels", optional "mask"} -> (xent,
+        {"xent"}); the whole batch runs through the stack at once."""
+        c = self.cfg
+        tokens = batch["tokens"]
+        h = embed(params["embed"], tokens).to(c.dtype)
+        h, _, _ = mamba_stack_full(self.ssm, params["layers"], h, c.n_layers,
+                                   c.remat)
+        h = rmsnorm(params["final_norm"], h)
+        loss, _ = chunked_softmax_xent(params["unembed"], h, batch["labels"],
+                                       batch.get("mask"),
+                                       chunk=min(c.loss_chunk,
+                                                 tokens.shape[1]))
+        return loss, {"xent": loss}
 
     def prefill(self, params, tokens: torch.Tensor,
                 max_len: int | None = None):

@@ -1,16 +1,19 @@
 """Decoder-only transformer LM covering the dense, MoE and MLA families
-(port of ``repro/models/transformer.py``; training is not ported yet), and
-the text backbone of the VLM.
+(port of ``repro/models/transformer.py``), and the text backbone of the
+VLM.
 
 The parameter tree is the reference's: layers are stacked per homogeneous
 run under ``layers_<g>_<kind>`` with a leading layer axis, and packed
 projections appear as ``<name>_pud`` ``PackedTensor``s beside (or instead
-of) their float weights.  The forward walks the layers in a Python loop,
-slicing layer ``i`` out of every stacked leaf.  Layers group into
-homogeneous runs (deepseek-v2-lite: ``layers_0_dense`` then
-``layers_1_moe``).
+of) their float weights.  The forward walks the layers in a Python loop
+over the stacked leaves unbound along the layer axis (``layer_slices``).
+Layers group into homogeneous runs (deepseek-v2-lite: ``layers_0_dense``
+then ``layers_1_moe``).
 
 Entry points: ``param_defs()``, ``cache_defs(batch, max_len)``,
+``train_loss(params, batch, rng=None)`` -> (xent + aux_loss_weight x the
+MoE aux loss, {"xent", "aux"}), with each layer rematerialised in the
+backward pass under ``cfg.remat`` (``layers.remat``),
 ``apply_backbone(params, h, positions)`` from embeddings (the VLM's
 prefix, through ``_backbone``, which ``prefill`` runs too),
 ``prefill(params, tokens, max_len, last_idx)`` -> (logits [B, V] of the last
@@ -32,8 +35,8 @@ from repro_torch.pud.packed import PackedTensor, ShardedPackedTensor
 
 from . import attention as attn_mod
 from .attention import AttnConfig, MLAConfig
-from .layers import (embed, embed_defs, ffn, ffn_defs, logits_last, rmsnorm,
-                     rmsnorm_defs, unembed_defs)
+from .layers import (chunked_softmax_xent, embed, embed_defs, ffn, ffn_defs,
+                     logits_last, remat, rmsnorm, rmsnorm_defs, unembed_defs)
 from .moe import MoEConfig, moe_defs, moe_ffn
 from .params import ParamDef, stack_defs
 
@@ -67,7 +70,10 @@ class LMConfig:
     n_shared_experts: int = 0
     first_dense_layers: int = 0
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    loss_chunk: int = 512
     kv_chunk: int = 1024
+    aux_loss_weight: float = 0.01
 
     @property
     def hd(self) -> int:
@@ -111,6 +117,19 @@ def layer_slice(tree, i: int):
     if isinstance(tree, (PackedTensor, ShardedPackedTensor)):
         return tree.layer(i)
     return tree[i]
+
+
+def layer_slices(tree, n: int) -> list:
+    """The ``n`` layers of a stacked (sub)tree, each as ``layer_slice``
+    gives it.  Tensors are unbound once, so the backward pass stacks their
+    layers' gradients in one operation (``tree[i]`` per layer would
+    scatter each into a zeroed copy of the whole stack)."""
+    if isinstance(tree, dict):
+        per_key = {k: layer_slices(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    if isinstance(tree, (PackedTensor, ShardedPackedTensor)):
+        return [tree.layer(i) for i in range(n)]
+    return list(tree.unbind(0))
 
 
 class TransformerLM:
@@ -199,6 +218,21 @@ class TransformerLM:
         positions), so MoE models keep the exact-length whole prompt."""
         return not self.cfg.is_moe
 
+    def _layer(self, kind: str, lp, h, positions):
+        """One layer over a full sequence: (h, its attention's cache rows
+        (k, v) or MLA's (ckv, kr), MoE aux loss)."""
+        cfg = self.cfg
+        hn = self._norm(lp["ln1"], h)
+        if cfg.attention == "mla":
+            a, rows = attn_mod.mla_attention(lp["attn"], cfg.mla_config(), hn,
+                                             positions)
+        else:
+            a, rows = attn_mod.gqa_attention(lp["attn"], cfg.attn_config(), hn,
+                                             positions)
+        h = h + a
+        f, aux_l = self._mix(kind, lp["mixer"], self._norm(lp["ln2"], h))
+        return h + f, rows, aux_l
+
     def _backbone(self, params, h: torch.Tensor, positions: torch.Tensor,
                   collect_cache: bool = False, max_len: int | None = None):
         """Every layer group over the embeddings h [B, S, D] (tokens or a
@@ -206,10 +240,10 @@ class TransformerLM:
         norm, cache, MoE aux loss summed over the layers): with
         ``collect_cache`` the cache {group: leaves [L, B, max_len, ...]}
         holds rows [0, S) ("k" / "v", or MLA's latents "ckv" / "kr"),
-        else it is None."""
+        else it is None and each layer is rematerialised under
+        ``cfg.remat``."""
         cfg = self.cfg
         b, s = h.shape[:2]
-        mla = cfg.attention == "mla"
         cache = {} if collect_cache else None
         aux = 0.0
         for gi, (kind, count) in enumerate(cfg.groups()):
@@ -221,22 +255,13 @@ class TransformerLM:
                           for n, (shape, _) in self._cache_leaves(
                               count, b, max_len or s).items()}
                 cache[name] = leaves
-            for i in range(count):
-                lp = layer_slice(params[name], i)
-                hn = self._norm(lp["ln1"], h)
-                if mla:
-                    a, rows = attn_mod.mla_attention(
-                        lp["attn"], cfg.mla_config(), hn, positions)
-                else:
-                    a, rows = attn_mod.gqa_attention(
-                        lp["attn"], cfg.attn_config(), hn, positions)
+            for i, lp in enumerate(layer_slices(params[name], count)):
+                h, rows, aux_l = remat(cfg.remat and not collect_cache,
+                                       self._layer, kind, lp, h, positions)
                 if leaves is not None:
                     for leaf, r in zip(leaves.values(), rows):
                         leaf[i, :, :s] = r
-                h = h + a
-                f, aux_l = self._mix(kind, lp["mixer"],
-                                     self._norm(lp["ln2"], h))
-                h, aux = h + f, aux + aux_l
+                aux = aux + aux_l
         return h, cache, aux
 
     def apply_backbone(self, params, h: torch.Tensor,
@@ -245,6 +270,23 @@ class TransformerLM:
         h [B, S, D], MoE aux loss)."""
         h, _, aux = self._backbone(params, h, positions)
         return self._norm(params["final_norm"], h), aux
+
+    def train_loss(self, params, batch: dict, rng=None):
+        """batch: {"tokens", "labels": [B, S] int, optional "mask" [B, S]}
+        -> (xent + aux_loss_weight x aux, {"xent", "aux"}); ``rng`` is
+        unused (the reference's signature)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        positions = torch.arange(s, device=tokens.device).expand(b, s)
+        h, _, aux = self._backbone(params, self._embed_tokens(params, tokens),
+                                   positions)
+        h = self._norm(params["final_norm"], h)
+        loss, _ = chunked_softmax_xent(params["unembed"], h, batch["labels"],
+                                       batch.get("mask"),
+                                       chunk=min(cfg.loss_chunk, s))
+        aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+        return loss + cfg.aux_loss_weight * aux, {"xent": loss, "aux": aux}
 
     def prefill(self, params, tokens: torch.Tensor,
                 max_len: int | None = None, last_idx: int | None = None):

@@ -55,7 +55,9 @@ def cpu_scales(cs) -> dict:
                    ragged=dict(n=6, prompt=(4, 12), budget=(2, 6))),
         families=dict(cs.FAMILIES, preset="smoke", grid=SMALL_GRID,
                       prompt=8, gen=4,
-                      ragged=dict(n=6, prompt=(4, 12), budget=(2, 6))))
+                      ragged=dict(n=6, prompt=(4, 12), budget=(2, 6))),
+        train=dict(cs.TRAIN, preset="smoke", seq_len=64, global_batch=8,
+                   microbatches=2))
 
 
 def rehearse(group: str, capsys, tmp_path, monkeypatch):

@@ -40,9 +40,9 @@ def test_sources_exist():
 #: and the paper's benchmarks, then of the drift-reliability loop and the
 #: paper's remaining figures, then of the autotuner, the contract checker,
 #: the session surface and the kernel benchmarks, then of MLA, MoE and the
-#: serving-engine benchmark, then of the serving mesh and the API surface:
-#: each is among the scanned sources (its CUDA source among the built
-#: ones).
+#: serving-engine benchmark, then of the serving mesh and the API surface,
+#: then of training on one device: each is among the scanned sources (its
+#: CUDA source among the built ones).
 SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "pud/bitserial.py", "core/calibrate.py", "core/fleet.py",
                  "core/ecr.py", "core/throughput.py", "runtime/session.py",
@@ -70,7 +70,10 @@ SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "launch/mesh.py", "api.py", "models/ssm.py",
                  "models/ssm_lm.py", "models/hybrid.py", "models/encdec.py",
                  "models/multimodal.py", "models/layers.py",
-                 "runtime/steps.py", "runtime/engine.py")
+                 "runtime/steps.py", "runtime/engine.py",
+                 "runtime/optim.py", "runtime/data.py",
+                 "runtime/checkpoint.py", "launch/train.py",
+                 "models/params.py", "configs/registry.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
