@@ -211,11 +211,28 @@ Phases (any failure exits nonzero and prints no result line):
      the same step on the CPU (same parameters, same batch): loss, every
      gradient leaf and the updated parameters within the bf16 tolerances
      of the CPU parity tests;
- 18. print the ``kernels`` JSON line and, last, the device JSON line.
+ 18. the mesh group (``MESH``), after training's state is freed: (a)
+     qwen3-1.7b at full width and depth through ``launch.train.run(...,
+     mesh=...)`` on a (data 2, model 2) mesh of positions on the card
+     (parameters and AdamW moments stored as per-position shards, the
+     data-parallel step), TRAIN's 6-step run cut before step 3, then the
+     same run on one device: per step host wall, device time, tokens/s,
+     the bytes per position and peak memory; losses within the
+     reference's mesh-test tolerances and the bf16 parameters within
+     2e-2; then one step of every arch's smoke config on the mesh against
+     the card's one-device step; (b) ``pipelined_apply`` over 4 stages of
+     7 of qwen3's layers, 8 microbatches of [1, 2,048, 2,048] bf16, equal
+     to sequential application bit for bit; (c) mamba2-1.3b at full
+     width and depth on a (2, 2) fleet of 8 x 65,536 devices: calibration
+     misses, the unembed placed per shard, the fleet engine (8 requests,
+     4 slots per lane) with every lane == a single-device engine and the
+     run == its plain-version replay, bit for bit; then the placed GEMM /
+     GEMV at the per-shard unembed shape;
+ 19. print the ``kernels`` JSON line and, last, the device JSON line.
 
 The phases run in groups that share no state (``GROUPS``: main = 3-9,
 papers = 9 (Table I on) - 12, gemma = 13, deepseek = 14, fleet = 15,
-families = 16, train = 17); each
+families = 16, train = 17, mesh = 18); each
 group adds its launches and timed shapes to the kernel rows (``Rows``),
 which are assembled and printed last.  ``run(only=[...])`` drives some
 groups, as the CPU rehearsal does (``tests/test_torch_rehearsal_*.py``);
@@ -379,6 +396,26 @@ TRAIN = dict(arch=ARCH, preset="full", seq_len=2048, global_batch=8,
              microbatches=4, steps_a=3, steps=6, loss_tol=1e-2,
              smoke=dict(seq_len=40, global_batch=4, microbatches=2),
              f32_tol=1e-3, bf16_loss_tol=1e-3, bf16_grad_tol=0.1)
+
+# the mesh group (item 18): (a) TRAIN's qwen3 run cut at step 3 on a (data
+# 2, model 2) mesh of positions on the card and on one device, held to the
+# reference's own mesh-test tolerances (tests/test_distributed_train.py:
+# losses within rtol = atol = 2e-4, bf16 parameters within 2e-2), and
+# every arch's smoke step on the mesh against the card's one-device step
+# within TRAIN's card tolerances; (b) GPipe over 4 stages of 7 qwen3
+# layers, 8 microbatches of [1, 2,048, 2,048]; (c) mamba2-1.3b at full
+# width and depth on a (2, 2) fleet of 8 x 65,536 devices, 8 requests on 4
+# slots per lane.
+MESH = dict(
+    train=dict(TRAIN, mesh=(2, 2), loss_rtol=2e-4, loss_atol=2e-4,
+               param_atol=2e-2),
+    pipeline=dict(arch=ARCH, preset="full", stages=4, micro=8, rows=1,
+                  seq=2048),
+    fleet=dict(arch="mamba2-1.3b", preset="full", mesh=(2, 2),
+               grid=dict(n_channels=1, n_banks=1, n_subarrays=8,
+                         n_cols=65536),
+               requests=ENGINE_BATCH, prompt=PROMPT, gen=GEN,
+               slots=ENGINE_SLOTS, widen=None))
 
 
 class PhaseError(RuntimeError):
@@ -2362,7 +2399,7 @@ KERNEL_ROWS = {
 #: kernel rows, and ``run(only=...)`` drives a subset (the CPU rehearsal
 #: runs one group per test file).
 GROUPS = ("main", "papers", "gemma", "deepseek", "fleet", "families",
-          "train")
+          "train", "mesh")
 
 
 class Rows:
@@ -3757,8 +3794,8 @@ def print_steps(label: str, res: dict, device_ms=None) -> None:
 
 
 def leaf_errors(a, b) -> dict:
-    """{leaf path: (max |a - b|, max |b|)} of two gradient trees (b on the
-    CPU; empty leaves left out)."""
+    """{leaf path: (max |a - b|, max |b|)} of two gradient trees (compared
+    on the CPU; empty leaves left out)."""
     out = {}
 
     def walk(x, y, path):
@@ -3766,19 +3803,36 @@ def leaf_errors(a, b) -> dict:
             for n in x:
                 walk(x[n], y[n], path + (n,))
         elif y.numel():
-            out["/".join(path)] = (float((x.cpu() - y).abs().max()),
+            out["/".join(path)] = (float((x.cpu() - y.cpu()).abs().max()),
                                    float(y.abs().max()))
     walk(a, b, ())
     return out
 
 
-def train_smoke_step(ctx, arch: str, cfg: dict) -> dict:
+@contextlib.contextmanager
+def rules_for(mesh):
+    """The launcher's logical->mesh rules with ``mesh``'s sizes installed
+    for the block (``sharding_ctx.set_rules``), the ones before restored."""
+    from repro_torch.models import sharding_ctx
+    from repro_torch.runtime import sharding as shd
+    before = sharding_ctx.get_rules()
+    sharding_ctx.set_rules({**shd.make_rules(mesh),
+                            "_mesh_sizes": mesh.shape})
+    try:
+        yield
+    finally:
+        sharding_ctx.set_rules(before)
+
+
+def train_smoke_step(ctx, arch: str, cfg: dict, mesh=None) -> dict:
     """One ``make_train_step`` of ``arch``'s smoke config on the card and
     on the CPU from the same parameters and batch, in float32 (the bf16
-    parameters cast up) and in bf16.  Returns per dtype: the |loss diff|;
-    ``grad_ratio``, the worst gradient leaf's card-vs-CPU max |diff| over
-    its tolerance (float32: ``f32_tol`` x the leaf's largest magnitude;
-    bf16: that with ``bf16_grad_tol``, or the CPU's own bf16-vs-float32
+    parameters cast up) and in bf16.  With ``mesh`` (a ("data", "model")
+    mesh of positions on the card) the step sharded on it is held to the
+    card's one-device step instead.  Returns per dtype: the |loss diff|;
+    ``grad_ratio``, the worst gradient leaf's max |diff| over its
+    tolerance (float32: ``f32_tol`` x the leaf's largest magnitude; bf16:
+    that with ``bf16_grad_tol``, or the CPU's own bf16-vs-float32
     difference on the leaf where larger, the noise floor of bf16 rounding)
     and the worst parameter |diff| after the step over the bound a sign
     flip of a near-zero gradient allows (two lr, one bf16 ulp)."""
@@ -3786,10 +3840,12 @@ def train_smoke_step(ctx, arch: str, cfg: dict) -> dict:
 
     from repro_torch.configs import get
     from repro_torch.launch.train import family_extras
-    from repro_torch.models.params import init_params
+    from repro_torch.models.params import init_params, param_pspecs
+    from repro_torch.runtime import sharding as shd
     from repro_torch.runtime.data import DataConfig, DataPipeline
     from repro_torch.runtime.optim import OptConfig, init_opt_state, tree_map
-    from repro_torch.runtime.steps import make_train_step, microbatch_grads
+    from repro_torch.runtime.steps import (make_train_step, microbatch_grads,
+                                           sharded_microbatch_grads)
     torch, dev = ctx.torch, ctx.dev
     spec = get(arch)
     m16 = spec.make_smoke()
@@ -3809,6 +3865,9 @@ def train_smoke_step(ctx, arch: str, cfg: dict) -> dict:
     p16 = init_params(m16.param_defs(), SEED, "cpu")
     opt = OptConfig(warmup_steps=1)
     k = sm["microbatches"]
+    def rules():
+        return (rules_for(mesh) if mesh is not None
+                else contextlib.nullcontext())
     runs = {}
     for tag, model, batch, cast in (("float32", m32, b32, torch.float32),
                                     ("bf16", m16, b16, None)):
@@ -3817,31 +3876,43 @@ def train_smoke_step(ctx, arch: str, cfg: dict) -> dict:
         cbatch = {n: v.to(dev) for n, v in batch.items()}
         loss_c, g_c = microbatch_grads(model, cpu, batch, k)
         loss_g, g_g = microbatch_grads(model, card, cbatch, k)
+        if mesh is None:       # the card against the CPU
+            ref, got = (loss_c, g_c, cpu, batch), (loss_g, g_g, card, cbatch)
+        else:                  # the sharded step against the card's
+            specs = param_pspecs(model.param_defs(), shd.make_rules(mesh))
+            sharded = shd.device_put(card, shd.named(mesh, specs))
+            with rules():
+                loss_s, g_s = sharded_microbatch_grads(model, sharded,
+                                                       batch, k)
+            ref = (loss_g, g_g, card, cbatch)
+            got = (loss_s, shd.gather_tree(g_s, "cpu"), sharded, batch)
         step = make_train_step(model, opt, k)
-        _, _, m_c = step(cpu, init_opt_state(cpu, opt), batch)
-        _, _, m_g = step(card, init_opt_state(card, opt), cbatch)
+        _, _, m_r = step(ref[2], init_opt_state(ref[2], opt), ref[3])
+        with rules():
+            _, _, m_g = step(got[2], init_opt_state(got[2], opt), got[3])
         ctx.sync()
-        lr, worst = float(m_c["lr"]), [0.0]
+        lr, worst = float(m_r["lr"]), [0.0]
 
         def param_ratio(a, b):
-            a = a.float()
+            a = a.cpu().float()
             d = (a - b.cpu().float()).abs()
             if d.numel():   # two lr with 1% to spare, one bf16 ulp
                 worst[0] = max(worst[0], float(
                     (d / (2.02 * lr + a.abs() / 128)).max()))
-        tree_map(param_ratio, cpu, card)
-        runs[tag] = dict(loss_cpu=float(loss_c), loss_card=float(loss_g),
-                         g_cpu=g_c, g_card=g_g, param_ratio=worst[0],
-                         step_loss_err=abs(float(m_c["loss"])
+        tree_map(param_ratio, ref[2], shd.gather_tree(got[2], "cpu"))
+        runs[tag] = dict(loss_ref=float(ref[0]), loss_got=float(got[0]),
+                         g_ref=ref[1], g_got=got[1], g_cpu=g_c,
+                         loss_cpu=float(loss_c), param_ratio=worst[0],
+                         step_loss_err=abs(float(m_r["loss"])
                                            - float(m_g["loss"])),
-                         gnorm_cpu=float(m_c["grad_norm"]),
-                         gnorm_card=float(m_g["grad_norm"]))
+                         gnorm_ref=float(m_r["grad_norm"]),
+                         gnorm_got=float(m_g["grad_norm"]))
     floor = leaf_errors(runs["bf16"]["g_cpu"], runs["float32"]["g_cpu"])
     out = {}
     for tag, r in runs.items():
         ratios = {}
-        for path, (err, scale) in leaf_errors(r["g_card"],
-                                              r["g_cpu"]).items():
+        for path, (err, scale) in leaf_errors(r["g_got"],
+                                              r["g_ref"]).items():
             if tag == "float32":
                 tol = cfg["f32_tol"] * scale
             else:
@@ -3853,12 +3924,68 @@ def train_smoke_step(ctx, arch: str, cfg: dict) -> dict:
             cfg["bf16_loss_tol"], abs(runs["bf16"]["loss_cpu"]
                                       - runs["float32"]["loss_cpu"]))
         out[tag] = dict(
-            loss_cpu=r["loss_cpu"], loss_card=r["loss_card"],
-            loss_err=abs(r["loss_cpu"] - r["loss_card"]), loss_tol=ltol,
+            loss_ref=r["loss_ref"], loss_got=r["loss_got"],
+            loss_err=abs(r["loss_ref"] - r["loss_got"]), loss_tol=ltol,
             step_loss_err=r["step_loss_err"], grad_leaf=leaf,
             grad_ratio=ratios[leaf], param_ratio=r["param_ratio"],
-            gnorm_cpu=r["gnorm_cpu"], gnorm_card=r["gnorm_card"])
+            gnorm_ref=r["gnorm_ref"], gnorm_got=r["gnorm_got"])
     return out
+
+
+def print_smoke_steps(ctx, cfg: dict, got: str, ref: str, mesh=None) -> dict:
+    """``train_smoke_step`` for every arch; prints each against its
+    tolerances and fails past them."""
+    from repro_torch.configs import all_archs
+    smoke = {}
+    for arch in all_archs():
+        for tag, r in train_smoke_step(ctx, arch, cfg, mesh).items():
+            label = f"{arch} ({tag})"
+            print(f"  {label}: loss {r['loss_got']:.6f} ({ref} "
+                  f"{r['loss_ref']:.6f}, |diff| {r['loss_err']:.2e} of "
+                  f"{r['loss_tol']:.2e} allowed); worst gradient leaf "
+                  f"{r['grad_leaf']} at {r['grad_ratio']:.3f} of its "
+                  f"tolerance; grad norm {r['gnorm_got']:.4f} ({ref} "
+                  f"{r['gnorm_ref']:.4f}); worst parameter |diff| "
+                  f"{r['param_ratio']:.3f} of its bound")
+            need(r["loss_err"] <= r["loss_tol"]
+                 and r["step_loss_err"] <= r["loss_tol"],
+                 f"{label}: the {got} loss differs from the {ref}'s")
+            need(r["grad_ratio"] <= 1, f"{label}: gradient {r['grad_leaf']}"
+                 f" differs from the {ref}'s ({r['grad_ratio']} of its "
+                 "tolerance)")
+            need(r["param_ratio"] <= 1, f"{label}: the update moved a "
+                 f"parameter past its bound ({r['param_ratio']} of it)")
+            smoke[label] = r
+    return smoke
+
+
+def step_profiler(ctx):
+    """(``profiled(step)``, a context manager that profiles one step,
+    the list it appends each step's device ms to, {kernel family: (events,
+    ns)} summed over the steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    device_ms, by_kernel = [], {}
+
+    @contextlib.contextmanager
+    def profiled(step):
+        # the card's events only, read from the raw trace: building the
+        # profiler's event tree for a step's ~10^5 events took ~50 s a step
+        from torch.autograd import DeviceType
+        acts = [ProfilerActivity.CUDA if ctx.on_card else
+                ProfilerActivity.CPU]
+        with profile(activities=acts) as prof:
+            yield
+            ctx.sync()
+        total = 0
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA:
+                total += e.duration_ns()
+                key = kernel_family(e.name())
+                n, t = by_kernel.get(key, (0, 0))
+                by_kernel[key] = (n + 1, t + e.duration_ns())
+        device_ms.append(total / 1e6 if ctx.on_card else float("nan"))
+
+    return profiled, device_ms, by_kernel
 
 
 def train_group(ctx, cfg: dict) -> dict:
@@ -3866,9 +3993,6 @@ def train_group(ctx, cfg: dict) -> dict:
     depth through ``launch.train`` (runs A, B resumed from A, C
     uninterrupted and profiled), (b) every arch's smoke step on the card
     against the CPU."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from repro_torch.configs import all_archs
     from repro_torch.launch import train
     torch, dev, sync = ctx.torch, ctx.dev, ctx.sync
     out = {}
@@ -3935,26 +4059,7 @@ def train_group(ctx, cfg: dict) -> dict:
 
     phase(f"train (a) run C: {cfg['steps']} steps uninterrupted, each "
           "profiled")
-    device_ms, by_kernel = [], {}
-
-    @contextlib.contextmanager
-    def profiled(step):
-        # the card's events only, read from the raw trace: building the
-        # profiler's event tree for a step's ~10^5 events took ~50 s a step
-        from torch.autograd import DeviceType
-        acts = [ProfilerActivity.CUDA if ctx.on_card else
-                ProfilerActivity.CPU]
-        with profile(activities=acts) as prof:
-            yield
-            sync()
-        total = 0
-        for e in prof.profiler.kineto_results.events():
-            if e.device_type() == DeviceType.CUDA:
-                total += e.duration_ns()
-                key = kernel_family(e.name())
-                n, t = by_kernel.get(key, (0, 0))
-                by_kernel[key] = (n + 1, t + e.duration_ns())
-        device_ms.append(total / 1e6 if ctx.on_card else float("nan"))
+    profiled, device_ms, by_kernel = step_profiler(ctx)
 
     if ctx.on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -3998,28 +4103,317 @@ def train_group(ctx, cfg: dict) -> dict:
 
     phase("train (b): one make_train_step of every arch's smoke config on "
           f"{dev} against the CPU, in float32 and in bf16")
-    smoke = {}
-    for arch in all_archs():
-        for tag, r in train_smoke_step(ctx, arch, cfg).items():
-            label = f"{arch} ({tag})"
-            print(f"  {label}: loss {r['loss_card']:.6f} (CPU "
-                  f"{r['loss_cpu']:.6f}, |diff| {r['loss_err']:.2e} of "
-                  f"{r['loss_tol']:.2e} allowed); worst gradient leaf "
-                  f"{r['grad_leaf']} at {r['grad_ratio']:.3f} of its "
-                  f"tolerance; grad norm {r['gnorm_card']:.4f} (CPU "
-                  f"{r['gnorm_cpu']:.4f}); worst parameter |diff| "
-                  f"{r['param_ratio']:.3f} of its bound")
-            need(r["loss_err"] <= r["loss_tol"]
-                 and r["step_loss_err"] <= r["loss_tol"],
-                 f"{label}: the card's loss differs from the CPU's")
-            need(r["grad_ratio"] <= 1, f"{label}: gradient {r['grad_leaf']}"
-                 f" differs from the CPU's ({r['grad_ratio']} of its "
-                 "tolerance)")
-            need(r["param_ratio"] <= 1, f"{label}: the update moved a "
-                 f"parameter past its bound ({r['param_ratio']} of it)")
-            smoke[label] = r
-    out["smoke"] = smoke
+    out["smoke"] = print_smoke_steps(ctx, cfg, "card", "CPU")
     return {"train": out}
+
+
+def mesh_train_phase(ctx, cfg: dict) -> dict:
+    """(a) qwen3-1.7b through ``launch.train.run(mesh=...)`` on a
+    ``cfg["mesh"]`` mesh of positions on the card (parameters and AdamW
+    moments stored as per-position shards, the data-parallel step), the
+    run cut before step ``steps_a`` of ``steps``; then the same run on one
+    device (plain tensors).  Both profiled; losses within the reference's
+    own mesh-test tolerances (``loss_rtol`` / ``loss_atol``), the bf16
+    parameters within ``param_atol`` at the cut."""
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.optim import tree_leaves
+    torch, dev, on_card = ctx.torch, ctx.dev, ctx.on_card
+    d, m = cfg["mesh"]
+    mesh = make_host_mesh(d, m, device=dev)
+    argv = train_argv(cfg, dev, cfg["steps"])
+    out = {}
+    for label, kw in (("mesh", dict(mesh=mesh)), ("one", {})):
+        where = (f"a {d}x{m} mesh ({mesh.describe()})" if kw else
+                 "one device")
+        phase(f"mesh (a) {label}: {cfg['arch']} ({cfg['preset']}) on "
+              f"{where}, {cfg['steps_a']} steps of the {cfg['steps']}-step "
+              f"schedule, {cfg['global_batch']} x {cfg['seq_len']} tokens in "
+              f"{cfg['microbatches']} microbatches, each profiled")
+        free(ctx)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        profiled, device_ms, by_kernel = step_profiler(ctx)
+        res = train.run(train.parse_args(argv), stop_at=cfg["steps_a"],
+                        step_context=profiled, **kw)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else None
+        print_steps(label, res, device_ms if on_card else None)
+        r = dict(losses=res["losses"], step_s=res["step_s"],
+                 device_ms=device_ms, peak_gib=peak,
+                 tokens_per_step=res["tokens_per_step"])
+        if kw:
+            held = res["bytes_per_position"]
+            state = tree_leaves({"p": res["params"], "o": res["opt_state"]})
+            whole = sum(math.prod(x.shape) * x.dtype.itemsize
+                        for x in state)
+            # a position's share: each leaf over its distinct blocks (the
+            # replicated norm scales whole)
+            share = sum(math.prod(x.shape) * x.dtype.itemsize
+                        / len(x.canonical()) for x in state)
+            worst = max(held.values())
+            print(f"  parameter + moment bytes per position: "
+                  f"{ {c: f'{b / 1e9:.3f} GB' for c, b in held.items()} }; "
+                  f"the whole state {whole / 1e9:.3f} GB, the largest "
+                  f"position {worst / whole:.4f} of it (its share of the "
+                  f"blocks {share / whole:.4f})")
+            need(worst <= share * 1.01,
+                 f"a position holds {worst / whole:.4f} of the state, "
+                 f"over its share {share / whole:.4f}")
+            r.update(bytes_per_position={str(c): b for c, b in held.items()},
+                     state_bytes=whole)
+            want = shd.gather_tree(res["params"], "cpu")
+            del state
+        else:
+            worst_p = 0.0
+            for a, b in zip(tree_leaves(res["params"]), tree_leaves(want)):
+                if a.numel():
+                    worst_p = max(worst_p, float(
+                        (a.float() - b.to(a.device).float()).abs().max()))
+            del want
+        print(f"  peak memory {peak and f'{peak:.2f} GiB'}")
+        if by_kernel:
+            steps = len(device_ms)
+            print(f"  device time per step by kernel family (mean of "
+                  f"{steps}):")
+            for key, (n, t) in sorted(by_kernel.items(),
+                                      key=lambda kv: -kv[1][1])[:6]:
+                print(f"    {t / steps / 1e6:9.1f} ms  x{n // steps:<6d} "
+                      f"{key}")
+        out[label] = r
+        del res
+    sh, one = out["mesh"]["losses"], out["one"]["losses"]
+    ok = all(abs(a - b) <= cfg["loss_atol"] + cfg["loss_rtol"] * abs(b)
+             for a, b in zip(sh, one))
+    print(f"  losses on the mesh {sh}, on one device {one}: max |diff| "
+          f"{max(abs(a - b) for a, b in zip(sh, one)):.3e} (rtol = atol = "
+          f"{cfg['loss_rtol']}); bf16 parameters at step {cfg['steps_a']}: "
+          f"max |diff| {worst_p:.3e} (allowed {cfg['param_atol']})")
+    need(ok and len(sh) == len(one) == cfg["steps_a"],
+         f"the mesh's losses {sh} differ from one device's {one}")
+    need(worst_p < cfg["param_atol"],
+         f"the mesh's parameters differ from one device's by {worst_p}")
+    out["param_err"] = worst_p
+    free(ctx)
+    return out
+
+
+def mesh_pipeline_phase(ctx, cfg: dict) -> dict:
+    """(b) ``runtime.pipeline.pipelined_apply`` over a ("stage",) mesh of
+    ``stages`` positions on the card: qwen3-1.7b's stacked layers split by
+    ``stage_split``, ``micro`` microbatches of [rows, seq, d_model] bf16
+    hidden states, the model's layer as the stage function; equal, bit for
+    bit, to applying every layer to each microbatch in turn."""
+    from repro_torch.configs import get
+    from repro_torch.core.rng import generator
+    from repro_torch.launch.mesh import make_stage_mesh
+    from repro_torch.models.params import init_params
+    from repro_torch.models.transformer import layer_slices
+    from repro_torch.runtime.pipeline import (bubble_fraction,
+                                              pipelined_apply, stage_split)
+    torch, dev, sync = ctx.torch, ctx.dev, ctx.sync
+    spec = get(cfg["arch"])
+    model = spec.make_model() if cfg["preset"] == "full" else \
+        spec.make_smoke()
+    (kind, n_layers), = model.cfg.groups()
+    group = f"layers_0_{kind}"
+    s, nm = cfg["stages"], cfg["micro"]
+    phase(f"mesh (b): GPipe over {s} stages of {n_layers // s} "
+          f"{cfg['arch']} layers ({cfg['preset']}), {nm} microbatches of "
+          f"[{cfg['rows']}, {cfg['seq']}, {model.cfg.d_model}]")
+    layers = init_params({group: model.param_defs()[group]}, SEED,
+                         dev)[group]
+    mesh = make_stage_mesh(s, device=dev)
+    h = torch.randn((nm, cfg["rows"], cfg["seq"], model.cfg.d_model),
+                    generator=generator(SEED, "pipeline", device=dev),
+                    device=dev).to(model.cfg.dtype)
+    positions = torch.arange(cfg["seq"], device=dev).expand(cfg["rows"],
+                                                            cfg["seq"])
+
+    def stage_fn(p, x):
+        n = next(iter(p["ln1"].values())).shape[0]
+        for lp in layer_slices(p, n):
+            x = model._layer(kind, lp, x, positions)[0]
+        return x
+
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        got = pipelined_apply(stage_fn, stage_split(layers, s), h, mesh)
+        sync()
+        t_pipe = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = torch.stack([stage_fn(layers, h[i]) for i in range(nm)])
+        sync()
+        t_seq = time.perf_counter() - t0
+    need(torch.equal(got, want), "the pipeline differs from sequential "
+         f"application (max |diff| {float((got - want).abs().max())})")
+    need(bool(torch.isfinite(got).all()),
+         "the pipeline's output is not finite")
+    bub = bubble_fraction(s, nm)
+    print(f"  positions -> cards: {mesh.describe()}; output "
+          f"{list(got.shape)} == sequential application, bit for bit; "
+          f"wall {t_pipe:.3f} s pipelined ({nm + s - 1} ticks), "
+          f"{t_seq:.3f} s sequential; bubble_fraction({s}, {nm}) = "
+          f"{bub:.4f} ({s - 1}/{nm + s - 1})")
+    del layers, h, got, want
+    return dict(pipelined_s=t_pipe, sequential_s=t_seq, bubble=bub)
+
+
+def mesh_fleet_phase(ctx, cfg: dict) -> dict:
+    """(c) mamba2-1.3b on the sharded fleet: ``PUDSession.open_fleet`` on a
+    ``cfg["mesh"]`` mesh of ``cfg["grid"]`` devices (a calibration miss on
+    each), the placed unembed split over the model shards,
+    ``FleetServingEngine`` over the requests; every lane == a single-device
+    ``ServingEngine`` over the unsharded logical pack, tokens and logits
+    bit for bit; the fleet run replayed on the plain versions, bit for
+    bit."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    from repro_torch.core.fleet import FleetConfig
+    from repro_torch.core.rng import generator
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import init_params, param_count
+    from repro_torch.pud.gemv import FFN_PACKABLE, PUDGemvConfig
+    from repro_torch.pud.packer import pack_model
+    from repro_torch.runtime.engine import (FleetServingEngine, Request,
+                                            ServingEngine)
+    from repro_torch.runtime.session import PUDSession
+    torch, dev, on_card = ctx.torch, ctx.dev, ctx.on_card
+    kernels, sync = ctx.kernels, ctx.sync
+    n_data, n_model = cfg["mesh"]
+    spec = get(cfg["arch"])
+    model = spec.make_model() if cfg["preset"] == "full" else \
+        spec.make_smoke()
+    if cfg.get("widen"):
+        model = type(model)(dataclasses.replace(model.cfg, **cfg["widen"]))
+    phase(f"mesh (c): {cfg['arch']} ({cfg['preset']}, "
+          f"{param_count(model.param_defs()):,} params) on a "
+          f"{n_data}x{n_model} fleet of {cfg['grid']['n_subarrays']} x "
+          f"{cfg['grid']['n_cols']:,} devices")
+    mesh = make_host_mesh(n_data, n_model, device=dev)
+    params = init_params(model.param_defs(), SEED, dev)
+    pcfg = PUDGemvConfig(weight_bits=4, packable=FFN_PACKABLE)
+    cache = tempfile.TemporaryDirectory(prefix="pud-mesh-")
+    fleet = PUDSession.open_fleet(cfg["arch"], mesh=mesh,
+                                  grid=FleetConfig(**cfg["grid"]),
+                                  cache_dir=cache.name, calib=ctx.ccfg,
+                                  seed=SEED + 2)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    fleet.calibrate()
+    packs = fleet.pack(params, pcfg, name=f"{cfg['arch']}-mesh")
+    sync()
+    t_open = time.perf_counter() - t0
+    n_cal = kernels["calib_iter"].launches
+    un = packs[0].tensor("unembed/w")
+    need(all(pm.placed for pm in packs), "the fleet did not place")
+    need(all(w > 0 for w in un.shard_widths),
+         f"an unembed shard owns no column: {un.shard_widths}")
+    print(f"  {mesh.describe()}; calibration + placement + pack "
+          f"{t_open:.2f} s ({n_cal} calib_iter launches); packed "
+          f"{list(packs[0].packed_names)}; unembed shard widths "
+          f"{list(un.shard_widths)} (Np {un.padded_n})")
+    g = generator(SEED, "mesh-requests")
+    vocab = model.cfg.vocab
+    prompts = [torch.randint(0, vocab, (cfg["prompt"],), generator=g,
+                             dtype=torch.int32)
+               for _ in range(cfg["requests"])]
+
+    def requests(ids=None):
+        ids = range(len(prompts)) if ids is None else ids
+        return [Request(i, prompts[i], cfg["gen"]) for i in ids]
+
+    max_len = cfg["prompt"] + cfg["gen"] + 1
+    engine = fleet.serving_engine(model, max_len=max_len,
+                                  batch_size=cfg["slots"],
+                                  collect_logits=True)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    comps = engine.run(requests())
+    sync()
+    t_eng = time.perf_counter() - t0
+    launches = read_counts(kernels)
+    launches["calib_iter"] = n_cal
+    need(len(comps) == cfg["requests"]
+         and all(len(c.tokens) == cfg["gen"] for c in comps),
+         "the fleet engine did not complete every request")
+    need((launches["gemm_placed"] > 0 and launches["gemv_placed"] > 0)
+         or not on_card, f"the fleet's placed kernels never ran: {launches}")
+    need(launches["gemm"] == launches["gemv"] == 0,
+         "the placed fleet launched an unplaced kernel")
+    sched = engine.scheduler_report()
+    print(f"  fleet engine: {sched['completed']} requests over "
+          f"{sched['n_lanes']} lanes in {sched['steps']} steps, "
+          f"{sched['generated_tokens']} tokens, {t_eng:.2f} s wall; "
+          f"launches {launches}")
+
+    phase("mesh (c): every lane == a single-device engine; the fleet run "
+          "== its plain-version replay")
+    logical = pack_model(params, pcfg)
+    for d, lane in enumerate(engine.lanes):
+        ids = sorted(c.request_id for c in lane._completions)
+        single = ServingEngine(model, logical.params, max_len=max_len,
+                               batch_size=cfg["slots"], collect_logits=True)
+        for c, w in zip(sorted(lane._completions,
+                               key=lambda c: c.request_id),
+                        single.run(requests(ids))):
+            need(c.tokens == w.tokens and torch.equal(c.logits, w.logits),
+                 f"lane {d}, request {c.request_id}: the fleet differs from "
+                 "the single-device engine")
+    del logical
+    want = FleetServingEngine(
+        model, [restamp(pm.params, "reference") for pm in packs],
+        fleet=fleet, max_len=max_len, batch_size=cfg["slots"],
+        collect_logits=True).run(requests())
+    for a, b in zip(comps, want):
+        need(a.tokens == b.tokens and torch.equal(a.logits, b.logits)
+             and a.slot == b.slot,
+             f"request {a.request_id}: the placed kernels differ from the "
+             "plain versions")
+    sync()
+    print(f"  {len(comps)} requests over {n_data} lanes: tokens and logits "
+          "== the single-device engine's and == the plain versions', bit "
+          "for bit")
+    shard = un.shards[0]
+    cache.cleanup()
+    del fleet, packs, params, engine
+    return dict(launches=launches, unembed_shard=shard, open_s=t_open,
+                engine_s=t_eng, shard_widths=list(un.shard_widths),
+                padded_n=un.padded_n, steps=sched["steps"])
+
+
+def mesh_group(ctx, rows: Rows, cfg: dict) -> dict:
+    """The mesh group (``MESH``): (a) sharded training, then every arch's
+    smoke step on mesh positions against the card's one-device step, (b)
+    the pipeline, (c) mamba2 on the fleet, then the placed GEMM / GEMV at
+    its per-shard unembed shape."""
+    from repro_torch.kernels import placed_gemm
+    from repro_torch.launch.mesh import make_host_mesh
+    out = {"train": mesh_train_phase(ctx, cfg["train"])}
+    tr = cfg["train"]
+    phase(f"mesh (a): one step of every arch's smoke config on a "
+          f"{tr['mesh'][0]}x{tr['mesh'][1]} mesh of positions on "
+          f"{ctx.dev} against the one-device step, float32 and bf16")
+    out["smoke"] = print_smoke_steps(
+        ctx, tr, "mesh", "one device",
+        make_host_mesh(*tr["mesh"], device=ctx.dev))
+    free(ctx)
+    out["pipeline"] = mesh_pipeline_phase(ctx, cfg["pipeline"])
+    free(ctx)
+    fl = mesh_fleet_phase(ctx, cfg["fleet"])
+    sh, lw = fl.pop("unembed_shard"), fl["launches"]
+    phase("kernels vs plain versions at the mesh fleet's per-shard "
+          "unembed shape")
+    rows.add("calib_iter", lw["calib_iter"])
+    rows.add("gemm_placed", lw["gemm_placed"], [ctx.gemm_row(
+        placed_gemm.gemm_placed, placed_gemm.gemm_placed_plain, sh,
+        cfg["fleet"]["slots"])])
+    rows.add("gemv_placed", lw["gemv_placed"], [ctx.gemm_row(
+        placed_gemm.gemv_placed, placed_gemm.gemv_placed_plain, sh, 1)])
+    out["fleet"] = fl
+    return {"mesh": out}
 
 
 def free(ctx) -> None:
@@ -4039,7 +4433,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         figures: dict = FIGURES, tune_batches=TUNE_BATCHES,
         weight_bits: int = WEIGHT_BITS, fleet: dict = FLEET,
         families: dict = FAMILIES, train: dict = TRAIN,
-        only=None) -> dict:
+        mesh: dict = MESH, only=None) -> dict:
     """The groups of phases (``GROUPS``, all of them unless ``only`` names
     some) on ``dev``.  ``main`` runs them all on the GPU at full width; a
     CPU rehearsal (``dev`` cpu, smoke preset, small grids and Table-I
@@ -4095,6 +4489,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         "fleet": lambda: fleet_group(ctx, rows, fleet),
         "families": lambda: families_group(ctx, rows, families),
         "train": lambda: train_group(ctx, train),
+        "mesh": lambda: mesh_group(ctx, rows, mesh),
     }
     for g in groups:
         out.update(drive[g]())

@@ -128,7 +128,7 @@ def _mesh_devices(mesh, g: int) -> list | None:
     if g % mesh.size != 0:
         raise ValueError(
             f"{g} subarrays not divisible over {mesh.size} devices")
-    return [d for row in mesh.devices for d in row]
+    return mesh.flat_devices()
 
 
 def calibrate_fleet(seed: int, sense_offsets: torch.Tensor, cfg: FleetConfig,

@@ -16,8 +16,8 @@ frontends' inputs from the seed (patch / frame embeddings, 0.1 x N(0, 1)
 in bf16); the VLM's cache spans its patches too, so decode positions start
 after them.  As in the reference, ``--engine`` and ``--mesh`` skip those
 two families with a message; the hybrid's engine is refused (its cache
-has the batch on axis 2), and the SSM and hybrid are not served on a
-mesh yet.
+has the batch on axis 2), on ``--mesh`` too; the SSM is served on the
+mesh, its packed unembed split over the model shards.
 
 The driver decodes the batch once through the bf16 weights, then, with
 ``--pud-gemv``, opens a ``PUDSession``: calibration (a cached table, or
@@ -273,9 +273,8 @@ def run(args: argparse.Namespace) -> dict:
         if extras:
             print("  fleet: vlm/encdec families not supported yet "
                   "(extras require family-specific prefill); skipping")
-        elif spec.family in ("ssm", "hybrid"):
-            print(f"  fleet: the {spec.family} family is not served on a "
-                  "mesh in this port yet; skipping")
+        elif engine_refusal(model) is not None:
+            print(f"  fleet: {engine_refusal(model)}; skipping")
         else:
             _sharded_serve(args, spec, model, params, tokens, max_len,
                            ref_toks, res)

@@ -1,5 +1,5 @@
-"""End-to-end training driver on one device (port of
-``repro/launch/train.py``; the mesh is not ported yet).
+"""End-to-end training driver on a mesh of positions (port of
+``repro/launch/train.py``).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \\
         --preset smoke --steps 60 --save-every 20 --ckpt-dir /tmp/run1 \\
@@ -12,6 +12,15 @@ int8 error-feedback compression) -> atomic async checkpoints (keep-k,
 LATEST) -> resume of the parameters, the optimizer state and the stream
 -> the step watchdog and heartbeat file.  Runs on the GPU unless
 ``--device`` names another device.
+
+The mesh is ``launch/mesh.make_mesh_for_devices()`` over the visible cards
+unless ``run(..., mesh=)`` gives one; the logical->mesh rules go in with
+the mesh sizes (``sharding_ctx.set_rules``) for the run.  On a mesh of
+more than one position the parameters and AdamW moments are stored as
+per-position shards (``runtime/sharding.py``), initialised whole and cut,
+resumed straight into shards, and trained by the data-parallel step of
+``runtime/steps.py``; a mesh of one position keeps plain tensors and the
+one-device step.
 
 ``--preset smoke`` trains the arch's reduced config, ``paper100m`` a
 ~100M-parameter qwen3-family model, ``full`` the full config.  The exit
@@ -37,11 +46,15 @@ import torch
 from repro_torch.configs import get
 from repro_torch.core.rng import generator
 from repro_torch.devices import resolve_device
+from repro_torch.launch.mesh import make_mesh_for_devices, use_mesh
+from repro_torch.models import sharding_ctx
 from repro_torch.models.params import abstract_params, init_params, \
-    param_count
+    param_count, param_pspecs
+from repro_torch.runtime import sharding as shd
 from repro_torch.runtime.checkpoint import CheckpointManager
 from repro_torch.runtime.data import DataConfig, DataPipeline
-from repro_torch.runtime.optim import OptConfig, init_opt_state
+from repro_torch.runtime.optim import OptConfig, init_opt_state, \
+    opt_state_pspecs
 from repro_torch.runtime.steps import make_train_step
 from repro_torch.runtime.watchdog import Heartbeat, StepWatchdog
 
@@ -110,17 +123,32 @@ def batch_digest(batch: dict) -> str:
 
 
 def run(args: argparse.Namespace, step_context=None, on_restore=None,
-        stop_at: int | None = None) -> dict:
+        stop_at: int | None = None, mesh=None) -> dict:
     """Train as ``main`` does.  ``step_context(step)``, if given, is a
     context manager entered around each step (the caller's profiler);
     ``on_restore(tree)`` sees the restored ``{"params", "opt"}`` before the
     first step of a resumed run; ``stop_at`` ends the run before that step
-    (in-flight saves finish, no final save).  Returns {"rc", "losses",
-    "grad_norms", "lrs", "step_s", "digests" (per step, ``batch_digest``),
-    "start_step", "params", "opt_state", "n_params", "tokens_per_step",
-    "ckpt": {"saves": [{"step", "async", "snapshot_s"}], "writes":
-    CheckpointManager.writes, "restore_s"}}."""
+    (in-flight saves finish, no final save); ``mesh`` replaces the default
+    mesh.  Returns {"rc", "losses", "grad_norms", "lrs", "step_s",
+    "digests" (per step, ``batch_digest``), "start_step", "params",
+    "opt_state", "n_params", "tokens_per_step", "mesh",
+    "bytes_per_position" (parameter and optimizer-state bytes per mesh
+    position, sharded runs), "ckpt": {"saves": [{"step", "async",
+    "snapshot_s"}], "writes": CheckpointManager.writes, "restore_s"}}."""
     dev = resolve_device(args.device)
+    mesh = mesh or make_mesh_for_devices(dev)
+    before = sharding_ctx.get_rules()
+    try:
+        with use_mesh(mesh):
+            rules = shd.make_rules(mesh)
+            sharding_ctx.set_rules({**rules, "_mesh_sizes": mesh.shape})
+            return _run(args, dev, mesh, rules, step_context, on_restore,
+                        stop_at)
+    finally:
+        sharding_ctx.set_rules(before)
+
+
+def _run(args, dev, mesh, rules, step_context, on_restore, stop_at) -> dict:
     spec = get(args.arch)
     model = build_model(args.arch, args.preset)
     lm_cfg = getattr(model.cfg, "lm", None) or model.cfg
@@ -133,6 +161,11 @@ def run(args: argparse.Namespace, step_context=None, on_restore=None,
                           seed=args.seed)
     pipe = DataPipeline(data_cfg)
     defs = model.param_defs()
+    sharded = mesh.size > 1
+    if sharded:
+        pspecs = param_pspecs(defs, rules)
+        cuts = {"params": shd.named(mesh, pspecs),
+                "opt": shd.named(mesh, opt_state_pspecs(pspecs, opt_cfg))}
 
     ckpt = CheckpointManager(args.ckpt_dir, keep=3) if args.ckpt_dir else None
     ck = {"saves": [], "writes": [], "restore_s": None}
@@ -143,7 +176,8 @@ def run(args: argparse.Namespace, step_context=None, on_restore=None,
         tmpl = {"params": tmpl_params,
                 "opt": init_opt_state(tmpl_params, opt_cfg)}
         t0 = time.perf_counter()
-        tree, step, meta = ckpt.restore(tmpl, device=dev)
+        tree, step, meta = ckpt.restore(
+            tmpl, device=dev, shardings=cuts if sharded else None)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         ck["restore_s"] = time.perf_counter() - t0
@@ -157,12 +191,17 @@ def run(args: argparse.Namespace, step_context=None, on_restore=None,
         del tree
     if params is None:
         params = init_params(defs, args.seed, dev)
+        if sharded:
+            params = shd.device_put(params, cuts["params"])
         opt_state = init_opt_state(params, opt_cfg)
 
     n_params = param_count(defs)
+    where = (f"mesh {mesh.shape} ({mesh.describe()})" if sharded
+             else f"1 ({dev})")
     print(f"[train] arch={args.arch} preset={args.preset} params={n_params:,}"
-          f" devices=1 ({dev}) seq={seq} batch={gbs}")
-    step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches)
+          f" devices={where} seq={seq} batch={gbs}")
+    step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches,
+                              batch_axes=shd.batch_axes(mesh))
 
     def on_hang(waited):
         raise TimeoutError(f"step hung for {waited:.0f}s")
@@ -193,7 +232,8 @@ def run(args: argparse.Namespace, step_context=None, on_restore=None,
         batch.update(family_extras(spec, model, batch["tokens"].shape, step,
                                    seed=args.seed))
         out["digests"].append(batch_digest(batch))
-        batch = {k: v.to(dev) for k, v in batch.items()}
+        if not sharded:         # the lanes take their rows themselves
+            batch = {k: v.to(dev) for k, v in batch.items()}
         ctx = step_context(step) if step_context else contextlib.nullcontext()
         with ctx:
             dog.start_step(step)
@@ -226,9 +266,12 @@ def run(args: argparse.Namespace, step_context=None, on_restore=None,
     print(f"[train] loss {first:.4f} -> {last:.4f} "
           f"({'improved' if last < first else 'NOT improved'}), "
           f"stragglers={len(dog.stragglers)}")
+    held = (shd.bytes_per_position({"params": params, "opt": opt_state})
+            if sharded else None)
     return {**out, "rc": 0 if last < first else 1, "start_step": start_step,
             "params": params, "opt_state": opt_state, "n_params": n_params,
-            "tokens_per_step": gbs * seq, "ckpt": ck}
+            "tokens_per_step": gbs * seq, "ckpt": ck, "mesh": mesh,
+            "bytes_per_position": held}
 
 
 def main(argv=None) -> int:

@@ -10,8 +10,9 @@ Layouts are the reference's: q/k/v [B, S, H, Dh], caches [B, Smax, KV, Dh]
 (MLA: the latents ckv [B, Smax, R] and kr [B, Smax, dr]), weights wq/wk/wv
 [D, H, Dh] and wo [H, Dh, D].  Score and PV products accumulate in float32
 as the reference's ``preferred_element_type`` does.  The decode step and
-the prefill chunk write their cache rows in place.  The reference's
-sharding hints have no counterpart on one device.
+the prefill chunk write their cache rows in place.  The full-sequence
+attention and the prefill chunk pad their heads to the installed rules'
+"model" axis, as the reference does (``_pad_heads``).
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ import torch.nn.functional as F
 
 from .layers import rmsnorm, rmsnorm_defs, rope
 from .params import ParamDef
+from .sharding_ctx import padded_head_count
 
 
 def head_proj(p, name: str, x: torch.Tensor, heads: int,
@@ -118,6 +120,26 @@ def _flash(q, k, v, *, causal: bool, kv_chunk: int, q_offset: int = 0):
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def _pad_heads(q, k, v):
+    """Activation-level head padding (``sharding_ctx.padded_head_count``):
+    when the installed rules' "model" axis does not divide the head count,
+    k / v expand to the full head count (the GQA grouping, done eagerly)
+    and q / k / v pad with zero heads to the next multiple.  Returns (q, k,
+    v, true head count); the caller trims the output to that count before
+    ``wo``.  Heads are independent, so the real heads' values do not move;
+    without rules nothing changes."""
+    h_true = q.shape[2]
+    hp = padded_head_count(h_true)
+    if hp != h_true:
+        g = h_true // k.shape[2]
+        if g > 1:
+            k = k.repeat_interleave(g, dim=2)
+            v = v.repeat_interleave(g, dim=2)
+        pad = (0, 0, 0, hp - h_true)
+        q, k, v = F.pad(q, pad), F.pad(k, pad), F.pad(v, pad)
+    return q, k, v, h_true
+
+
 def gqa_attention(p, cfg: AttnConfig, x: torch.Tensor,
                   positions: torch.Tensor, kv_override=None):
     """Full-sequence attention (prefill). x: [B, S, D].
@@ -125,8 +147,9 @@ def gqa_attention(p, cfg: AttnConfig, x: torch.Tensor,
     Returns (out [B, S, D], (k, v)) with k, v [B, S, KV, Dh] for the cache.
     ``kv_override``: (k, v) [B, Skv, KV, Dh] from an encoder
     (``encoder_kv``): q is neither roped nor masked, and the (k, v)
-    returned are the override's.  The reference pads heads only on a
-    model-sharded mesh; on one device its result is this one.
+    returned are the override's.  Under rules whose "model" axis does
+    not divide the head count the heads are padded (``_pad_heads``); the
+    cache keeps the true kv-head count.
     """
     q = head_proj(p, "wq", x, cfg.n_heads, cfg.head_dim)
     if kv_override is None:
@@ -143,9 +166,11 @@ def gqa_attention(p, cfg: AttnConfig, x: torch.Tensor,
         if cfg.qk_norm:
             q = rmsnorm(p["q_norm"], q)
         causal = False
+    cache_kv = (k, v)
+    q, k, v, h_true = _pad_heads(q, k, v)
     out = _flash(q, k, v, causal=causal,
                  kv_chunk=min(cfg.kv_chunk, k.shape[1]))
-    return merge_proj(p, "wo", out), (k, v)
+    return merge_proj(p, "wo", out[:, :, :h_true]), cache_kv
 
 
 def encoder_kv(p, cfg: AttnConfig, memory: torch.Tensor):
@@ -168,9 +193,8 @@ def gqa_prefill_chunk(p, cfg: AttnConfig, x: torch.Tensor,
     ``kv_len`` cache rows (the prompt's pow2 bucket) with the causal mask
     anchored at ``q_offset=start``: row p sees exactly the keys 0..p that a
     whole-bucket prefill shows it, over the same ``kv_len``-row chunking
-    of the softmax, so each row equals the whole prefill's.  The
-    reference's head padding is left out: without a mesh it does nothing.
-    Returns out [B, C, D].
+    of the softmax, so each row equals the whole prefill's.  The heads are
+    padded as in ``gqa_attention``.  Returns out [B, C, D].
     """
     b, c, _ = x.shape
     start = int(start)
@@ -187,9 +211,10 @@ def gqa_prefill_chunk(p, cfg: AttnConfig, x: torch.Tensor,
     cache_v[:, start:start + c] = v_new.to(cache_v.dtype)
     k = cache_k[:, :kv_len].to(x.dtype)
     v = cache_v[:, :kv_len].to(x.dtype)
+    q, k, v, h_true = _pad_heads(q, k, v)
     out = _flash(q, k, v, causal=True, kv_chunk=min(cfg.kv_chunk, kv_len),
                  q_offset=start)
-    return merge_proj(p, "wo", out)
+    return merge_proj(p, "wo", out[:, :, :h_true])
 
 
 def _write_rows(cache: torch.Tensor, lens: torch.Tensor,

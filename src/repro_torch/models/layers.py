@@ -15,6 +15,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .params import ParamDef
+from .sharding_ctx import lane_stats
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -193,4 +194,7 @@ def chunked_softmax_xent(unembed_p, h: torch.Tensor, labels: torch.Tensor,
         loss, n = remat(True, _chunk_loss, h[:, sl], w, labels[:, sl],
                         m[:, sl])
         tot, cnt = tot + loss, cnt + n
+    stats = lane_stats()
+    if stats is not None:           # a data lane of the sharded step
+        stats.xent.append((tot, cnt.detach()))
     return tot / torch.clamp(cnt, min=1.0), cnt

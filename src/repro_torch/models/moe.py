@@ -35,6 +35,7 @@ import torch
 
 from .layers import ffn, ffn_defs, silu
 from .params import ParamDef
+from .sharding_ctx import lane_stats
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +137,10 @@ def moe_ffn(p, cfg: MoEConfig, x: torch.Tensor):
     # Switch-style load-balance loss
     routed = torch.stack([o[2] for o in outs]).to(torch.float32)
     probs = torch.stack([o[1] for o in outs]).to(torch.float32)
+    stats = lane_stats()
+    if stats is not None:           # a data lane of the sharded step
+        stats.moe.append((routed.sum(dim=(0, 1)), probs.sum(dim=(0, 1)),
+                          b * s, cfg.n_experts))
     frac_tokens = routed.mean(dim=(0, 1))
     frac_probs = probs.mean(dim=(0, 1))
     aux = cfg.n_experts * (frac_tokens * frac_probs).sum()

@@ -1,10 +1,16 @@
-"""Parameter definitions and initialisation (port of ``repro/models/params.py``).
+"""Parameter definitions, initialisation and partition specs (port of
+``repro/models/params.py``).
 
 A model is described by a nested dict of ``ParamDef``s (shape, dtype,
 initialiser, logical axes); ``init_params`` materialises it on a device from
 a seed, one ``torch.Generator`` stream per leaf path.  The tree structure
 and leaf names are the reference's, so a parameter tree initialised by the
 JAX package carries across with ``from_numpy``.
+
+``param_pspecs`` maps each leaf's logical axes to mesh axes through a rules
+table (``DEFAULT_RULES``: the heads / mlp / vocab / experts / ssm dims on
+"model", the "embed" dim on "data"); ``runtime/sharding.py`` cuts leaves
+into per-position shards by those specs.
 """
 from __future__ import annotations
 
@@ -89,12 +95,72 @@ def init_params(defs: dict, seed: int, device) -> dict:
     return walk(defs, ())
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict in sorted-key order (the reference's
+    pytree order)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of nested dicts of the same structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    return fn(tree, *rest)
+
+
 def abstract_params(defs: dict) -> dict:
     """The ParamDef tree as meta tensors: shapes and dtypes, no storage
     (a restore template)."""
     if is_def(defs):
         return torch.empty(defs.shape, dtype=defs.dtype, device="meta")
     return {k: abstract_params(defs[k]) for k in sorted(defs)}
+
+
+class PartitionSpec(tuple):
+    """One entry per dimension: a mesh axis name, a tuple of them, or None
+    (replicated); the port's ``jax.sharding.PartitionSpec``."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, axes)
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+# Default logical->mesh rules: 2-D FSDP("data") x TP("model").
+DEFAULT_RULES: dict[str | None, str | None] = {
+    "vocab": "model",
+    "vocab_in": None,
+    "heads": "model",
+    "heads_act": "model",   # attention activations (padded to divisibility)
+    "kv_heads": "model",
+    "head_dim": None,
+    "kv_seq": None,
+    "mlp": "model",
+    "experts": "model",
+    "moe_mlp": None,     # expert FFN hidden: EP already takes "model"
+    "frames": None,      # enc-dec cross-attn source length (1500, indivisible)
+    "ssm": "model",
+    "embed": "data",
+    "stack": None,
+    "conv": None,
+    "norm": None,
+    None: None,
+}
+
+
+def param_pspecs(defs, rules: dict | None = None):
+    """A ``PartitionSpec`` tree (sorted keys) from the leaves' logical axes
+    through ``DEFAULT_RULES`` updated by ``rules``."""
+    merged = dict(DEFAULT_RULES)
+    merged.update(rules or {})
+    return tree_map(lambda d: PartitionSpec(*(merged.get(a, None)
+                                              for a in d.axes)), defs)
 
 
 def param_count(defs: dict) -> int:

@@ -20,6 +20,11 @@ either package restores the other's checkpoints bit for bit).
     moved before anything is deleted); a lost ``LATEST`` falls back to a
     scan of the directory.
 
+Sharded trees (``runtime/sharding.ShardedTensor`` leaves) are saved as
+whole leaves, so a checkpoint written on one mesh restores on another or
+on one device; ``restore(..., shardings=)`` cuts the leaves back into
+shards as it reads them.
+
 Only one process writes (``should_write``); every process may restore.
 """
 from __future__ import annotations
@@ -70,7 +75,12 @@ def _unflatten_into(template, leaves: dict, prefix: str = ""):
 def _to_host(x) -> np.ndarray:
     """A host copy of a leaf as written to disk (a copy even of a CPU
     tensor: the optimizer updates its leaves in place while an async save
-    writes): bfloat16 as its uint16 bits."""
+    writes): bfloat16 as its uint16 bits.  A ``ShardedTensor`` is
+    gathered whole on the host, so the layout does not depend on the
+    mesh."""
+    from .sharding import gather, is_sharded
+    if is_sharded(x):
+        x = gather(x, "cpu")
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -136,7 +146,8 @@ class CheckpointManager:
         out = {}
         for key, leaf in _flatten(tree).items():
             dtype = (str(leaf.dtype).removeprefix("torch.")
-                     if isinstance(leaf, torch.Tensor)
+                     if hasattr(leaf, "dtype") and
+                     isinstance(leaf.dtype, torch.dtype)
                      else str(np.asarray(leaf).dtype))
             out[key] = (_to_host(leaf), dtype)
         return out
@@ -206,24 +217,34 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def restore(self, template, step: int | None = None, device=None,
-                verify: bool = False):
+                verify: bool = False, shardings=None):
         """Restore into the structure of ``template`` (a tree of tensors or
         arrays with the leaves' shapes; meta tensors do).  Leaves come back
         as tensors of their stored dtype on ``device`` (the CPU by
-        default).  ``verify`` recomputes the crc.  Returns (tree, step,
-        metadata)."""
+        default).  ``shardings``: a tree of ``runtime.sharding.
+        NamedSharding`` of the template's structure; each leaf is then
+        read on the host and cut straight into its per-position shards
+        (``ShardedTensor``; the reference's elastic ``device_put``), so no
+        whole leaf is put on a card.  ``verify`` recomputes the crc.
+        Returns (tree, step, metadata)."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         d = self.directory / f"step_{step}"
         manifest = json.loads((d / "manifest.json").read_text())
         device = torch.device(device or "cpu")
+        cuts = _flatten(shardings) if shardings is not None else {}
         leaves, crc = {}, 0
         for key, info in manifest["leaves"].items():
             arr = np.load(d / info["file"])
             if verify:
                 crc = zlib.crc32(arr, crc)
-            leaves[key] = _to_tensor(arr, info["dtype"], device)
+            if key in cuts:
+                from . import sharding as shd
+                leaves[key] = shd.put(_to_tensor(arr, info["dtype"], "cpu"),
+                                      cuts[key])
+            else:
+                leaves[key] = _to_tensor(arr, info["dtype"], device)
         if verify and crc != manifest.get("crc32"):
             raise IOError(f"checkpoint step_{step} failed crc verification")
         return (_unflatten_into(template, leaves), step,

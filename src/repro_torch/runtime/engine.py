@@ -879,7 +879,9 @@ class FleetServingEngine:
     prompt (``prefix_probe``: repeated system prompts land where their KV
     already lives), round-robin otherwise; every lane keeps the
     single-engine semantics, so a request's tokens and logits equal a
-    single-device ``ServingEngine``'s over the same requests.  Scheduler
+    single-device ``ServingEngine``'s over the same requests, for every
+    family that engine serves (the dense and MoE transformers and the
+    SSM; the hybrid is refused as it refuses it).  Scheduler
     extensions pass through to every lane; ``prefix_cache=True`` builds
     one cache per lane (entries hold lane-local KV and must not cross
     lanes).  The model-parallel dimension lives inside each lane's params:

@@ -1,18 +1,44 @@
-"""Train, eval and serving steps (port of ``repro/runtime/steps.py`` on one
-device; greedy decode only).
+"""Train, eval and serving steps (port of ``repro/runtime/steps.py``;
+greedy decode only).
 
 ``make_train_step`` splits the batch into ``microbatches`` row blocks,
 takes each block's gradients with ``torch.autograd.grad`` and sums them in
 float32 (activation memory ~ 1 / microbatches), then applies AdamW, as the
 reference's scan does.  ``.grad`` is never accumulated across backward
 passes: bf16 leaves would sum their microbatches in bf16.
+
+With parameters sharded on a mesh (``runtime/sharding.ShardedTensor``
+leaves) the step is data-parallel over the batch axes, in one process:
+  * every data lane gathers the whole parameter leaves onto its device
+    once a step (an all-gather of the FSDP / model shards);
+  * each microbatch's rows go to the lanes in contiguous blocks, as the
+    reference's ``_constrain_batch`` lays them out (``shard_bounds``;
+    a lane left without rows skips the microbatch);
+  * the loss is global over the microbatch, not a mean of lane means:
+    every lane's forward pass runs under ``record_lane_stats`` first, and
+    the loss is rebuilt from their records -- the masked cross-entropy
+    sums over the summed token count, and each MoE layer's Switch loss
+    from router statistics summed over the lanes (both of its fractions
+    are means over the whole microbatch);
+  * one backward pass over every lane's graph then gives each lane's
+    gradients, which are summed in float32 into gradient shards laid out
+    as the parameters (a reduce-scatter), and AdamW updates every
+    position's slices.
+The compute of the "model" axis is not split (no tensor parallelism): it
+shards storage only.  On several cards the lanes, issued one after
+another from the host, still overlap, since CUDA launches are
+asynchronous.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import torch
 
+from repro_torch.models.sharding_ctx import record_lane_stats
+
+from . import sharding as shd
 from .optim import OptConfig, adamw_update, tree_leaves, tree_map
 
 
@@ -57,14 +83,128 @@ def microbatch_grads(model, params, batch: dict, microbatches: int = 1):
     return loss_sum / microbatches, tree_map(lambda _: next(it), params)
 
 
-def make_train_step(model, opt_cfg: OptConfig,
-                    microbatches: int = 1) -> Callable:
+def lane_devices(mesh, batch_axes=None) -> list:
+    """The data lanes of ``mesh`` in order: the device of the position with
+    the lane's coordinates on ``batch_axes`` (an axis name or a tuple;
+    default ``sharding.batch_axes``) and 0 on the others."""
+    axes = shd.batch_axes(mesh) if batch_axes is None else batch_axes
+    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    names, sizes = mesh.axis_names, mesh.shape
+    out = []
+    for lane in itertools.product(*(range(sizes[a]) for a in axes)):
+        at = dict(zip(axes, lane))
+        out.append(mesh.device(tuple(at.get(a, 0) for a in names)))
+    return out
+
+
+def _aux_weight(model) -> float:
+    cfg = getattr(model.cfg, "lm", model.cfg)
+    return cfg.aux_loss_weight
+
+
+def _global_loss(model, stats: list, home) -> torch.Tensor:
+    """The microbatch's loss from every lane's ``LaneStats``: the masked
+    cross-entropy sum over the total count, plus the aux weight x the
+    Switch loss of each MoE layer from statistics summed over lanes."""
+    if any(len(st.xent) != 1 for st in stats):
+        raise ValueError("a lane's train_loss took the cross-entropy "
+                         f"{[len(st.xent) for st in stats]} times, not once")
+    tot = sum(st.xent[0][0].to(home) for st in stats)
+    cnt = sum(st.xent[0][1].to(home) for st in stats)
+    loss = tot / torch.clamp(cnt, min=1.0)
+    n_moe = {len(st.moe) for st in stats}
+    if n_moe != {0}:
+        if len(n_moe) != 1:
+            raise ValueError(f"lanes ran {n_moe} MoE layers")
+        aux = 0.0
+        for layer in zip(*(st.moe for st in stats)):
+            routed = sum(r.to(home) for r, _, _, _ in layer)
+            probs = sum(p.to(home) for _, p, _, _ in layer)
+            n = sum(t for _, _, t, _ in layer)
+            aux = aux + layer[0][3] * ((routed / n) * (probs / n)).sum()
+        loss = loss + _aux_weight(model) * aux
+    return loss
+
+
+def _lanes_grads(model, params, lane_params: list, lane_batches: list):
+    """(global loss, per lane the gradients of its leaves or None) of one
+    microbatch: each lane's forward pass under ``record_lane_stats``, then
+    one backward pass over all of them."""
+    req = [[p.detach().requires_grad_() for p in lp] for lp in lane_params]
+    stats = []
+    with torch.enable_grad():
+        for r, mb in zip(req, lane_batches):
+            if mb is None:
+                continue
+            it = iter(r)
+            with record_lane_stats() as st:
+                model.train_loss(tree_map(lambda _: next(it), params), mb)
+            stats.append(st)
+        loss = _global_loss(model, stats, lane_params[0][0].device)
+        live = [r for r, mb in zip(req, lane_batches) if mb is not None]
+        flat = torch.autograd.grad(loss, [p for r in live for p in r],
+                                   allow_unused=True)
+    grads, at = [], 0
+    for r, mb in zip(req, lane_batches):
+        if mb is None:
+            grads.append(None)
+        else:
+            grads.append(flat[at:at + len(r)])
+            at += len(r)
+    return loss.detach(), grads
+
+
+def sharded_microbatch_grads(model, params, batch: dict,
+                             microbatches: int = 1, batch_axes=None):
+    """``microbatch_grads`` for ``ShardedTensor`` parameters: (the mean
+    loss over the microbatches on the first lane's device, float32
+    gradients sharded as the parameters)."""
+    leaves = tree_leaves(params)
+    devs = lane_devices(leaves[0].mesh, batch_axes)
+    lane_params = [[shd.gather(p, d) for p in leaves] for d in devs]
+    gacc = [shd.zeros(p.shape, torch.float32, p.sharding) for p in leaves]
+    mbs = _split_microbatches(batch, microbatches)
+    loss_sum = 0.0
+    for i in range(microbatches):
+        mb = {n: v if v.ndim == 0 else v[i] for n, v in mbs.items()}
+        rows = next(v.shape[0] for v in mb.values() if v.ndim)
+        lane_batches = []
+        for lane, d in enumerate(devs):
+            lo, hi = shd.shard_bounds(rows, len(devs), lane)
+            lane_batches.append(None if hi == lo else {
+                n: (v if v.ndim == 0 else v[lo:hi]).to(d)
+                for n, v in mb.items()})
+        loss, grads = _lanes_grads(model, params, lane_params, lane_batches)
+        for j, acc in enumerate(gacc):      # reduce-scatter, float32
+            for c, t in acc.shards.items():
+                sl = shd.local_slices(acc.sharding, acc.shape, c)
+                for g in grads:
+                    if g is not None and g[j] is not None:
+                        t.add_(g[j][sl].to(t.device, torch.float32))
+        loss_sum = loss_sum + loss
+        del grads
+    for acc in gacc:
+        for t in acc.shards.values():
+            t.div_(microbatches)
+    it = iter(gacc)
+    return loss_sum / microbatches, tree_map(lambda _: next(it), params)
+
+
+def make_train_step(model, opt_cfg: OptConfig, microbatches: int = 1,
+                    batch_axes=None) -> Callable:
     """``train_step(params, opt_state, batch)`` -> (params, opt_state,
     {"loss", "grad_norm", "lr"}); the parameters and moments are updated
-    in place (``optim.adamw_update``)."""
+    in place (``optim.adamw_update``).  Sharded parameters take the
+    data-parallel step over ``batch_axes`` (default the mesh's
+    ``sharding.batch_axes``); plain ones the one-device step."""
 
     def train_step(params, opt_state, batch):
-        loss, grads = microbatch_grads(model, params, batch, microbatches)
+        if shd.is_sharded(tree_leaves(params)[0]):
+            loss, grads = sharded_microbatch_grads(
+                model, params, batch, microbatches, batch_axes)
+        else:
+            loss, grads = microbatch_grads(model, params, batch,
+                                           microbatches)
         params, opt_state, om = adamw_update(params, grads, opt_state,
                                              opt_cfg)
         return params, opt_state, {"loss": loss, **om}

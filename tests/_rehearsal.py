@@ -57,7 +57,14 @@ def cpu_scales(cs) -> dict:
                       prompt=8, gen=4,
                       ragged=dict(n=6, prompt=(4, 12), budget=(2, 6))),
         train=dict(cs.TRAIN, preset="smoke", seq_len=64, global_batch=8,
-                   microbatches=2))
+                   microbatches=2),
+        mesh=dict(
+            train=dict(cs.MESH["train"], preset="smoke", seq_len=64,
+                       global_batch=8, microbatches=2),
+            pipeline=dict(cs.MESH["pipeline"], preset="smoke", seq=16,
+                          rows=2, stages=2),     # the smoke qwen3: 2 layers
+            fleet=dict(cs.MESH["fleet"], preset="smoke", grid=SMALL_GRID,
+                       widen=dict(vocab=512), prompt=8, gen=4)))
 
 
 def rehearse(group: str, capsys, tmp_path, monkeypatch):

@@ -252,8 +252,10 @@ def test_serve_families_through_the_cli(tmp_path, capsys):
 @pytest.mark.parametrize("arch,line", [
     ("whisper-large-v3", "fleet: vlm/encdec families not supported yet"),
     ("pixtral-12b", "fleet: vlm/encdec families not supported yet"),
-    ("mamba2-1.3b", "fleet: the ssm family is not served on a mesh"),
-    ("zamba2-7b", "fleet: the hybrid family is not served on a mesh")])
+    # the SSM is served on the fleet; the hybrid keeps its engine's refusal
+    ("mamba2-1.3b", "fleet engine: 2 requests over 2 lanes"),
+    ("zamba2-7b", "fleet: the continuous-batching engine needs the batch "
+     "on axis 1")])
 def test_serve_mesh_skips_the_new_families(arch, line, tmp_path, capsys):
     assert serve.main(["--arch", arch, *SMOKE_ARGV, "--pud-gemv",
                        "--engine", "--mesh", "2,2", "--calib-cache",

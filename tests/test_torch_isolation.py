@@ -73,7 +73,9 @@ SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "runtime/steps.py", "runtime/engine.py",
                  "runtime/optim.py", "runtime/data.py",
                  "runtime/checkpoint.py", "launch/train.py",
-                 "models/params.py", "configs/registry.py")
+                 "models/params.py", "configs/registry.py",
+                 "runtime/sharding.py", "models/sharding_ctx.py",
+                 "runtime/pipeline.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)
