@@ -228,11 +228,24 @@ Phases (any failure exits nonzero and prints no result line):
      4 slots per lane) with every lane == a single-device engine and the
      run == its plain-version replay, bit for bit; then the placed GEMM /
      GEMV at the per-shard unembed shape;
- 19. print the ``kernels`` JSON line and, last, the device JSON line.
+ 19. the dry-run group (``DRYRUN``), after the mesh's state is freed: the
+     dry run (``launch/dryrun.py``, on meta tensors) predicts (a) TRAIN's
+     qwen3-1.7b step (8 x 2,048 tokens in 4 microbatches) and (b) the
+     qwen3-1.7b lane of decode_32k (tokens [8, 1] against a 32,768-token
+     bf16 cache), each on a one-position (1, 1) mesh, and the same steps
+     run on a (1, 1) mesh on the card: predicted FLOPs within 2% of
+     ``torch.profiler``'s (``with_flops``, matrix products), the predicted
+     peak within 15% of ``max_memory_allocated``, the roofline's bound
+     beside the measured device time (for (b) the median of 5 profiled
+     steps); (c) ``launch.dryrun`` on the single mesh for one cell per
+     family (qwen3 train_4k, deepseek-v2-lite decode_32k, mamba2
+     long_500k, whisper and pixtral prefill_32k), each record complete,
+     finite and non-zero, then the roofline over the records;
+ 20. print the ``kernels`` JSON line and, last, the device JSON line.
 
 The phases run in groups that share no state (``GROUPS``: main = 3-9,
 papers = 9 (Table I on) - 12, gemma = 13, deepseek = 14, fleet = 15,
-families = 16, train = 17, mesh = 18); each
+families = 16, train = 17, mesh = 18, dryrun = 19); each
 group adds its launches and timed shapes to the kernel rows (``Rows``),
 which are assembled and printed last.  ``run(only=[...])`` drives some
 groups, as the CPU rehearsal does (``tests/test_torch_rehearsal_*.py``);
@@ -416,6 +429,25 @@ MESH = dict(
                          n_cols=65536),
                requests=ENGINE_BATCH, prompt=PROMPT, gen=GEN,
                slots=ENGINE_SLOTS, widen=None))
+
+
+# the dry-run group (item 19): the dry run's prediction of two steps, each
+# on a one-position (1, 1) mesh so that the prediction is the program the
+# card runs, against the same steps on the card: (a) TRAIN's qwen3-1.7b
+# step (8 x 2,048 tokens in 4 microbatches) and (b) the qwen3-1.7b lane of
+# decode_32k on the single mesh (8 of its 128 rows against a 32,768-token
+# bf16 cache, 30.1 GB), FLOPs within ``flops_rtol`` of the profiler's
+# count, the peak within ``peak_rtol`` of ``max_memory_allocated``; then
+# the dry run of one cell per family on the single mesh and the roofline
+# over the records.
+DRYRUN = dict(
+    arch=ARCH, preset="full",
+    train=dict(seq_len=2048, global_batch=8, microbatches=4),
+    decode=dict(seq_len=32768, batch=8, steps=5),
+    flops_rtol=0.02, peak_rtol=0.15,
+    cells=(("qwen3-1.7b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"),
+           ("mamba2-1.3b", "long_500k"), ("whisper-large-v3", "prefill_32k"),
+           ("pixtral-12b", "prefill_32k")))
 
 
 class PhaseError(RuntimeError):
@@ -1126,8 +1158,9 @@ def figures_phase(torch, dev, scale: dict, kernels, sync) -> dict:
     from repro_torch.benchmarks.common import BenchScale
     need(scale.get("check_plain"), "drift_recovery's and placement's "
          "kernel launches would run unchecked: set check_plain")
+    # the roofline reads the dry run's records: the dryrun group runs it
     names = [n for n in bench_run.BENCHES if n not in (
-        "table1", "fleet", *BENCHMARKS)]
+        "table1", "fleet", "roofline", *BENCHMARKS)]
     phase(f"the paper's figures: benchmarks.run {names} at {scale}")
     reset_counts(kernels)
     walls = bench_run.run_benches(names, BenchScale(**scale), dev)
@@ -2399,7 +2432,7 @@ KERNEL_ROWS = {
 #: kernel rows, and ``run(only=...)`` drives a subset (the CPU rehearsal
 #: runs one group per test file).
 GROUPS = ("main", "papers", "gemma", "deepseek", "fleet", "families",
-          "train", "mesh")
+          "train", "mesh", "dryrun")
 
 
 class Rows:
@@ -4416,6 +4449,206 @@ def mesh_group(ctx, rows: Rows, cfg: dict) -> dict:
     return {"mesh": out}
 
 
+#: the profiler's names of the matrix products (the dry run's FLOPs)
+MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+def profiled_step(ctx, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` with FLOP counting:
+    {"flops": the FLOPs of the matrix products that ran, "aborted": (calls,
+    FLOPs) of those that did not, "device_ms": the card's events (None off
+    the card), "peak": ``max_memory_allocated`` over the call (None off
+    the card)}; read from the raw trace, as ``step_profiler``.
+
+    ``torch.utils.checkpoint`` stops a recompute once it holds every
+    tensor the backward needs: inside the autograd kernel of the last
+    product, whose inputs its pack hook saves (``detach``) before the
+    product runs.  The profiler has recorded that call and its FLOPs; it
+    ran nothing else.  Such a call is told apart by its nested events:
+    ``detach`` alone."""
+    import bisect
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch = ctx.torch
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if ctx.on_card
+                                     else [])
+    if ctx.on_card:
+        torch.cuda.reset_peak_memory_stats()
+    with profile(activities=acts, with_flops=True, record_shapes=True) as p:
+        fn()
+        ctx.sync()
+    dev_ns = 0
+    threads = collections.defaultdict(list)
+    for e in p.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            dev_ns += e.duration_ns()
+        else:
+            threads[e.start_thread_id()].append(e)
+    flops, aborted = 0, [0, 0]
+    for evs in threads.values():
+        evs.sort(key=lambda e: (e.start_ns(), -e.duration_ns()))
+        starts = [e.start_ns() for e in evs]
+        for i, e in enumerate(evs):
+            if e.name() not in MATMUL_OPS:
+                continue
+            end = bisect.bisect_left(starts, e.start_ns() + e.duration_ns())
+            nested = {x.name() for x in evs[i + 1:end]}
+            if nested and nested <= {"aten::detach", "detach"}:
+                aborted[0] += 1
+                aborted[1] += e.flops()
+            else:
+                flops += e.flops()
+    return dict(flops=flops, aborted=tuple(aborted),
+                device_ms=dev_ns / 1e6 if ctx.on_card else None,
+                peak=torch.cuda.max_memory_allocated() if ctx.on_card
+                else None)
+
+
+def print_prediction(label: str, rec: dict, got: dict, cfg: dict,
+                     device_ms=None, flops_limit: bool = True) -> None:
+    """The dry run's FLOPs, peak and roofline bound beside the card's;
+    fails past ``peak_rtol`` and (``flops_limit``) ``flops_rtol``."""
+    from repro_torch.benchmarks import roofline
+    t = roofline.terms(rec)
+    bound = max(t.values())
+    f_err = got["flops"] / rec["flops_per_device"] - 1
+    print(f"  {label}: FLOPs predicted {rec['flops_per_device']:.6e}, "
+          f"profiler {got['flops']:.6e} ({f_err:+.4%}; matrix products)")
+    n, f = got.get("aborted", (0, 0))
+    if n:
+        print(f"  {label}: {n} more product calls ({f:.6e} FLOPs) recorded "
+              "by the profiler ran nothing: checkpoint recomputes that "
+              "stopped inside them")
+    peak = got["peak"]
+    if peak is not None:
+        p_err = peak / rec["peak_bytes_per_device"] - 1
+        print(f"  {label}: peak predicted "
+              f"{rec['peak_bytes_per_device'] / 2**30:.3f} GiB, "
+              f"max_memory_allocated {peak / 2**30:.3f} GiB ({p_err:+.2%})")
+    dev = "not measured" if device_ms is None else f"{device_ms:.3f} ms"
+    print(f"  {label}: roofline bound {bound * 1e3:.3f} ms "
+          f"({max(t, key=t.get)}: compute {t['compute'] * 1e3:.3f}, memory "
+          f"{t['memory'] * 1e3:.3f}, collective {t['collective'] * 1e3:.3f}"
+          f" ms; {rec['bytes_per_device']:.4e} bytes), measured device "
+          f"time {dev}; trace {rec['trace_s']} s")
+    need(not flops_limit or abs(f_err) <= cfg["flops_rtol"],
+         f"{label}: the profiler's FLOPs differ from the dry run's by "
+         f"{f_err:+.4%}")
+    if peak is not None:
+        need(abs(p_err) <= cfg["peak_rtol"], f"{label}: the peak differs "
+             f"from the dry run's by {p_err:+.2%}")
+
+
+def dryrun_group(ctx, cfg: dict) -> dict:
+    """The dry-run group (``DRYRUN``): (a) a train step and (b) decode
+    steps predicted on a meta (1, 1) mesh and run on a (1, 1) mesh on the
+    card; (c) one cell per family on the single mesh, then the
+    roofline."""
+    from repro_torch.benchmarks import roofline
+    from repro_torch.configs import ShapeCell, get
+    from repro_torch.core.rng import generator
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models.params import init_params, param_pspecs
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.optim import (OptConfig, init_opt_state,
+                                           tree_map)
+    torch, dev = ctx.torch, ctx.dev
+    spec = get(cfg["arch"])
+    model = spec.make_model() if cfg["preset"] == "full" else \
+        spec.make_smoke()
+    vocab = getattr(model.cfg, "lm", model.cfg).vocab
+    meta = make_mesh((1, 1), ("data", "model"), device="meta")
+    mesh = make_host_mesh(1, 1, device=dev)
+    gen = generator(SEED, "chip-smoke-dryrun", device=dev)
+    out = {}
+
+    tc = cfg["train"]
+    cell = ShapeCell("train", "train", tc["seq_len"], tc["global_batch"])
+    phase(f"dryrun (a): {cfg['arch']} ({cfg['preset']}) train step, "
+          f"{tc['global_batch']} x {tc['seq_len']} tokens in "
+          f"{tc['microbatches']} microbatches on a (1, 1) mesh: the dry "
+          f"run's prediction against the step on {dev}")
+    rec = dryrun.run_cell(cfg["arch"], cell, meta, "1x1",
+                          microbatch=tc["microbatches"], model=model)
+    rules = shd.make_rules(mesh, dryrun.sharding_overrides(spec, mesh,
+                                                           "train"))
+    defs = model.param_defs()
+    plain = init_params(defs, SEED, dev)
+    params = shd.device_put(plain, shd.named(mesh, param_pspecs(defs,
+                                                                rules)))
+    del plain
+    opt = OptConfig()
+    state = init_opt_state(params, opt)
+    toks = torch.randint(0, vocab, (tc["global_batch"], tc["seq_len"] + 1),
+                         generator=gen, device=dev, dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    step = steps.make_train_step(model, opt, tc["microbatches"])
+    with rules_for(mesh):
+        step(params, state, batch)                  # warm-up
+        got = profiled_step(ctx, lambda: step(params, state, batch))
+    print_prediction("(a) train step", rec, got, cfg, got["device_ms"])
+    out["train"] = dict(record=rec, measured=got)
+    del state, batch, toks
+    free(ctx)
+
+    dc = cfg["decode"]
+    cell = ShapeCell("decode_32k", "decode", dc["seq_len"], dc["batch"])
+    phase(f"dryrun (b): the {cfg['arch']} lane of decode_32k, tokens "
+          f"[{dc['batch']}, 1] against a {dc['seq_len']:,}-token cache on a "
+          f"(1, 1) mesh: the prediction against {dc['steps']} steps on "
+          f"{dev}")
+    rec = dryrun.run_cell(cfg["arch"], cell, meta, "1x1", model=model)
+    cdefs = model.cache_defs(dc["batch"], dc["seq_len"])
+    crules = shd.make_rules(mesh, dryrun.sharding_overrides(spec, mesh,
+                                                            "decode"))
+    cache = tree_map(lambda d, s: shd.zeros(d.shape, d.dtype,
+                                            shd.NamedSharding(mesh, s)),
+                     cdefs, param_pspecs(cdefs, crules))
+    tokens = torch.randint(0, vocab, (dc["batch"], 1), generator=gen,
+                           device=dev, dtype=torch.int32)
+    decode = steps.make_lane_decode_step(model, (0, 0))
+    cur = dc["seq_len"] - 1
+    with rules_for(mesh), torch.no_grad():
+        logits, _ = decode(params, cache, tokens, cur)      # warm-up
+        need(bool(torch.isfinite(logits).all()) and tuple(logits.shape)
+             == (dc["batch"], vocab), "decode gave no finite logits")
+        runs = [profiled_step(ctx, lambda: decode(params, cache, tokens,
+                                                  cur))
+                for _ in range(dc["steps"])]
+    device_ms = [r["device_ms"] for r in runs]
+    got = dict(runs[-1], peak=max(r["peak"] for r in runs)
+               if ctx.on_card else None)
+    med = statistics.median(device_ms) if ctx.on_card else None
+    print(f"  (b) device time per step {device_ms} ms, median {med}")
+    print_prediction("(b) decode step", rec, got, cfg, med,
+                      flops_limit=False)
+    out["decode"] = dict(record=rec, measured=got, device_ms=device_ms)
+    del params, cache
+    free(ctx)
+
+    phase(f"dryrun (c): launch.dryrun on the single mesh for "
+          f"{len(cfg['cells'])} cells, then the roofline")
+    recs = {}
+    for arch, shape in cfg["cells"]:
+        rc = dryrun.main(["--mesh", "single", "--arch", arch, "--shape",
+                          shape, "--force"])
+        need(rc == 0, f"launch.dryrun failed on {arch} / {shape}")
+        r = json.loads((dryrun.ART / "single" / f"{arch}__{shape}.json")
+                       .read_text())
+        vals = [r["flops_per_device"], r["bytes_per_device"],
+                r["peak_bytes_per_device"], r["collectives"]["total_bytes"]]
+        need(r["ok"] and all(math.isfinite(v) and v > 0 for v in vals),
+             f"{arch} / {shape}: an incomplete record {vals}")
+        recs[f"{arch}/{shape}"] = r
+    roofline.main(["--mesh", "single"])
+    out["grid"] = recs
+    return {"dryrun": out}
+
+
 def free(ctx) -> None:
     """Drop what the last group left, so the next one has the card."""
     gc.collect()
@@ -4433,7 +4666,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         figures: dict = FIGURES, tune_batches=TUNE_BATCHES,
         weight_bits: int = WEIGHT_BITS, fleet: dict = FLEET,
         families: dict = FAMILIES, train: dict = TRAIN,
-        mesh: dict = MESH, only=None) -> dict:
+        mesh: dict = MESH, dryrun: dict = DRYRUN, only=None) -> dict:
     """The groups of phases (``GROUPS``, all of them unless ``only`` names
     some) on ``dev``.  ``main`` runs them all on the GPU at full width; a
     CPU rehearsal (``dev`` cpu, smoke preset, small grids and Table-I
@@ -4490,6 +4723,7 @@ def run(torch, dev, preset: str = "full", grid: dict = GRID,
         "families": lambda: families_group(ctx, rows, families),
         "train": lambda: train_group(ctx, train),
         "mesh": lambda: mesh_group(ctx, rows, mesh),
+        "dryrun": lambda: dryrun_group(ctx, dryrun),
     }
     for g in groups:
         out.update(drive[g]())

@@ -9,8 +9,8 @@ reliability (Fig. 6) -> Algorithm-1 convergence -> fleet calibration ->
 CUDA kernels vs plain versions -> kernel microbenchmark (traffic, tuned
 plans) -> MVDRAM serving table -> serving engine (batch sweep, shard scaling,
 heavy-tail trace) -> drift recovery (canary detect + hot swap) -> MAJX
-generalization -> column placement.  Only what the port has is
-registered; the reference's roofline benchmark is not ported yet.
+generalization -> column placement -> roofline summary (reads the dry
+run's records if present).
 
 A raising benchmark is reported, the others still run, and the process
 exits 1.
@@ -113,6 +113,18 @@ def _placement(scale, device):
     placement.report(scale, device)
 
 
+def _roofline(scale, device):
+    """Roofline summary from the dry run's records (if present)."""
+    from . import roofline
+    for mesh in ("single", "multi"):
+        rows = roofline.load(mesh, "base")
+        if rows:
+            print(f"\n-- mesh: {mesh} ({len(rows)} cells)")
+            print(roofline.fmt_table(rows))
+        else:
+            print(f"\n-- mesh: {mesh}: {roofline.hint(mesh)}")
+
+
 BENCHES: dict[str, Callable[[BenchScale, object], None]] = {
     "fig3": _fig3,
     "table1": _table1,
@@ -127,6 +139,7 @@ BENCHES: dict[str, Callable[[BenchScale, object], None]] = {
     "drift": _drift,
     "majx": _majx,
     "placement": _placement,
+    "roofline": _roofline,
 }
 
 

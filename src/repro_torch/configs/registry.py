@@ -1,15 +1,33 @@
 """Architecture registry (port of ``repro/configs/registry.py``): each
 ``ArchSpec`` builds its full-size model and a reduced smoke model of the
-same family."""
+same family, and gives meta-tensor stand-ins for every input of a shape
+cell (``input_specs``, ``cache_specs``), which the dry run
+(``launch/dryrun.py``) traces against; nothing is allocated."""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Callable
 
+import torch
 
-#: The reference's shape cells by name (its dry-run grid is not ported):
-#: long_500k applies only to the sub-quadratic-decode families (ssm,
-#: hybrid).
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str            # "train" | "prefill" | "decode"
+    seq_len: int
+    global_batch: int
+
+
+SHAPES = {
+    "train_4k": ShapeCell("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeCell("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeCell("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeCell("long_500k", "decode", 524288, 1),
+}
+
+#: The dry-run grid's shape names: long_500k applies only to the
+#: sub-quadratic-decode families (ssm, hybrid).
 ALL_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 QUADRATIC_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 
@@ -27,6 +45,41 @@ class ArchSpec:
     # microbatches per shape cell (configs/archs.MB, MB_BIG)
     microbatch: dict[str, int] = dataclasses.field(default_factory=dict)
     notes: str = ""
+
+    def input_specs(self, shape) -> dict:
+        """Meta tensors for every model input of the shape cell (a name in
+        ``SHAPES`` or a ``ShapeCell``): int32 tokens (and labels), the
+        VLM's bf16 ``patches`` [B, 256, 1024] with S - 256 text tokens,
+        the encoder-decoder's bf16 ``frames`` [B, 1500, 1280]; at decode
+        tokens [B, 1] and a 0-d int32 ``cur_len``."""
+        cell = SHAPES[shape] if isinstance(shape, str) else shape
+        b, s = cell.global_batch, cell.seq_len
+
+        def meta(shape, dtype=torch.int32):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        extras = {}
+        text_len = s
+        if self.family == "vlm":
+            n_patch, d_vit = 256, 1024
+            extras["patches"] = meta((b, n_patch, d_vit), torch.bfloat16)
+            text_len = s - n_patch
+        if self.family == "encdec":
+            extras["frames"] = meta((b, 1500, 1280), torch.bfloat16)
+        if cell.kind == "train":
+            return {"tokens": meta((b, text_len)),
+                    "labels": meta((b, text_len)), **extras}
+        if cell.kind == "prefill":
+            return {"tokens": meta((b, text_len)), **extras}
+        # decode: one new token against a cache of seq_len
+        return {"tokens": meta((b, 1)), "cur_len": meta(())}
+
+    def cache_specs(self, shape):
+        """The decode cache of the shape cell as meta tensors."""
+        from repro_torch.models.params import abstract_params
+        cell = SHAPES[shape] if isinstance(shape, str) else shape
+        return abstract_params(self.make_model().cache_defs(
+            cell.global_batch, cell.seq_len))
 
 
 _REGISTRY: dict[str, ArchSpec] = {}
@@ -49,3 +102,9 @@ def get(arch_id: str) -> ArchSpec:
 def all_archs() -> list[str]:
     from . import archs  # noqa: F401
     return sorted(_REGISTRY)
+
+
+def grid() -> list[tuple[str, str]]:
+    """Every (arch, shape) cell of the dry run, archs sorted."""
+    from . import archs  # noqa: F401
+    return [(a, s) for a in sorted(_REGISTRY) for s in _REGISTRY[a].shapes]

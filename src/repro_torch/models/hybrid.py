@@ -21,8 +21,9 @@ With attention packing the shared block's wq / wk / wv / wo are packed
 once and serve every use; its FFN sits under ``shared/ffn``, outside the
 packable ``mixer`` scope, so it stays in bf16 as in the reference.
 
-``train_loss`` rematerialises every Mamba2 block and every use of the
-shared block under ``cfg.remat``.
+``train_loss`` rematerialises under ``cfg.remat`` as the reference's
+nested ``jax.checkpoint``s do: every segment (its Mamba2 blocks and the
+shared block's use) and, inside it and in the tail, every Mamba2 block.
 """
 from __future__ import annotations
 
@@ -152,6 +153,14 @@ class HybridLM:
         delta = (hn @ lora["ffn_a"].to(dtype)) @ lora["ffn_b"].to(dtype)
         return f + delta @ shared["ffn"]["wo"].to(dtype)
 
+    def _segment_full(self, shared, seg, h, positions):
+        """One segment in training: its Mamba2 blocks (each rematerialised
+        under ``cfg.remat``), then the shared block with its LoRA."""
+        c = self.cfg
+        h, _, _ = mamba_stack_full(self.ssm, seg["mamba"], h,
+                                   c.mamba_per_segment, c.remat)
+        return self._shared_block_full(shared, seg["lora"], h, positions)[0]
+
     def _shared_block_full(self, shared, lora, h, positions):
         hn = rmsnorm(shared["ln1"], h)
         a, kv = attn_mod.gqa_attention(shared["attn"],
@@ -180,10 +189,7 @@ class HybridLM:
         h = embed(params["embed"], tokens).to(c.dtype)
         shared = params["shared"]
         for seg in layer_slices(params["segments"], c.n_shared_uses):
-            h, _, _ = mamba_stack_full(self.ssm, seg["mamba"], h,
-                                       c.mamba_per_segment, c.remat)
-            h, _ = remat(c.remat, self._shared_block_full, shared,
-                         seg["lora"], h, positions)
+            h = remat(c.remat, self._segment_full, shared, seg, h, positions)
         if c.n_tail:
             h, _, _ = mamba_stack_full(self.ssm, params["tail"], h, c.n_tail,
                                        c.remat)

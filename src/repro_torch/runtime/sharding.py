@@ -23,9 +23,19 @@ divide n (``shard_bounds``; JAX's uneven shards are padded to that block
 size too).  A position holds the blocks its coordinates on the mapped
 axes select, and a copy of the whole dimension where no axis maps to it:
 positions that differ only on axes a leaf does not use hold equal copies.
+
+``count_transfers`` counts, inside its block, the bytes that cross
+between positions: what ``gather`` and ``put`` copy from one position to
+another, and the float32 gradient blocks of the sharded train step's
+reduce-scatter (``runtime/steps.reduce_grads_at``), under the reference's
+collective kinds.  Positions are told apart by coordinate, not by device:
+every position of a one-card or meta mesh shares a device.  Outside the
+block nothing is counted.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 
 import torch
@@ -160,13 +170,18 @@ class ShardedTensor:
 
 def put(x: torch.Tensor, sharding: NamedSharding) -> ShardedTensor:
     """Cut ``x`` by ``sharding`` into a copy per position (the
-    reference's ``device_put`` of one leaf)."""
+    reference's ``device_put`` of one leaf).  ``x`` counts as sitting at
+    the mesh's first position (where ``optim`` gathers a leaf to compress
+    it): the copies to the others count as "collective-permute"."""
     _check(sharding, x.dim())
     mesh, shards = sharding.mesh, {}
+    home = mesh.positions()[0]
     for c in mesh.positions():
         part = x[local_slices(sharding, x.shape, c)]
         shards[c] = torch.empty(part.shape, dtype=x.dtype,
                                 device=mesh.device(c)).copy_(part)
+        moved("collective-permute", home, c,
+              part.numel() * part.element_size())
     return ShardedTensor(sharding, tuple(x.shape), x.dtype, shards)
 
 
@@ -181,11 +196,41 @@ def zeros(shape, dtype, sharding: NamedSharding) -> ShardedTensor:
     return ShardedTensor(sharding, tuple(shape), dtype, shards)
 
 
-def gather(st: ShardedTensor, device) -> torch.Tensor:
-    """The whole leaf on ``device`` (an all-gather of its blocks)."""
-    full = torch.empty(st.shape, dtype=st.dtype, device=device)
-    for c, t in st.canonical():
-        full[local_slices(st.sharding, st.shape, c)].copy_(t)
+def gather(st: ShardedTensor, device, at=None,
+           rows: int | None = None) -> torch.Tensor:
+    """The whole leaf on ``device`` (an all-gather of its blocks).
+
+    Without ``at`` the blocks come from ``canonical()``'s holders.  With
+    ``at``, the receiving position's coordinates, each block comes from
+    the holder that agrees with ``at`` on the axes the leaf's spec does
+    not use, the blocks from other positions count as "all-gather"
+    (``count_transfers``), and a leaf that ``at`` holds whole on
+    ``device`` comes back as ``at``'s own shard, not copied.  ``rows`` (a
+    dimension) keeps only ``at``'s block along it: a lane's rows of a
+    cache."""
+    names = st.mesh.axis_names
+    ref = (0,) * len(names) if at is None else tuple(at)
+    want = local_slices(st.sharding, st.shape, ref)
+    shape = list(st.shape)
+    if rows is not None:
+        shape[rows] = want[rows].stop - want[rows].start
+    own = None if at is None else st.shards.get(ref)
+    if (own is not None and tuple(own.shape) == tuple(shape)
+            and own.device == torch.device(device)):
+        return own
+    used = {a for e in st.sharding.spec for a in _dim_axes(e)}
+    full = torch.empty(shape, dtype=st.dtype, device=device)
+    for c, t in st.shards.items():
+        if any(i != r for a, i, r in zip(names, c, ref) if a not in used):
+            continue
+        sl = list(local_slices(st.sharding, st.shape, c))
+        if rows is not None:
+            if sl[rows] != want[rows]:
+                continue
+            sl[rows] = slice(0, shape[rows])
+        full[tuple(sl)].copy_(t)
+        if at is not None:
+            moved("all-gather", c, ref, t.numel() * t.element_size())
     return full
 
 
@@ -227,6 +272,48 @@ def replicated_sum(st: ShardedTensor, fn) -> torch.Tensor:
     for _, t in st.canonical():
         total = total + fn(t).to(dev)
     return total
+
+
+# -- bytes that cross between positions -------------------------------------
+
+#: The reference's collective kinds (``repro/launch/hlo_analysis.py``).
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+@dataclasses.dataclass
+class Transfers:
+    """Bytes and copies that crossed between positions, by kind."""
+
+    bytes: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVES, 0))
+    counts: dict = dataclasses.field(
+        default_factory=lambda: dict.fromkeys(COLLECTIVES, 0))
+
+
+_TRANSFERS: contextvars.ContextVar[Transfers | None] = contextvars.ContextVar(
+    "repro_torch_transfers", default=None)
+
+
+@contextlib.contextmanager
+def count_transfers():
+    """Count the position-crossing copies made in the block into the
+    ``Transfers`` yielded (an enclosing count sees none of them)."""
+    rec = Transfers()
+    token = _TRANSFERS.set(rec)
+    try:
+        yield rec
+    finally:
+        _TRANSFERS.reset(token)
+
+
+def moved(kind: str, src, dst, nbytes: int) -> None:
+    """Record ``nbytes`` copied from position ``src`` to ``dst`` under
+    ``kind``, inside ``count_transfers`` and when the two differ."""
+    rec = _TRANSFERS.get()
+    if rec is not None and nbytes and tuple(src) != tuple(dst):
+        rec.bytes[kind] += nbytes
+        rec.counts[kind] += 1
 
 
 # -- sharded PUD packs --------------------------------------------------------

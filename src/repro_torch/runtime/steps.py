@@ -25,7 +25,12 @@ leaves) the step is data-parallel over the batch axes, in one process:
     as the parameters (a reduce-scatter), and AdamW updates every
     position's slices.
 The compute of the "model" axis is not split (no tensor parallelism): it
-shards storage only.  On several cards the lanes, issued one after
+shards storage only.  Each piece is a function of its own
+(``gather_lane_params``, ``lanes_grads``, ``reduce_grads_at``: position
+by position), so the dry run (``launch/dryrun.py``) traces one lane's and
+one position's part of the same code; ``make_lane_prefill_step`` /
+``make_lane_decode_step`` are the serving steps of a lane on sharded
+parameters and cache.  On several cards the lanes, issued one after
 another from the host, still overlap, since CUDA launches are
 asynchronous.
 """
@@ -83,18 +88,40 @@ def microbatch_grads(model, params, batch: dict, microbatches: int = 1):
     return loss_sum / microbatches, tree_map(lambda _: next(it), params)
 
 
-def lane_devices(mesh, batch_axes=None) -> list:
-    """The data lanes of ``mesh`` in order: the device of the position with
-    the lane's coordinates on ``batch_axes`` (an axis name or a tuple;
-    default ``sharding.batch_axes``) and 0 on the others."""
+def lane_positions(mesh, batch_axes=None) -> list:
+    """The data lanes of ``mesh`` in order: the coordinates of the
+    position with the lane's coordinates on ``batch_axes`` (an axis name
+    or a tuple; default ``sharding.batch_axes``; ``()`` makes one lane
+    that runs the whole batch) and 0 on the others."""
     axes = shd.batch_axes(mesh) if batch_axes is None else batch_axes
     axes = (axes,) if isinstance(axes, str) else tuple(axes)
     names, sizes = mesh.axis_names, mesh.shape
     out = []
     for lane in itertools.product(*(range(sizes[a]) for a in axes)):
         at = dict(zip(axes, lane))
-        out.append(mesh.device(tuple(at.get(a, 0) for a in names)))
+        out.append(tuple(at.get(a, 0) for a in names))
     return out
+
+
+def gather_lane_params(leaves: list, lane) -> list:
+    """Every sharded parameter leaf whole at the lane's position (an
+    all-gather; a leaf the lane holds whole is its own shard)."""
+    return [shd.gather(p, p.mesh.device(lane), at=lane) for p in leaves]
+
+
+def reduce_grads_at(gacc: list, grads: list, lanes: list, at) -> None:
+    """Position ``at``'s part of the float32 reduce-scatter: every lane's
+    block of each gradient leaf, sent as float32 ("reduce-scatter" in
+    ``sharding.count_transfers``), added into ``at``'s accumulator shard
+    in lane order.  ``grads``: per lane its leaf gradients or None."""
+    for j, acc in enumerate(gacc):
+        t = acc.shards[at]
+        sl = shd.local_slices(acc.sharding, acc.shape, at)
+        for lane, g in zip(lanes, grads):
+            if g is not None and g[j] is not None:
+                blk = g[j][sl]
+                shd.moved("reduce-scatter", lane, at, blk.numel() * 4)
+                t.add_(blk.to(t.device, torch.float32))
 
 
 def _aux_weight(model) -> float:
@@ -126,7 +153,7 @@ def _global_loss(model, stats: list, home) -> torch.Tensor:
     return loss
 
 
-def _lanes_grads(model, params, lane_params: list, lane_batches: list):
+def lanes_grads(model, params, lane_params: list, lane_batches: list):
     """(global loss, per lane the gradients of its leaves or None) of one
     microbatch: each lane's forward pass under ``record_lane_stats``, then
     one backward pass over all of them."""
@@ -160,8 +187,9 @@ def sharded_microbatch_grads(model, params, batch: dict,
     loss over the microbatches on the first lane's device, float32
     gradients sharded as the parameters)."""
     leaves = tree_leaves(params)
-    devs = lane_devices(leaves[0].mesh, batch_axes)
-    lane_params = [[shd.gather(p, d) for p in leaves] for d in devs]
+    mesh = leaves[0].mesh
+    lanes = lane_positions(mesh, batch_axes)
+    lane_params = [gather_lane_params(leaves, c) for c in lanes]
     gacc = [shd.zeros(p.shape, torch.float32, p.sharding) for p in leaves]
     mbs = _split_microbatches(batch, microbatches)
     loss_sum = 0.0
@@ -169,18 +197,14 @@ def sharded_microbatch_grads(model, params, batch: dict,
         mb = {n: v if v.ndim == 0 else v[i] for n, v in mbs.items()}
         rows = next(v.shape[0] for v in mb.values() if v.ndim)
         lane_batches = []
-        for lane, d in enumerate(devs):
-            lo, hi = shd.shard_bounds(rows, len(devs), lane)
+        for k, c in enumerate(lanes):
+            lo, hi = shd.shard_bounds(rows, len(lanes), k)
             lane_batches.append(None if hi == lo else {
-                n: (v if v.ndim == 0 else v[lo:hi]).to(d)
+                n: (v if v.ndim == 0 else v[lo:hi]).to(mesh.device(c))
                 for n, v in mb.items()})
-        loss, grads = _lanes_grads(model, params, lane_params, lane_batches)
-        for j, acc in enumerate(gacc):      # reduce-scatter, float32
-            for c, t in acc.shards.items():
-                sl = shd.local_slices(acc.sharding, acc.shape, c)
-                for g in grads:
-                    if g is not None and g[j] is not None:
-                        t.add_(g[j][sl].to(t.device, torch.float32))
+        loss, grads = lanes_grads(model, params, lane_params, lane_batches)
+        for c in mesh.positions():
+            reduce_grads_at(gacc, grads, lanes, c)
         loss_sum = loss_sum + loss
         del grads
     for acc in gacc:
@@ -248,6 +272,43 @@ def make_decode_step(model) -> Callable:
         return model.decode_step(params, cache, tokens, cur_len)
 
     return decode
+
+
+def _unflatten(like, leaves: list):
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
+def make_lane_prefill_step(model, family: str, lane) -> Callable:
+    """``make_prefill_step`` for ``ShardedTensor`` parameters at the data
+    lane whose position is ``lane``: the lane gathers them
+    (``gather_lane_params``), then prefills its rows."""
+    prefill = make_prefill_step(model, family)
+
+    def lane_prefill(params, tokens, extras=None, max_len=None):
+        p = _unflatten(params, gather_lane_params(tree_leaves(params), lane))
+        return prefill(p, tokens, extras, max_len)
+
+    return lane_prefill
+
+
+def make_lane_decode_step(model, lane) -> Callable:
+    """``make_decode_step`` for ``ShardedTensor`` parameters and cache at
+    the data lane whose position is ``lane``: the lane gathers the
+    parameters and its rows of every cache leaf (its block of the
+    "batch" dimension), then decodes them.  A leaf the lane holds whole
+    is used in place, so its cache rows are written there."""
+    decode = make_decode_step(model)
+    batch_dim = tree_map(lambda d: d.axes.index("batch"),
+                         model.cache_defs(1, 1))
+
+    def lane_decode(params, cache, tokens, cur_len):
+        p = _unflatten(params, gather_lane_params(tree_leaves(params), lane))
+        rows = tree_map(lambda st, d: shd.gather(
+            st, st.mesh.device(lane), at=lane, rows=d), cache, batch_dim)
+        return decode(p, rows, tokens, cur_len)
+
+    return lane_decode
 
 
 def make_serve_step(model) -> Callable:

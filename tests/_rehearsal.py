@@ -64,7 +64,12 @@ def cpu_scales(cs) -> dict:
             pipeline=dict(cs.MESH["pipeline"], preset="smoke", seq=16,
                           rows=2, stages=2),     # the smoke qwen3: 2 layers
             fleet=dict(cs.MESH["fleet"], preset="smoke", grid=SMALL_GRID,
-                       widen=dict(vocab=512), prompt=8, gen=4)))
+                       widen=dict(vocab=512), prompt=8, gen=4)),
+        dryrun=dict(cs.DRYRUN, preset="smoke",
+                    train=dict(seq_len=64, global_batch=8, microbatches=2),
+                    decode=dict(seq_len=64, batch=4, steps=2),
+                    cells=(("mamba2-1.3b", "long_500k"),
+                           ("qwen3-1.7b", "decode_32k"))))
 
 
 def rehearse(group: str, capsys, tmp_path, monkeypatch):

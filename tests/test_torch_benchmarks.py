@@ -271,18 +271,26 @@ def test_run_lists_only_what_the_port_has(capsys):
              not line.startswith(" ")]
     assert names == ["fig3", "table1", "fig5", "fig6", "convergence",
                      "fleet", "kernels", "kernel_microbench", "serving",
-                     "serving_engine", "drift", "majx", "placement"]
+                     "serving_engine", "drift", "majx", "placement",
+                     "roofline"]
     from benchmarks.run import BENCHES as REF
     assert [n for n in REF if n in names] == names
 
 
-def test_run_only_one(capsys):
+def test_run_only_one(capsys, tmp_path, monkeypatch):
     assert run.main(["--only", "fig3", "--device", "cpu"]) == 0
     out = capsys.readouterr().out
     assert "#csv fig3_offsets" in out
     assert "1 benchmark(s) in" in out and "all passed" in out
-    with pytest.raises(SystemExit):
-        run.main(["--only", "roofline"])    # not ported yet
+    from repro_torch.benchmarks import roofline
+    monkeypatch.setattr(roofline, "ART", tmp_path)   # no dry-run records
+    assert run.main(["--only", "roofline"]) == 0
+    out = capsys.readouterr().out
+    for mesh in ("single", "multi"):
+        assert (f"-- mesh: {mesh}: no dry-run artifacts under "
+                f"{tmp_path / mesh}") in out
+    assert "python -m repro_torch.launch.dryrun first" in out
+    assert "1 benchmark(s) in" in out and "all passed" in out
 
 
 def test_a_raising_benchmark_fails_the_run_and_the_rest_still_run(

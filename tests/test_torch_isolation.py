@@ -41,8 +41,9 @@ def test_sources_exist():
 #: paper's remaining figures, then of the autotuner, the contract checker,
 #: the session surface and the kernel benchmarks, then of MLA, MoE and the
 #: serving-engine benchmark, then of the serving mesh and the API surface,
-#: then of training on one device: each is among the scanned sources (its
-#: CUDA source among the built ones).
+#: then of training on one device, then of sharding, then of the dry run
+#: and the roofline: each is among the scanned sources (its CUDA source
+#: among the built ones).
 SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "pud/bitserial.py", "core/calibrate.py", "core/fleet.py",
                  "core/ecr.py", "core/throughput.py", "runtime/session.py",
@@ -75,7 +76,8 @@ SLICE_MODULES = ("kernels/sense.py", "kernels/ops.py", "pud/device.py",
                  "runtime/checkpoint.py", "launch/train.py",
                  "models/params.py", "configs/registry.py",
                  "runtime/sharding.py", "models/sharding_ctx.py",
-                 "runtime/pipeline.py")
+                 "runtime/pipeline.py", "launch/dryrun.py",
+                 "launch/cost_analysis.py", "benchmarks/roofline.py")
 
 
 @pytest.mark.parametrize("module", SLICE_MODULES)

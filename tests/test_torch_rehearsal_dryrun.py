@@ -1,0 +1,36 @@
+"""``chip_smoke.py``'s dryrun group on the CPU at smoke size: the dry
+run's prediction of qwen3's train step and decode steps on a (1, 1) mesh
+against the profiler's FLOP count of the same steps run on the CPU (peaks
+and device times are the card's), then two full-size cells of the grid
+and the roofline over their records."""
+import pytest
+
+pytest.importorskip("torch")
+
+import _torch_cpu  # noqa: E402,F401  (one intra-op thread)
+
+from _rehearsal import rehearse  # noqa: E402
+
+
+def test_dryrun_group_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
+    from repro_torch.benchmarks import roofline
+    from repro_torch.launch import dryrun
+    monkeypatch.setattr(dryrun, "ART", tmp_path / "dryrun")
+    monkeypatch.setattr(roofline, "ART", tmp_path / "dryrun")
+    out, text = rehearse("dryrun", capsys, tmp_path, monkeypatch)
+    assert out["rows"] == []          # the group launches no kernel
+    dr = out["dryrun"]
+    tr = dr["train"]
+    assert tr["measured"]["flops"] == tr["record"]["flops_per_device"] > 0
+    assert tr["record"]["microbatch"] == 2 and tr["record"]["lanes"] == 1
+    assert dr["decode"]["record"]["flops_per_device"] > 0
+    assert len(dr["decode"]["device_ms"]) == 2
+    assert dr["decode"]["measured"]["flops"] == \
+        dr["decode"]["record"]["flops_per_device"]
+    assert sorted(dr["grid"]) == ["mamba2-1.3b/long_500k",
+                                  "qwen3-1.7b/decode_32k"]
+    assert "(a) train step: FLOPs predicted" in text
+    assert "(+0.0000%; matrix products)" in text
+    assert "| qwen3-1.7b | decode_32k | base |" in text
+    assert "measured device time not measured" in text
+    assert text.count("(phase wall") == 4      # and the kernel rows

@@ -291,7 +291,7 @@ def test_chip_smoke_rows_assemble_in_group_order():
                                     "gemv_placed", "gemm", "gemv",
                                     "majx_sense"]
     assert cs.GROUPS == ("main", "papers", "gemma", "deepseek", "fleet",
-                         "families", "train", "mesh")
+                         "families", "train", "mesh", "dryrun")
     with pytest.raises(cs.PhaseError, match=r"unknown groups \['nope'\]"):
         cs.run(torch, torch.device("cpu"), only=["nope"])
 
