@@ -240,7 +240,23 @@ Phases (any failure exits nonzero and prints no result line):
      steps); (c) ``launch.dryrun`` on the single mesh for one cell per
      family (qwen3 train_4k, deepseek-v2-lite decode_32k, mamba2
      long_500k, whisper and pixtral prefill_32k), each record complete,
-     finite and non-zero, then the roofline over the records;
+     finite and non-zero, then the roofline over the records; then the
+     split over "model" (``DRYRUN["split"]``), its four positions taking
+     turns on the card: (d) the train step of (a) on a (1, 4) mesh, its
+     first loss against (a)'s one-device loss on the same weights and
+     batch (the mesh group's tolerances), the dry run's per-position FLOPs
+     x 4 within 0.5% of the profiler's, its per-position peak x 4 beside
+     ``max_memory_allocated``; (e) the lane of (b) on (1, 4) with the
+     production mesh's decode layout (kv heads whole, the cache split over
+     its sequence), 8 greedy steps from a random cache against the
+     unsplit lane on the same weights and cache (the split lane fed the
+     unsplit lane's tokens): logits within 0.05 or, where larger, 1.5 x
+     the unsplit lane's own difference when its first step runs row by
+     row (at full width its logits move by ~0.19 that way: the random
+     model amplifies accumulation order), greedy tokens equal at every
+     step but where the unsplit lane's two best logits tie within the
+     step's logit difference (the top-2 margin printed where a token
+     differs); both with host wall, device time and launches per step;
  20. print the ``kernels`` JSON line and, last, the device JSON line.
 
 The phases run in groups that share no state (``GROUPS``: main = 3-9,
@@ -439,12 +455,17 @@ MESH = dict(
 # bf16 cache, 30.1 GB), FLOPs within ``flops_rtol`` of the profiler's
 # count, the peak within ``peak_rtol`` of ``max_memory_allocated``; then
 # the dry run of one cell per family on the single mesh and the roofline
-# over the records.
+# over the records; then (``split``) the same train step and decode lane
+# with their compute split over a (1, 4) mesh's "model" positions, against
+# the one-position steps (docstring, item 19).
 DRYRUN = dict(
     arch=ARCH, preset="full",
     train=dict(seq_len=2048, global_batch=8, microbatches=4),
     decode=dict(seq_len=32768, batch=8, steps=5),
     flops_rtol=0.02, peak_rtol=0.15,
+    split=dict(mesh=(1, 4), decode_steps=8, flops_rtol=0.005,
+               logits_atol=0.05, floor_factor=1.5, loss_rtol=2e-4,
+               loss_atol=2e-4),
     cells=(("qwen3-1.7b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"),
            ("mamba2-1.3b", "long_500k"), ("whisper-large-v3", "prefill_32k"),
            ("pixtral-12b", "prefill_32k")))
@@ -3843,13 +3864,14 @@ def leaf_errors(a, b) -> dict:
 
 
 @contextlib.contextmanager
-def rules_for(mesh):
-    """The launcher's logical->mesh rules with ``mesh``'s sizes installed
-    for the block (``sharding_ctx.set_rules``), the ones before restored."""
+def rules_for(mesh, rules=None):
+    """The launcher's logical->mesh rules (``rules``, by default the
+    mesh's own) with ``mesh``'s sizes installed for the block
+    (``sharding_ctx.set_rules``), the ones before restored."""
     from repro_torch.models import sharding_ctx
     from repro_torch.runtime import sharding as shd
     before = sharding_ctx.get_rules()
-    sharding_ctx.set_rules({**shd.make_rules(mesh),
+    sharding_ctx.set_rules({**(rules or shd.make_rules(mesh)),
                             "_mesh_sizes": mesh.shape})
     try:
         yield
@@ -4456,9 +4478,10 @@ MATMUL_OPS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
 def profiled_step(ctx, fn) -> dict:
     """One call of ``fn`` under ``torch.profiler`` with FLOP counting:
     {"flops": the FLOPs of the matrix products that ran, "aborted": (calls,
-    FLOPs) of those that did not, "device_ms": the card's events (None off
-    the card), "peak": ``max_memory_allocated`` over the call (None off
-    the card)}; read from the raw trace, as ``step_profiler``.
+    FLOPs) of those that did not, "device_ms": the card's events and
+    "launches" their count (None off the card), "peak":
+    ``max_memory_allocated`` over the call (None off the card)}; read from
+    the raw trace, as ``step_profiler``.
 
     ``torch.utils.checkpoint`` stops a recompute once it holds every
     tensor the backward needs: inside the autograd kernel of the last
@@ -4479,11 +4502,12 @@ def profiled_step(ctx, fn) -> dict:
     with profile(activities=acts, with_flops=True, record_shapes=True) as p:
         fn()
         ctx.sync()
-    dev_ns = 0
+    dev_ns = launches = 0
     threads = collections.defaultdict(list)
     for e in p.profiler.kineto_results.events():
         if e.device_type() == DeviceType.CUDA:
             dev_ns += e.duration_ns()
+            launches += 1
         else:
             threads[e.start_thread_id()].append(e)
     flops, aborted = 0, [0, 0]
@@ -4502,6 +4526,7 @@ def profiled_step(ctx, fn) -> dict:
                 flops += e.flops()
     return dict(flops=flops, aborted=tuple(aborted),
                 device_ms=dev_ns / 1e6 if ctx.on_card else None,
+                launches=launches if ctx.on_card else None,
                 peak=torch.cuda.max_memory_allocated() if ctx.on_card
                 else None)
 
@@ -4588,11 +4613,11 @@ def dryrun_group(ctx, cfg: dict) -> dict:
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     step = steps.make_train_step(model, opt, tc["microbatches"])
     with rules_for(mesh):
-        step(params, state, batch)                  # warm-up
+        loss0 = float(step(params, state, batch)[2]["loss"])   # warm-up
         got = profiled_step(ctx, lambda: step(params, state, batch))
     print_prediction("(a) train step", rec, got, cfg, got["device_ms"])
-    out["train"] = dict(record=rec, measured=got)
-    del state, batch, toks
+    out["train"] = dict(record=rec, measured=got, first_loss=loss0)
+    del state, toks
     free(ctx)
 
     dc = cfg["decode"]
@@ -4629,6 +4654,10 @@ def dryrun_group(ctx, cfg: dict) -> dict:
     out["decode"] = dict(record=rec, measured=got, device_ms=device_ms)
     del params, cache
     free(ctx)
+    out["split"] = split_phases(ctx, cfg, model, spec, batch, loss0, gen,
+                                out["train"]["measured"])
+    del batch
+    free(ctx)
 
     phase(f"dryrun (c): launch.dryrun on the single mesh for "
           f"{len(cfg['cells'])} cells, then the roofline")
@@ -4647,6 +4676,212 @@ def dryrun_group(ctx, cfg: dict) -> dict:
     roofline.main(["--mesh", "single"])
     out["grid"] = recs
     return {"dryrun": out}
+
+
+def split_phases(ctx, cfg: dict, model, spec, batch, loss0: float,
+                 gen, one: dict) -> dict:
+    """(d) and (e) of the dry-run group: the train step and the decode
+    lane of (a) and (b) with their compute split over the "model"
+    positions of a ``cfg["split"]["mesh"]`` mesh on the card; ``one``:
+    (a)'s profile of the step on one position."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models.params import init_params, param_pspecs
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.optim import (OptConfig, init_opt_state,
+                                           tree_map)
+    torch, dev = ctx.torch, ctx.dev
+    sc = cfg["split"]
+    d, m = sc["mesh"]
+    mesh = make_host_mesh(d, m, device=dev)
+    meta = make_mesh((d, m), ("data", "model"), device="meta")
+    defs = model.param_defs()
+    out = {}
+
+    tc = cfg["train"]
+    cell = dryrun.ShapeCell("train", "train", tc["seq_len"],
+                            tc["global_batch"])
+    phase(f"dryrun (d): the train step of (a) split over a ({d}, {m}) "
+          f"mesh's \"model\" positions on {dev}: its first loss against "
+          f"(a)'s, the dry run's FLOPs x {m} against the profiler's")
+    rec = dryrun.run_cell(cfg["arch"], cell, meta, f"{d}x{m}",
+                          microbatch=tc["microbatches"], model=model)
+    rules = shd.make_rules(mesh, dryrun.sharding_overrides(
+        spec, mesh, "train", model))
+    plain = init_params(defs, SEED, dev)
+    params = shd.device_put(plain, shd.named(mesh, param_pspecs(defs,
+                                                                rules)))
+    del plain
+    opt = OptConfig()
+    state = init_opt_state(params, opt)
+    step = steps.make_train_step(model, opt, tc["microbatches"])
+    box = {}
+
+    def first_step():
+        t0 = time.perf_counter()
+        box["loss"] = float(step(params, state, batch)[2]["loss"])
+        ctx.sync()
+        box["host_ms"] = (time.perf_counter() - t0) * 1e3
+
+    with rules_for(mesh, rules):           # one step, profiled
+        got = profiled_step(ctx, first_step)
+    loss = box["loss"]
+    peak = got["peak"]
+    err = abs(loss - loss0)
+    print(f"  (d) first loss on the ({d}, {m}) mesh {loss:.6f}, on one "
+          f"position {loss0:.6f}: |diff| {err:.3e} (rtol = atol = "
+          f"{sc['loss_rtol']})")
+    need(err <= sc["loss_atol"] + sc["loss_rtol"] * abs(loss0),
+         f"the split step's loss {loss} differs from one position's "
+         f"{loss0}")
+    pred = rec["flops_per_device"] * m
+    f_err = got["flops"] / pred - 1
+    print(f"  (d) FLOPs: the dry run's per position "
+          f"{rec['flops_per_device']:.6e} x {m} = {pred:.6e}, profiler "
+          f"{got['flops']:.6e} ({f_err:+.4%}; matrix products); scheme "
+          f"{rec['scheme']!r}; all-reduce "
+          f"{rec['collectives']['bytes']['all-reduce']:.4e} B per position")
+    n, f = got["aborted"]
+    if n:
+        print(f"  (d) {n} more product calls ({f:.6e} FLOPs) recorded by "
+              "the profiler ran nothing: checkpoint recomputes that stopped "
+              "inside them")
+    need(abs(f_err) <= sc["flops_rtol"], f"(d): the profiler's FLOPs differ "
+         f"from the dry run's x {m} by {f_err:+.4%}")
+    ppk = rec["peak_bytes_per_device"]
+    print(f"  (d) peak: the dry run's per position {ppk / 2**30:.3f} GiB "
+          f"(x {m} = {m * ppk / 2**30:.3f} GiB), max_memory_allocated "
+          f"{peak and f'{peak / 2**30:.3f} GiB'} for the {m} positions on "
+          f"one card")
+    print(f"  (d) the step: host wall {box['host_ms']:.1f} ms (under the "
+          f"profiler), device time {got['device_ms']} ms, launches "
+          f"{got['launches']} (one position, (a): {one['device_ms']} ms, "
+          f"{one['launches']} launches)")
+    out["train"] = dict(record=rec, measured=got, loss=loss, loss0=loss0,
+                        peak=peak, host_ms=box["host_ms"])
+    del state, params, step, box
+    free(ctx)
+
+    dc = cfg["decode"]
+    b, smax, n = dc["batch"], dc["seq_len"], sc["decode_steps"]
+
+    class Production:                 # the production mesh's model axis
+        shape = {"data": 16, "model": 16}
+    ov = dryrun.sharding_overrides(spec, Production, "decode", model)
+    phase(f"dryrun (e): the decode_32k lane of (b) split over the ({d}, "
+          f"{m}) mesh's \"model\" positions with the production layout "
+          f"{ov}: {n} greedy steps from a random {smax:,}-token cache "
+          f"against the unsplit lane")
+    vocab = model.cfg.vocab
+    plain = init_params(defs, SEED, dev)
+    one = make_host_mesh(1, 1, device=dev)
+    prules, srules = shd.make_rules(one, ov), shd.make_rules(mesh, ov)
+    p1 = shd.device_put(plain, shd.named(one, param_pspecs(defs, prules)))
+    ps = shd.device_put(plain, shd.named(mesh, param_pspecs(defs, srules)))
+    del plain
+    cdefs = model.cache_defs(b, smax)
+    whole = {}
+    for grp, leaves in cdefs.items():
+        whole[grp] = {}
+        for name, dd in leaves.items():
+            t = torch.empty(dd.shape, dtype=dd.dtype, device=dev)
+            for i in range(dd.shape[0]):
+                t[i] = torch.randn(dd.shape[1:], generator=gen, device=dev,
+                                   dtype=torch.float32).to(dd.dtype)
+            whole[grp][name] = t
+
+    def views(msh, rules, rows=slice(None)):
+        """The cache's ``rows`` as ``ShardedTensor``s of ``msh`` whose
+        shards are views of it (the lanes share its memory)."""
+        specs = param_pspecs(cdefs, rules)
+        return tree_map(lambda t, sp: shd.ShardedTensor(
+            shd.NamedSharding(msh, sp), tuple(t.shape), t.dtype, {
+                c: t[shd.local_slices(shd.NamedSharding(msh, sp), t.shape,
+                                      c)] for c in msh.positions()}),
+            tree_map(lambda t: t[:, rows], whole), specs)
+    c1, cs_ = views(one, prules), views(mesh, srules)
+    tokens = torch.randint(0, vocab, (b, 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+    start = smax - n
+    runs, fed = {}, None
+    with torch.no_grad():
+        for label, msh, rules, params, cache in (
+                ("unsplit", one, prules, p1, c1),
+                ("split", mesh, srules, ps, cs_)):
+            decode = steps.make_lane_decode_step(model, (0, 0))
+            with rules_for(msh, rules):
+                t, logits, walls = tokens, [], []
+                for i in range(n):
+                    t0 = time.perf_counter()
+                    lg, _ = decode(params, cache, t, start + i)
+                    ctx.sync()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                    logits.append(lg.float())
+                    # the split lane is fed the unsplit lane's tokens, so a
+                    # tie broken the other way does not fork the two runs
+                    t = (fed[i] if fed else
+                         lg.argmax(-1, keepdim=True).to(torch.int32))
+                prof = profiled_step(ctx, lambda: decode(
+                    params, cache, t, start + n - 1))
+            if fed is None:
+                fed = [lg.argmax(-1, keepdim=True).to(torch.int32)
+                       for lg in logits]
+                # the unsplit lane's own noise: its first step again, row
+                # by row (cuBLAS's accumulation order at one row)
+                with rules_for(msh, rules):
+                    alone = torch.cat([decode(
+                        params, views(msh, rules, slice(r, r + 1)),
+                        tokens[r:r + 1], start)[0].float() for r in range(b)])
+                d = (alone - logits[0]).abs()
+                floor = (float(d.max()), float(d.mean()))
+                print(f"  (e) unsplit, its first step row by row: logits max "
+                      f"|diff| {floor[0]:.4e}, mean {floor[1]:.4e} (its "
+                      f"largest |logit| {float(logits[0].abs().max()):.3f})")
+            runs[label] = dict(logits=logits, walls=walls, prof=prof)
+            print(f"  (e) {label}: host wall per step "
+                  f"{[round(w, 2) for w in walls]} ms; a profiled step: "
+                  f"device time {prof['device_ms']} ms, launches "
+                  f"{prof['launches']}, FLOPs {prof['flops']:.6e}")
+    worst, same, ties, errs, means = 0.0, 0, 0, [], []
+    for i, (a, w) in enumerate(zip(runs["split"]["logits"],
+                                   runs["unsplit"]["logits"])):
+        err = float((a - w).abs().max())
+        errs.append(err)
+        means.append(float((a - w).abs().mean()))
+        worst = max(worst, err)
+        top = w.topk(2, dim=-1).values
+        margin = top[:, 0] - top[:, 1]
+        differ = a.argmax(-1) != w.argmax(-1)
+        if not bool(differ.any()):
+            same += 1
+            continue
+        # a row whose two best unsplit logits lie within the step's logit
+        # difference has no greedy token to agree on: a tie
+        tied = bool((margin[differ] <= 2 * err).all())
+        ties += tied
+        print(f"  (e) step {i}: tokens differ in rows "
+              f"{differ.nonzero()[:, 0].tolist()}; the unsplit lane's top-2 "
+              f"margin there {margin[differ].tolist()} (max logit |diff| "
+              f"{err:.4e}: {'a tie' if tied else 'NOT a tie'})")
+    allowed = max(sc["logits_atol"], sc["floor_factor"] * floor[0])
+    print(f"  (e) {n} steps, the split lane fed the unsplit lane's tokens: "
+          f"logits max |split - unsplit| per step "
+          f"{[f'{e:.4e}' for e in errs]}, mean "
+          f"{[f'{e:.4e}' for e in means]}; allowed {allowed:.4e} (the "
+          f"larger of {sc['logits_atol']} and {sc['floor_factor']} x the "
+          f"unsplit lane's own row-by-row difference); greedy tokens equal "
+          f"at {same} of {n} steps, {ties} ties")
+    need(worst <= allowed and same + ties == n, "(e): the split lane's "
+         f"decode differs from the unsplit lane's ({worst}, allowed "
+         f"{allowed}; tokens equal at {same} of {n} steps, {ties} ties)")
+    out["decode"] = dict(logits_err=worst, steps_equal=same, ties=ties,
+                         floor=floor, allowed=allowed, overrides=ov,
+                         **{k: dict(walls=v["walls"], device_ms=v["prof"][
+                             "device_ms"], launches=v["prof"]["launches"])
+                            for k, v in runs.items()})
+    del whole, c1, cs_, p1, ps, runs
+    return out
 
 
 def free(ctx) -> None:

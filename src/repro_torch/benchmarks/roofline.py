@@ -18,8 +18,11 @@ first lane's per-position counts (``launch/cost_analysis.py``).
 MODEL_FLOPS uses 6 N D for training (forward and backward) and 2 N D for
 inference cells (forward only), N = active parameters, D = tokens the step
 processes; useful_ratio = MODEL_FLOPS / (counted flops x positions).  The
-port's "model" axis shards storage only, so every position of a lane does
-the lane's whole work: on the (data 16, model 16) meshes the ratio sits
+collective term takes every kind the records count, the "model" group's
+all-reduces and all-gathers among them.  Where the "model" axis splits
+compute (the record's ``scheme``: the dense and MoE transformers) each
+position does its share; elsewhere every position of a lane does the
+lane's whole work, and on the (data 16, model 16) meshes the ratio sits
 near 1/16.
 """
 from __future__ import annotations
@@ -97,14 +100,16 @@ def load(mesh: str, variant: str | None = None) -> list[dict]:
         v = rec.get("variant", "base")
         if variant is not None and v != variant:
             continue
-        rows.append(analyze_record(rec))
+        rows.append(dict(analyze_record(rec),
+                         split=rec.get("scheme", "").endswith(
+                             "splits compute")))
     return rows
 
 
 def fmt_table(rows: list[dict]) -> str:
     hdr = ("| arch | shape | variant | compute_s | memory_s | collective_s | "
-           "dominant | useful | roofline | peak GiB |")
-    sep = "|" + "---|" * 10
+           "dominant | useful | roofline | peak GiB | model axis |")
+    sep = "|" + "---|" * 11
     out = [hdr, sep]
     for r in rows:
         out.append(
@@ -112,7 +117,8 @@ def fmt_table(rows: list[dict]) -> str:
             f"| {r['compute_s']:.3g} | {r['memory_s']:.3g} "
             f"| {r['collective_s']:.3g} | {r['dominant']} "
             f"| {r['useful_ratio']:.3g} | {r['roofline_frac']:.3g} "
-            f"| {r['peak_gib']:.2f} |")
+            f"| {r['peak_gib']:.2f} "
+            f"| {'splits compute' if r.get('split') else 'storage only'} |")
     return "\n".join(out)
 
 

@@ -30,7 +30,10 @@ that eager PyTorch would dispatch, after autograd, and counts
 Eager loops run every iteration, so there is no trip count to apply; the
 dry run's one multiplier is its microbatch count (``launch/dryrun.py``).
 Collective bytes are what ``runtime/sharding.count_transfers`` records
-while the function runs.
+while the function runs: the gathers and the reduce-scatter of the
+sharded step, and the all-reduces and all-gathers of a lane's "model"
+group (``models/sharding_ctx.ModelGroup``: a ring's 2 (M - 1) / M and
+(M - 1) / M of the buffer per position).
 """
 from __future__ import annotations
 

@@ -9,9 +9,14 @@ no card is touched and nothing is allocated.
 The mesh is ``make_production_mesh(multi_pod=..., device="meta")``: (data
 16, model 16) or (pod 2, data 16, model 16).  The port runs the same
 program on every data lane (``runtime/steps.py``: the lanes gather the
-parameters, each runs its rows; the "model" axis shards storage only), so
-a cell traces one lane, the first and fullest position, under
-``launch/cost_analysis.CostMode``:
+parameters, each runs its rows), so a cell traces one position of the
+first lane, the first and fullest, under
+``launch/cost_analysis.CostMode``.  For the dense and MoE transformers the
+lane's "model" positions split its compute (``steps.lane_group``), and the
+trace is that position's program alone: its own blocks of the leaves on
+"model", its share of every split product, the replicated work, and the
+collectives with the other positions (``scheme``: ``SCHEME_SPLIT``).  The
+other families compute the lane whole on its first position (``SCHEME``):
 
   * train: ``steps.gather_lane_params``, then one microbatch of the lane
     (``steps.lanes_grads``) and the position's part of the float32
@@ -21,8 +26,8 @@ a cell traces one lane, the first and fullest position, under
     the position's shards;
   * prefill / decode: ``steps.make_lane_prefill_step`` /
     ``make_lane_decode_step`` on the lane's rows: the gather, then the
-    model's step (decode: the lane's cache rows gathered from their shards
-    first).
+    model's step (decode: the position's cache blocks gathered from their
+    shards first).
 
 Resident bytes of the position (live before the trace): its parameter
 shards, in train cells its float32 moments and gradient accumulators, in
@@ -62,16 +67,24 @@ from repro_torch.runtime.optim import OptConfig, adamw_update, init_opt_state
 ART = pathlib.Path(__file__).resolve().parents[3] / "artifacts" / \
     "dryrun_torch"
 SCHEME = "data lanes; the model axis shards storage only"
+SCHEME_SPLIT = "data lanes; the model axis splits compute"
 
 
-def sharding_overrides(spec, mesh, kind: str) -> dict:
+def scheme(model) -> str:
+    """The record's ``scheme``: the split for the families whose model
+    splits the "model" axis's compute (``runtime/steps.lane_group``)."""
+    return SCHEME_SPLIT if getattr(model, "model_split", False) else SCHEME
+
+
+def sharding_overrides(spec, mesh, kind: str, model=None) -> dict:
     """Per-arch logical-axis overrides for divisibility on this mesh (the
     reference's policy): q heads, kv heads and the vocab replicate where
     the "model" axis does not divide them; decode and prefill caches
     sequence-shard over "model" when their kv heads cannot (and for
-    MLA)."""
+    MLA).  ``model``: the one to size them for (default the arch's
+    full-size model)."""
     msize = mesh.shape["model"]
-    cfg = getattr(spec.make_model(), "cfg", None)
+    cfg = getattr(model or spec.make_model(), "cfg", None)
     lm = getattr(cfg, "lm", None) or cfg
     ov = {}
 
@@ -131,16 +144,18 @@ def _rules(rules: dict):
 
 
 def build_cell(arch: str, shape, mesh, variant: str = "base",
-               microbatch: int | None = None, model=None):
-    """(``trace``, meta) of one cell: ``trace()`` runs the first lane's
-    program on meta tensors and returns its ``CostMode``; meta holds
-    ``microbatch``, ``lanes`` and ``overrides``.  ``shape`` is a name in
-    ``SHAPES`` or a ``ShapeCell``; ``microbatch`` overrides the arch's
-    count for the shape (train), ``model`` its full-size model."""
+               microbatch: int | None = None, model=None,
+               model_pos: int = 0):
+    """(``trace``, meta) of one cell: ``trace()`` runs the program of the
+    first lane's position ``model_pos`` along "model" (the first, the
+    fullest, by default) on meta tensors and returns its ``CostMode``;
+    meta holds ``microbatch``, ``lanes`` and ``overrides``.  ``shape`` is
+    a name in ``SHAPES`` or a ``ShapeCell``; ``microbatch`` overrides the
+    arch's count for the shape (train), ``model`` its full-size model."""
     spec = get(arch)
     model = model or spec.make_model()
     cell = SHAPES[shape] if isinstance(shape, str) else shape
-    ov = sharding_overrides(spec, mesh, cell.kind)
+    ov = sharding_overrides(spec, mesh, cell.kind, model)
     if variant in ("decode_tp_weights", "zero2_weights"):
         ov["embed"] = None
     if variant == "train_seq_shard":
@@ -160,7 +175,10 @@ def build_cell(arch: str, shape, mesh, variant: str = "base",
     params = _zeros(defs, param_pspecs(defs, rules), mesh)
     leaves = tree_leaves(params)
     lanes = steps.lane_positions(mesh, b_axes)
-    at = lanes[0]                         # the fullest position
+    at = lanes[0]
+    if "model" in mesh.axis_names:
+        mi = mesh.axis_names.index("model")
+        at = at[:mi] + (model_pos,) + at[mi + 1:]
     meta = {"lanes": len(lanes), "overrides": repr(ov)}
 
     def lane_inputs(rows: int) -> dict:
@@ -182,10 +200,11 @@ def build_cell(arch: str, shape, mesh, variant: str = "base",
 
         def trace():
             with _rules(ctx_rules), CostMode(resident) as cm:
-                lane_params = steps.gather_lane_params(leaves, at)
+                g = steps.lane_group(model, mesh, at, at)
+                lane_params = steps.gather_lane_params(leaves, at, g)
                 with cm.repeat(mb):
                     _, grads = steps.lanes_grads(model, params,
-                                                 [lane_params], [batch])
+                                                 [lane_params], [batch], [g])
                     steps.reduce_grads_at(tree_leaves(gacc),
                                           grads * len(lanes), lanes, at)
                     del grads
@@ -198,7 +217,7 @@ def build_cell(arch: str, shape, mesh, variant: str = "base",
     meta["microbatch"] = 1
     inputs = lane_inputs(cell.global_batch)
     if cell.kind == "prefill":
-        step = steps.make_lane_prefill_step(model, spec.family, at)
+        step = steps.make_lane_prefill_step(model, spec.family, at, at)
         extras = {k: v for k, v in inputs.items() if k != "tokens"}
 
         def trace():
@@ -211,7 +230,7 @@ def build_cell(arch: str, shape, mesh, variant: str = "base",
     cdefs = model.cache_defs(cell.global_batch, cell.seq_len)
     cache = _zeros(cdefs, param_pspecs(cdefs, rules), mesh)
     resident = _bytes_at(params, at) + _bytes_at(cache, at)
-    step = steps.make_lane_decode_step(model, at)
+    step = steps.make_lane_decode_step(model, at, at)
 
     def trace():
         with _rules(ctx_rules), CostMode(resident) as cm, torch.no_grad():
@@ -228,7 +247,9 @@ def run_cell(arch: str, shape, mesh, mesh_name: str, variant: str = "base",
     """One cell's record (``build_cell``'s trace, timed)."""
     cell = SHAPES[shape] if isinstance(shape, str) else shape
     rec = {"arch": arch, "shape": cell.name, "mesh": mesh_name,
-           "variant": variant, "n_devices": mesh.size, "scheme": SCHEME}
+           "variant": variant, "n_devices": mesh.size}
+    model = model or get(arch).make_model()
+    rec["scheme"] = scheme(model)
     trace, meta = build_cell(arch, cell, mesh, variant, microbatch, model)
     rec.update(meta)
     t0 = time.time()

@@ -14,13 +14,15 @@ LATEST) -> resume of the parameters, the optimizer state and the stream
 ``--device`` names another device.
 
 The mesh is ``launch/mesh.make_mesh_for_devices()`` over the visible cards
-unless ``run(..., mesh=)`` gives one; the logical->mesh rules go in with
+unless ``--mesh D,M`` (positions on ``--device``'s cards, the port's own
+flag) or ``run(..., mesh=)`` gives one; the logical->mesh rules go in with
 the mesh sizes (``sharding_ctx.set_rules``) for the run.  On a mesh of
 more than one position the parameters and AdamW moments are stored as
 per-position shards (``runtime/sharding.py``), initialised whole and cut,
 resumed straight into shards, and trained by the data-parallel step of
 ``runtime/steps.py``; a mesh of one position keeps plain tensors and the
-one-device step.
+one-device step.  The dense and MoE transformers split each lane's compute
+over its "model" positions too (``steps.lane_group``).
 
 ``--preset smoke`` trains the arch's reduced config, ``paper100m`` a
 ~100M-parameter qwen3-family model, ``full`` the full config.  The exit
@@ -46,7 +48,8 @@ import torch
 from repro_torch.configs import get
 from repro_torch.core.rng import generator
 from repro_torch.devices import resolve_device
-from repro_torch.launch.mesh import make_mesh_for_devices, use_mesh
+from repro_torch.launch.mesh import (make_host_mesh, make_mesh_for_devices,
+                                     use_mesh)
 from repro_torch.models import sharding_ctx
 from repro_torch.models.params import abstract_params, init_params, \
     param_count, param_pspecs
@@ -109,6 +112,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: the GPU; 'cpu' runs there)")
+    ap.add_argument("--mesh", default=None,
+                    help="D,M: a (data D, model M) mesh of positions on the "
+                         "device's cards (default: one per visible card)")
     return ap.parse_args(argv)
 
 
@@ -136,6 +142,9 @@ def run(args: argparse.Namespace, step_context=None, on_restore=None,
     position, sharded runs), "ckpt": {"saves": [{"step", "async",
     "snapshot_s"}], "writes": CheckpointManager.writes, "restore_s"}}."""
     dev = resolve_device(args.device)
+    if mesh is None and getattr(args, "mesh", None):
+        mesh = make_host_mesh(*(int(v) for v in args.mesh.split(",")),
+                              device=dev)
     mesh = mesh or make_mesh_for_devices(dev)
     before = sharding_ctx.get_rules()
     try:

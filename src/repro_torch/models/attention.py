@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from .layers import rmsnorm, rmsnorm_defs, rope
 from .params import ParamDef
-from .sharding_ctx import padded_head_count
+from .sharding_ctx import (ModelBlocks, is_blocks, model_group,
+                           padded_head_count)
 
 
 def head_proj(p, name: str, x: torch.Tensor, heads: int,
@@ -151,6 +152,9 @@ def gqa_attention(p, cfg: AttnConfig, x: torch.Tensor,
     not divide the head count the heads are padded (``_pad_heads``); the
     cache keeps the true kv-head count.
     """
+    g = model_group()
+    if g is not None and kv_override is None:
+        return gqa_attention_split(g, p, cfg, x, positions)
     q = head_proj(p, "wq", x, cfg.n_heads, cfg.head_dim)
     if kv_override is None:
         k = head_proj(p, "wk", x, cfg.n_kv_heads, cfg.head_dim)
@@ -244,6 +248,9 @@ def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
     an encoder's K/V: q is not roped, nothing is written and every one of
     the ``Smax`` rows is attended.  Returns out [B, 1, D].
     """
+    g = model_group()
+    if g is not None and not cross:
+        return gqa_decode_split(g, p, cfg, x, cache_k, cache_v, cur_len)
     b, smax = cache_k.shape[0], cache_k.shape[1]
     per_slot = isinstance(cur_len, torch.Tensor) and cur_len.dim() == 1
     if per_slot:
@@ -276,20 +283,29 @@ def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
             cache_v[:, cur_len:cur_len + 1] = v_new.to(cache_v.dtype)
             mask = (torch.arange(smax, device=x.device)
                     < cur_len + 1)[None, None, None, :]
-    h, kvh, d = q.shape[2], cache_k.shape[2], q.shape[3]
+    return merge_proj(p, "wo", _decode_core(q, cache_k, cache_v, mask))
+
+
+def _decode_core(q: torch.Tensor, cache_k: torch.Tensor,
+                 cache_v: torch.Tensor, mask) -> torch.Tensor:
+    """One query row per sequence q [B, 1, H, Dh] against the cache [B,
+    S, KV, Dh] (H = KV x G), float32 scores, the softmax's weights rounded
+    to the cache dtype; returns [B, 1, H, Dh] in the cache dtype."""
+    b, h, d = q.shape[0], q.shape[2], q.shape[3]
+    kvh = cache_k.shape[2]
     g = h // kvh
     qr = q.reshape(b, kvh, g, d).to(torch.float32)
-    scale = torch.tensor(d ** -0.5, dtype=torch.float32, device=x.device)
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32, device=q.device)
     s = torch.einsum("bkgd,bpkd->bkgp", qr,
                      cache_k.to(torch.float32)) * scale
     if mask is not None:
         s = torch.where(mask, s,
-                        torch.tensor(float("-inf"), device=x.device))
+                        torch.tensor(float("-inf"), device=q.device))
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgp,bpkd->bkgd",
                      w.to(cache_v.dtype).to(torch.float32),
                      cache_v.to(torch.float32)).to(cache_v.dtype)
-    return merge_proj(p, "wo", o.reshape(b, 1, h, d))
+    return o.reshape(b, 1, h, d)
 
 
 # ---------------------------------------------------------------------------
@@ -331,6 +347,17 @@ def mla_defs(cfg: MLAConfig, dtype=torch.bfloat16) -> dict:
     }
 
 
+def _mla_group(p):
+    """The enclosing "model" group where MLA runs split (its q heads on
+    "model"), None where it runs whole."""
+    g = model_group()
+    if g is not None and not is_blocks(p["wq"]):
+        raise NotImplementedError(
+            "MLA on a \"model\" group needs its heads split over it "
+            f"({p['wq'].shape[1]} heads, {g.size} positions)")
+    return g
+
+
 def _mla_query(p, cfg: MLAConfig, x: torch.Tensor, positions: torch.Tensor):
     """(q_nope [B, S, H, dn], q_rope [B, S, H, dr] rotated)."""
     q = head_proj(p, "wq", x, cfg.n_heads, cfg.qk_dim)
@@ -369,6 +396,9 @@ def mla_attention(p, cfg: MLAConfig, x: torch.Tensor,
                   positions: torch.Tensor):
     """Full-sequence MLA (prefill).  Returns (out [B, S, D], (c_kv [B, S,
     R], k_rope [B, S, dr])) for the latent cache."""
+    g = _mla_group(p)
+    if g is not None:
+        return mla_attention_split(g, p, cfg, x, positions)
     q_nope, q_rope = _mla_query(p, cfg, x, positions)
     c_kv, k_rope = _mla_latents(p, cfg, x, positions)
     out = _mla_flash(p, cfg, q_nope, q_rope, c_kv, k_rope,
@@ -414,6 +444,9 @@ def mla_decode(p, cfg: MLAConfig, x: torch.Tensor, cache_ckv: torch.Tensor,
     float32 through the scale and the mask, as the reference's
     ``preferred_element_type=float32`` einsums are.
     """
+    g = _mla_group(p)
+    if g is not None:
+        return mla_decode_split(g, p, cfg, x, cache_ckv, cache_kr, cur_len)
     b, smax, _ = cache_ckv.shape
     per_slot = isinstance(cur_len, torch.Tensor) and cur_len.dim() == 1
     if per_slot:
@@ -446,3 +479,348 @@ def mla_decode(p, cfg: MLAConfig, x: torch.Tensor, cache_ckv: torch.Tensor,
                          cache_ckv.to(f32)).to(cache_ckv.dtype)
     o = torch.einsum("bhr,rhk->bhk", o_lat.to(x.dtype), p["wuv"].to(x.dtype))
     return merge_proj(p, "wo", o)[:, None]
+
+
+# ---------------------------------------------------------------------------
+# The split over a lane's "model" positions (``sharding_ctx.ModelGroup``)
+# ---------------------------------------------------------------------------
+#
+# GQA: the q heads (padded as ``_pad_heads`` pads them) are cut in blocks,
+# each position taking whole heads, with the key / value heads they attend:
+# its own block where the rules split the kv heads, else the heads it needs
+# from k / v projected whole.  A projection every position holds whole is
+# split over its contracted "embed" dim (float32 partials, ``psum``), as
+# GSPMD partitions it in the reference's SPMD records.  ``wo`` is
+# row-parallel over the heads.  A decode cache split over its sequence
+# ("kv_seq" on "model") is attended block by block: every position holds
+# all the q heads, its block's scores, and the softmax's max and sum are
+# all-reduced before its partial product with the values (two passes, so
+# the weights round to the cache dtype as the unsplit softmax's do).
+# MLA splits its q heads and their ``wuk`` / ``wuv`` / ``wo`` blocks; its
+# latent projections stay whole on every position, and a latent cache
+# split over "kv_seq" is attended block by block in the latent space.
+
+def _each(fn, x):
+    """``fn`` over a tensor, or over each position's block of a list."""
+    return [fn(t) for t in x] if isinstance(x, list) else fn(x)
+
+
+def _contract_proj(g, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., D] @ w [D, H, Dh] for a weight every position holds whole:
+    each position's block of D, a float32 partial product, ``psum``,
+    rounded once to x's dtype."""
+    d, parts = x.shape[-1], []
+    for k in g.active:
+        lo, hi = g.bounds(d, k)
+        parts.append(torch.einsum(
+            "...d,dhk->...hk", g.to(x[..., lo:hi], k).to(torch.float32),
+            g.to(w[lo:hi], k).to(torch.float32)))
+    return g.psum(parts, x.dtype)
+
+
+def _proj_split(g, x: torch.Tensor, w):
+    """Per position its heads [..., h, Dh] of x @ w (``ModelBlocks`` w:
+    column-parallel), or the whole [..., H, Dh] (w held whole)."""
+    if is_blocks(w):
+        return [torch.einsum("...d,dhk->...hk", g.to(x, k), wp.to(x.dtype))
+                for k, wp in zip(w.index, w.parts)]
+    return _contract_proj(g, x, w)
+
+
+def _q_blocks(g, q, n_heads: int, pad: bool) -> list:
+    """Per active position (its q heads, lo, hi): its block of q's head
+    dim, a list already (split wq), or cut from the whole q padded to
+    ``padded_head_count`` (``pad``) and cut in blocks of whole heads."""
+    if isinstance(q, list):
+        return [(qk, *g.bounds(n_heads, k)) for qk, k in zip(q, g.active)]
+    hp = padded_head_count(n_heads) if pad else n_heads
+    if hp != n_heads:
+        q = F.pad(q, (0, 0, 0, hp - n_heads))
+    return [(g.to(q[..., lo:hi, :], k), lo, hi) for k in g.active
+            for lo, hi in [g.bounds(hp, k)]]
+
+
+def _kv_heads(t: torch.Tensor, lo: int, hi: int, n_heads: int,
+              group: int):
+    """The key / value heads of t [..., KV, Dh] that q heads [lo, hi)
+    attend (head h reads kv head h // group), with their group size: a
+    slice where the block is whole groups or lies in one group, else one
+    kv head per q head, zero heads for padded q heads (>= ``n_heads``)."""
+    real = max(0, min(hi, n_heads) - lo)
+    if real == hi - lo and hi > lo:
+        if lo % group == 0 and (hi - lo) % group == 0:
+            return t[..., lo // group:hi // group, :], group
+        if lo // group == (hi - 1) // group:
+            return t[..., lo // group:lo // group + 1, :], hi - lo
+    idx = torch.arange(lo, lo + real, device=t.device) // group
+    sel = t.index_select(t.dim() - 2, idx)
+    if real < hi - lo:
+        sel = F.pad(sel, (0, 0, 0, hi - lo - real))
+    return sel, 1
+
+
+def _merge_split(g, w, outs: list, blocks: list, n_heads: int,
+                 dtype) -> torch.Tensor:
+    """Row-parallel ``wo`` [H, Dh, D]: each position's heads' outputs
+    [..., h, Dh] times its rows of wo (its ``ModelBlocks`` part, or the
+    real heads' rows of a whole wo), float32 partials, ``psum``."""
+    parts = []
+    for j, (o, (lo, hi)) in enumerate(zip(outs, blocks)):
+        if is_blocks(w):
+            wk = w.parts[j]
+        else:
+            real = max(0, min(hi, n_heads) - lo)
+            o = o[..., :real, :]
+            wk = g.to(w[lo:lo + real], g.active[j])
+        parts.append(torch.einsum("...hk,hkd->...d", o.to(torch.float32),
+                                  wk.to(torch.float32)))
+    return g.psum(parts, dtype)
+
+
+def _norm_rope(p, name: str, t, positions, theta: float, qk_norm: bool):
+    """``rmsnorm`` (``qk_norm``) then ``rope`` of a tensor or of each
+    position's block, with the replicated scale and positions moved to the
+    block's device."""
+    def f(x):
+        if qk_norm:
+            x = rmsnorm({"scale": p[name]["scale"].to(x.device)}, x)
+        return rope(x, positions.to(x.device), theta)
+    return _each(f, t)
+
+
+def _rows_blocks(g, t, size: int):
+    """Cache rows of a projection: whole, or ``ModelBlocks`` of the
+    positions' kv-head blocks (dim 2 of [B, S, KV, Dh])."""
+    if isinstance(t, list):
+        return ModelBlocks(t, 2, size, tuple(g.active), g.size)
+    return t
+
+
+def gqa_attention_split(g, p, cfg: AttnConfig, x: torch.Tensor,
+                        positions: torch.Tensor):
+    """``gqa_attention`` split over ``g``: (out [B, S, D], (k, v) rows,
+    each whole or ``ModelBlocks`` over the kv heads)."""
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    q = _proj_split(g, x, p["wq"])
+    k = _proj_split(g, x, p["wk"])
+    v = _proj_split(g, x, p["wv"])
+    q = _norm_rope(p, "q_norm", q, positions, cfg.rope_theta, cfg.qk_norm)
+    k = _norm_rope(p, "k_norm", k, positions, cfg.rope_theta, cfg.qk_norm)
+    blocks = _q_blocks(g, q, h, pad=True)
+    outs = []
+    for j, (qk, lo, hi) in enumerate(blocks):
+        if isinstance(k, list):
+            kk, vv = k[j], v[j]
+        else:
+            kk, _ = _kv_heads(g.to(k, g.active[j]), lo, hi, h, h // kv)
+            vv, _ = _kv_heads(g.to(v, g.active[j]), lo, hi, h, h // kv)
+        outs.append(_flash(qk, kk, vv, causal=cfg.causal,
+                           kv_chunk=min(cfg.kv_chunk, kk.shape[1])))
+    out = _merge_split(g, p["wo"], outs, [b[1:] for b in blocks], h,
+                       x.dtype)
+    return out, (_rows_blocks(g, k, kv), _rows_blocks(g, v, kv))
+
+
+def _write_block(part: torch.Tensor, lo: int, lens: torch.Tensor,
+                 new: torch.Tensor) -> None:
+    """Write ``new[i]`` at global row ``lens[i]`` into a cache block
+    [B, n, ...] that holds rows [lo, lo + n), where it falls inside."""
+    n = part.shape[1]
+    rows = torch.arange(part.shape[0], device=part.device)
+    lens = lens.to(part.device)
+    inside = ((lens >= lo) & (lens < lo + n)).reshape(
+        (-1,) + (1,) * (part.dim() - 2))
+    at = torch.clamp(lens - lo, 0, n - 1)
+    part[rows, at] = torch.where(inside, new.to(part.device, part.dtype),
+                                 part[rows, at])
+
+
+def _write_new(g, cache, lens: torch.Tensor, new, cur, size) -> None:
+    """Write the new rows (whole [B, ...] or per-position blocks over the
+    heads) into a cache that is whole, split over its kv heads (dim 2) or
+    over its sequence (dim 1): at ``cur`` (an int: every row's fill) or,
+    where it is None, at each row's ``lens``."""
+    def write(part, lo, rows):
+        if cur is None:
+            if lo is None:
+                _write_rows(part, lens, rows)
+            else:
+                _write_block(part, lo, lens, rows)
+        elif lo is None or lo <= cur < lo + part.shape[1]:
+            at = cur - (lo or 0)
+            part[:, at:at + 1] = rows[:, None].to(part.device, part.dtype)
+    if not is_blocks(cache):
+        write(cache, None, g.all_gather(new, 1, size)
+              if isinstance(new, list) else new)
+        return
+    for j, part in enumerate(cache.parts):
+        lo, hi = cache.bounds(j)
+        if cache.dim == 1:
+            write(part, lo, g.all_gather(new, 1, size)
+                  if isinstance(new, list) else new)
+        else:
+            write(part, None, new[j] if isinstance(new, list)
+                  else new[:, lo:hi])
+
+
+def _block_mask(s: torch.Tensor, lo: int, valid) -> torch.Tensor:
+    """Scores s [B, ..., n] of the cache rows [lo, lo + n), the rows at or
+    past ``valid`` [B|1, 1] set to -inf."""
+    rows = lo + torch.arange(s.shape[-1], device=s.device)
+    mask = (rows[None, :] < valid.to(s.device)).reshape(
+        (valid.shape[0],) + (1,) * (s.dim() - 2) + (s.shape[-1],))
+    return torch.where(mask, s, torch.tensor(float("-inf"), device=s.device))
+
+
+def _seq_softmax_pv(g, ss: list, vs: list, eq: str, dtype) -> torch.Tensor:
+    """Each position's masked float32 scores ``ss`` over its block of a
+    cache split over its sequence, and its block of the values ``vs``: the
+    max and the sum of exponentials all-reduced, the weights rounded to the
+    values' dtype, the partial products (``eq``) ``psum``'d to ``dtype``."""
+    gmax = g.pmax([s.amax(dim=-1) for s in ss])
+    es = [torch.exp(s - g.to(gmax, k)[..., None])
+          for s, k in zip(ss, g.active)]
+    total = g.psum([e.sum(dim=-1) for e in es])
+    parts = []
+    for e, v, k in zip(es, vs, g.active):
+        w = (e / g.to(total, k)[..., None]).to(v.dtype)
+        parts.append(torch.einsum(eq, w.to(torch.float32),
+                                  v.to(torch.float32)))
+    return g.psum(parts, dtype)
+
+
+def _decode_lens(x: torch.Tensor, cur_len):
+    """(per-row fills [B] int64, the int fill or None where it is per
+    row, the attended rows' bound [B|1, 1])."""
+    b = x.shape[0]
+    if isinstance(cur_len, torch.Tensor) and cur_len.dim() == 1:
+        lens = cur_len.to(device=x.device, dtype=torch.int64)
+        return lens, None, (lens + 1)[:, None]
+    cur = int(cur_len)
+    return (torch.full((b,), cur, dtype=torch.int64, device=x.device), cur,
+            torch.full((1, 1), cur + 1, dtype=torch.int64, device=x.device))
+
+
+def gqa_decode_split(g, p, cfg: AttnConfig, x: torch.Tensor, cache_k,
+                     cache_v, cur_len) -> torch.Tensor:
+    """``gqa_decode`` split over ``g``; the caches are whole tensors or
+    ``ModelBlocks`` over their kv heads (dim 2) or sequence (dim 1)."""
+    b = x.shape[0]
+    h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    lens, cur, valid = _decode_lens(x, cur_len)
+    pos = lens[:, None]
+    q = _norm_rope(p, "q_norm", _proj_split(g, x, p["wq"]), pos,
+                   cfg.rope_theta, cfg.qk_norm)
+    k_new = _norm_rope(p, "k_norm", _proj_split(g, x, p["wk"]), pos,
+                       cfg.rope_theta, cfg.qk_norm)
+    v_new = _proj_split(g, x, p["wv"])
+    _write_new(g, cache_k, lens, _each(lambda u: u[:, 0], k_new), cur, kv)
+    _write_new(g, cache_v, lens, _each(lambda u: u[:, 0], v_new), cur, kv)
+    if is_blocks(cache_k) and cache_k.dim == 1:
+        qf = g.all_gather(q, 2, h) if isinstance(q, list) else q
+        qr = qf.reshape(b, kv, h // kv, d).to(torch.float32)
+        scale = torch.tensor(d ** -0.5, dtype=torch.float32, device=x.device)
+        ss = [_block_mask(torch.einsum(
+            "bkgd,bpkd->bkgp", g.to(qr, k), cache_k.parts[j].to(
+                torch.float32)) * g.to(scale, k), cache_k.bounds(j)[0],
+            valid) for j, k in enumerate(g.active)]
+        o = _seq_softmax_pv(g, ss, cache_v.parts, "bkgp,bpkd->bkgd",
+                            cache_v.parts[0].dtype).reshape(b, 1, h, d)
+        blocks = [(g.to(o[:, :, lo:hi], k), lo, hi) for k in g.active
+                  for lo, hi in [g.bounds(h, k)]]
+    else:
+        blocks = _q_blocks(g, q, h, pad=False)
+        smax = (cache_k.parts[0] if is_blocks(cache_k) else
+                cache_k).shape[1]
+        mask = (torch.arange(smax, device=x.device)[None, :]
+                < valid)[:, None, None, :]
+        outs = []
+        for j, (qk, lo, hi) in enumerate(blocks):
+            kdev = g.active[j]
+            if is_blocks(cache_k):
+                ck, cv = cache_k.parts[j], cache_v.parts[j]
+            else:
+                ck, _ = _kv_heads(g.to(cache_k, kdev), lo, hi, h, h // kv)
+                cv, _ = _kv_heads(g.to(cache_v, kdev), lo, hi, h, h // kv)
+            outs.append(_decode_core(qk, ck, cv, g.to(mask, kdev)))
+        blocks = [(o, lo, hi) for o, (_, lo, hi) in zip(outs, blocks)]
+    return _merge_split(g, p["wo"], [o for o, _, _ in blocks],
+                        [(lo, hi) for _, lo, hi in blocks], h, x.dtype)
+
+
+def mla_attention_split(g, p, cfg: MLAConfig, x: torch.Tensor,
+                        positions: torch.Tensor):
+    """``mla_attention`` split over ``g``'s q heads (with their ``wuk`` /
+    ``wuv`` / ``wo`` blocks); the latents are whole on every position.
+    Returns (out [B, S, D], (c_kv, k_rope) whole)."""
+    dn, dv, h = cfg.qk_nope_dim, cfg.v_head_dim, cfg.n_heads
+    qs = _proj_split(g, x, p["wq"])
+    c_kv, k_rope = _mla_latents(p, cfg, x, positions)
+    outs, blocks = [], []
+    for j, k in enumerate(g.active):
+        qk, dtype = qs[j], x.dtype
+        q_rope = rope(qk[..., dn:], positions.to(qk.device), cfg.rope_theta)
+        ckv, kr = g.to(c_kv, k), g.to(k_rope, k)
+        k_nope = torch.einsum("bsr,rhk->bshk", ckv, p["wuk"].parts[j].to(
+            dtype))
+        v = torch.einsum("bsr,rhk->bshk", ckv, p["wuv"].parts[j].to(dtype))
+        kk = torch.cat([k_nope, kr[:, :, None, :].expand(
+            -1, -1, qk.shape[-2], -1)], dim=-1)
+        out = _flash(torch.cat([qk[..., :dn], q_rope], dim=-1), kk,
+                     F.pad(v, (0, cfg.qk_dim - dv)), causal=True,
+                     kv_chunk=min(cfg.kv_chunk, x.shape[1]))
+        outs.append(out[..., :dv])
+        blocks.append(g.bounds(h, k))
+    return (_merge_split(g, p["wo"], outs, blocks, h, x.dtype),
+            (c_kv, k_rope))
+
+
+def mla_decode_split(g, p, cfg: MLAConfig, x: torch.Tensor, cache_ckv,
+                     cache_kr, cur_len) -> torch.Tensor:
+    """``mla_decode`` split over ``g``'s q heads; the latent caches are
+    whole or ``ModelBlocks`` over their sequence (dim 1), attended block by
+    block in the latent space with every head (the heads' latent queries
+    all-gathered)."""
+    dn, h = cfg.qk_nope_dim, cfg.n_heads
+    f32 = torch.float32
+    lens, cur, valid = _decode_lens(x, cur_len)
+    pos = lens[:, None]
+    qs = _proj_split(g, x, p["wq"])
+    c_new, kr_new = _mla_latents(p, cfg, x, pos)
+    _write_new(g, cache_ckv, lens, c_new[:, 0], cur, None)
+    _write_new(g, cache_kr, lens, kr_new[:, 0], cur, None)
+    scale = torch.tensor(cfg.qk_dim ** -0.5, dtype=f32, device=x.device)
+    q_lat, q_rope = [], []
+    for j, qk in enumerate(qs):
+        q_lat.append(torch.einsum("bhk,rhk->bhr", qk[:, 0, :, :dn],
+                                  p["wuk"].parts[j].to(x.dtype)))
+        q_rope.append(rope(qk[..., dn:], pos.to(qk.device),
+                           cfg.rope_theta)[:, 0])
+
+    def scores(ql, qr, ckv, kr):
+        return (torch.einsum("bhr,bpr->bhp", ql.to(f32), ckv.to(f32))
+                + torch.einsum("bhk,bpk->bhp", qr.to(f32), kr.to(f32))
+                ) * scale.to(ql.device)
+
+    blocks = [g.bounds(h, k) for k in g.active]
+    if is_blocks(cache_ckv):
+        ql, qr = g.all_gather(q_lat, 1, h), g.all_gather(q_rope, 1, h)
+        ss = [_block_mask(scores(g.to(ql, k), g.to(qr, k), cache_ckv.parts[j],
+                                 cache_kr.parts[j]), cache_ckv.bounds(j)[0],
+                          valid) for j, k in enumerate(g.active)]
+        o_lat = _seq_softmax_pv(g, ss, cache_ckv.parts, "bhp,bpr->bhr",
+                                cache_ckv.parts[0].dtype)
+        o_lats = [g.to(o_lat[:, lo:hi], k)
+                  for k, (lo, hi) in zip(g.active, blocks)]
+    else:
+        o_lats = []
+        for j, k in enumerate(g.active):
+            ckv, kr = g.to(cache_ckv, k), g.to(cache_kr, k)
+            s = _block_mask(scores(q_lat[j], q_rope[j], ckv, kr), 0, valid)
+            w = torch.softmax(s, dim=-1)
+            o_lats.append(torch.einsum("bhp,bpr->bhr", w.to(ckv.dtype).to(
+                f32), ckv.to(f32)).to(ckv.dtype))
+    outs = [torch.einsum("bhr,rhk->bhk", o.to(x.dtype),
+                         p["wuv"].parts[j].to(x.dtype))
+            for j, o in enumerate(o_lats)]
+    return _merge_split(g, p["wo"], outs, blocks, h, x.dtype)[:, None]

@@ -5,6 +5,16 @@ chunked cross-entropy of training.
 Plain functions over a parameter dict and tensors, in the reference's
 dtype flow: norms compute in float32 and return the input dtype, RoPE
 rotates in float32, projections run in the activation dtype.
+
+Inside a lane's "model" group (``sharding_ctx.use_group``) a weight the
+rules split arrives as ``ModelBlocks``, and the products take their split
+forms: column-parallel (each position multiplies by its block of output
+columns), row-parallel (each position's block of the contracted dim, its
+float32 partial product, ``psum``), the vocab-parallel ``logits_last`` and
+``chunked_softmax_xent`` (max, sum of exponentials and the target's logit
+all-reduced over the group).  A partial product is float32 and the sum is
+rounded once, so a split product rounds as the unsplit one, up to the order
+of accumulation.
 """
 from __future__ import annotations
 
@@ -15,7 +25,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .params import ParamDef
-from .sharding_ctx import lane_stats
+from .sharding_ctx import is_blocks, lane_stats, model_group, use_group
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -75,7 +85,56 @@ def dense_defs(d_in: int, d_out: int, axes: tuple,
 
 
 def dense(p, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["w"].to(x.dtype)
+    return matmul(x, p["w"])
+
+
+def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` in float32: one position's unrounded share of a split
+    product."""
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
+def column_parallel(x: torch.Tensor, w) -> list:
+    """Each active position's ``x @`` its block of ``w``'s output columns
+    (``ModelBlocks`` on the last dim), in x's dtype, on its device."""
+    g = model_group()
+    return [g.to(x, k) @ wp.to(x.dtype) for k, wp in zip(w.index, w.parts)]
+
+
+def row_parallel(parts: list, w, dtype) -> torch.Tensor:
+    """The positions' inputs (blocks of the contracted dim, aligned with
+    ``w``'s ``ModelBlocks`` on its first dim) times their blocks of ``w``:
+    float32 partial products, ``psum``, rounded once to ``dtype``.
+
+    Positions on one device run their products as one batched product: a
+    layer that ends here (the FFN's ``wo``) and is rematerialised stops its
+    recompute before that product, as one position's program stops before
+    its own, so the lane recomputes what its positions' programs do."""
+    g = model_group()
+    if len({h.device for h in parts}) > 1 or len({tuple(
+            wp.shape) for wp in w.parts}) > 1:
+        return g.psum([partial_product(h, wp) for h, wp in
+                       zip(parts, w.parts)], dtype)
+    lead = parts[0].shape[:-1]
+    hs = torch.stack([h.reshape(-1, h.shape[-1]) for h in parts])
+    out = torch.bmm(hs.to(torch.float32),
+                    torch.stack(list(w.parts)).to(torch.float32))
+    return g.psum([o.reshape(lead + (o.shape[-1],)) for o in out.unbind(0)],
+                  dtype)
+
+
+def matmul(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w``; a ``ModelBlocks`` ``w`` [D_in, D_out] takes its split
+    form: column-parallel then gathered (output columns split), or
+    row-parallel over x's blocks of D_in (input rows split)."""
+    if not is_blocks(w):
+        return x @ w.to(x.dtype)
+    g = model_group()
+    if w.dim == w.parts[0].dim() - 1:
+        return g.all_gather(column_parallel(x, w), -1, w.size)
+    parts = [g.to(x[..., slice(*w.bounds(j))], k)
+             for j, k in enumerate(w.index)]
+    return row_parallel(parts, w, x.dtype)
 
 
 def embed_defs(vocab: int, d_model: int, dtype=torch.bfloat16) -> dict:
@@ -133,11 +192,24 @@ def linear(p, name: str, x: torch.Tensor) -> torch.Tensor:
     if packed is not None:
         from repro_torch.pud.gemv import pud_linear
         return pud_linear(x, packed).to(x.dtype)
-    return x @ p[name].to(x.dtype)
+    return matmul(x, p[name])
+
+
+def _ffn_split(p, x: torch.Tensor, act) -> torch.Tensor:
+    """The gated FFN with its "mlp" dim split: wi / wg column-parallel, the
+    activation on each position's block, wo row-parallel."""
+    hs = column_parallel(x, p["wi"])
+    if "wg" in p:
+        hs = [act(gk) * h for gk, h in zip(column_parallel(x, p["wg"]), hs)]
+    else:
+        hs = [act(h) for h in hs]
+    return row_parallel(hs, p["wo"], x.dtype)
 
 
 def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     act = ACT[activation]
+    if is_blocks(p.get("wi")):
+        return _ffn_split(p, x, act)
     h = linear(p, "wi", x)
     if "wg" in p or "wg_pud" in p:
         h = act(linear(p, "wg", x)) * h
@@ -147,7 +219,14 @@ def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
 
 
 def logits_last(unembed_p, h_last: torch.Tensor) -> torch.Tensor:
-    """Decode-time logits for the last position only. h_last: [B, D]."""
+    """Decode-time logits for the last position only. h_last: [B, D].
+    A vocab split over "model" gives each position its block of the
+    logits, gathered whole."""
+    w = unembed_p.get("w")
+    if is_blocks(w):
+        g = model_group()
+        return g.all_gather([part.to(torch.float32) for part in
+                             column_parallel(h_last, w)], -1, w.size)
     return linear(unembed_p, "w", h_last).to(torch.float32)
 
 
@@ -157,7 +236,14 @@ def remat(enabled: bool, fn, *args):
     of ``jax.checkpoint``): only the inputs are kept, the activations inside
     are recomputed.  The values are the same either way."""
     if enabled and torch.is_grad_enabled():
-        return checkpoint(fn, *args, use_reentrant=False)
+        group = model_group()
+        if group is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+
+        def run(*a):            # the recompute runs in the backward pass
+            with use_group(group):
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False)
     return fn(*args)
 
 
@@ -167,6 +253,28 @@ def _chunk_loss(hc: torch.Tensor, w: torch.Tensor, yc: torch.Tensor,
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
     return ((logz - gold) * mc).sum(), mc.sum()
+
+
+def _chunk_loss_split(hc: torch.Tensor, yc: torch.Tensor,
+                      mc: torch.Tensor, w):
+    """``_chunk_loss`` with the vocab split: each position's block of the
+    logits; the max, the sum of exponentials and the target's logit
+    all-reduced over the group."""
+    g = model_group()
+    logits = [part.to(torch.float32) for part in column_parallel(hc, w)]
+    gmax = g.pmax([lg.detach().amax(dim=-1) for lg in logits])
+    sums, gold = [], []
+    for j, (k, lg) in enumerate(zip(w.index, logits)):
+        sums.append(torch.exp(lg - g.to(gmax, k)[..., None]).sum(dim=-1))
+        lo, hi = w.bounds(j)
+        y = g.to(yc, k).long()
+        inside = (y >= lo) & (y < hi)
+        at = torch.clamp(y - lo, 0, max(hi - lo - 1, 0))
+        pick = (torch.gather(lg, -1, at[..., None])[..., 0] if hi > lo
+                else torch.zeros(y.shape, device=lg.device))
+        gold.append(torch.where(inside, pick, torch.zeros_like(pick)))
+    logz = torch.log(g.psum(sums)) + gmax
+    return ((logz - g.psum(gold)) * mc).sum(), mc.sum()
 
 
 def chunked_softmax_xent(unembed_p, h: torch.Tensor, labels: torch.Tensor,
@@ -191,8 +299,12 @@ def chunked_softmax_xent(unembed_p, h: torch.Tensor, labels: torch.Tensor,
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c in range(s // chunk):
         sl = slice(c * chunk, (c + 1) * chunk)
-        loss, n = remat(True, _chunk_loss, h[:, sl], w, labels[:, sl],
-                        m[:, sl])
+        if is_blocks(w):              # the vocab split over "model"
+            loss, n = remat(True, _chunk_loss_split, h[:, sl], labels[:, sl],
+                            m[:, sl], w)
+        else:
+            loss, n = remat(True, _chunk_loss, h[:, sl], w, labels[:, sl],
+                            m[:, sl])
         tot, cnt = tot + loss, cnt + n
     stats = lane_stats()
     if stats is not None:           # a data lane of the sharded step

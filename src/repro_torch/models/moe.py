@@ -26,6 +26,12 @@ Where PyTorch's defaults would differ from the reference:
 Routed expert banks stay plain ``einsum`` products (the reference runs
 them outside any Pallas kernel); the shared experts go through
 ``layers.ffn`` and so through the bit-plane GEMM when packed.
+
+Inside a lane's "model" group the expert banks arrive as ``ModelBlocks``
+over their experts: the router runs whole (replicated), each position runs
+its own experts on the tokens routed to them, and the positions' float32
+outputs are ``psum``'d; the shared experts split as the FFN's "mlp" dim.
+The Switch statistics come from the whole routing, as before.
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ import torch
 
 from .layers import ffn, ffn_defs, silu
 from .params import ParamDef
-from .sharding_ctx import lane_stats
+from .sharding_ctx import is_blocks, lane_stats, model_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,24 +104,48 @@ def _group(p, cfg: MoEConfig, x: torch.Tensor):
     # each expert takes its top-C tokens of the group by score
     gate_c, idx_c = _top_k(score.t(), cap)                    # [E, C]
     keep = gate_c > 0
-    xe = x[idx_c]                                             # [E, C, D]
-    h = silu(torch.bmm(xe, p["wg"].to(x.dtype)))
-    h = h * torch.bmm(xe, p["wi"].to(x.dtype))
-    ye = torch.bmm(h, p["wo"].to(x.dtype))
-    ye = ye * (gate_c.to(x.dtype) * keep.to(x.dtype))[..., None]
-
     # combine: expert e's kept output for token t lands in t's slot j, the
     # rank of e among t's selected experts; dropped entries go to slot k
     ranked = torch.sort(topi, dim=-1).values                  # [S, k]
     experts = torch.arange(e, device=x.device)[:, None].expand(e, cap)
     slot = (ranked[idx_c] < experts[..., None]).sum(-1)       # [E, C]
     slot = torch.where(keep, slot, torch.full_like(slot, k))
-    parts = torch.zeros((s, k + 1, d), dtype=torch.float32, device=x.device)
+    w = p["wi"]
+    if not is_blocks(w):
+        y = _experts(p["wi"], p["wg"], p["wo"], x, idx_c, gate_c, keep,
+                     slot, k)
+        return y.to(x.dtype), probs, score > 0
+    # experts over "model": each position runs the tokens routed to its
+    # own experts, and the outputs are summed over the group
+    g = model_group()
+    outs = []
+    for j, pk in enumerate(w.index):
+        lo, hi = w.bounds(j)
+        dev = w.parts[j].device
+        outs.append(_experts(
+            w.parts[j], p["wg"].parts[j], p["wo"].parts[j], g.to(x, pk),
+            *(t[lo:hi].to(dev) for t in (idx_c, gate_c, keep, slot)), k))
+    return g.psum(outs, x.dtype), probs, score > 0
+
+
+def _experts(wi, wg, wo, x: torch.Tensor, idx_c, gate_c, keep, slot,
+             k: int) -> torch.Tensor:
+    """The gated FFN of the experts of ``wi`` / ``wg`` / ``wo`` [E', ...]
+    on their tokens ``idx_c`` [E', C] of x [S, D], weighted by ``gate_c``
+    (``keep``: kept entries); each token's outputs summed over its slots in
+    float32: [S, D] float32."""
+    xe = x[idx_c]                                             # [E', C, D]
+    h = silu(torch.bmm(xe, wg.to(x.dtype)))
+    h = h * torch.bmm(xe, wi.to(x.dtype))
+    ye = torch.bmm(h, wo.to(x.dtype))
+    ye = ye * (gate_c.to(x.dtype) * keep.to(x.dtype))[..., None]
+    parts = torch.zeros((x.shape[0], k + 1, x.shape[1]), dtype=torch.float32,
+                        device=x.device)
     parts[idx_c, slot] = ye.to(torch.float32)
     y = parts[:, 0]
     for j in range(1, k):
         y = y + parts[:, j]
-    return y.to(x.dtype), probs, score > 0
+    return y
 
 
 def moe_ffn(p, cfg: MoEConfig, x: torch.Tensor):

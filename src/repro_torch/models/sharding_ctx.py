@@ -1,12 +1,26 @@
-"""Logical-axis sharding context (port of ``repro/models/sharding_ctx.py``)
-and the data lanes' batch statistics.
+"""Logical-axis sharding context (port of ``repro/models/sharding_ctx.py``),
+the "model" group of a data lane, and the data lanes' batch statistics.
 
 A launcher installs the logical->mesh rules (``set_rules``: the table of
 ``models/params.param_pspecs`` plus ``"_mesh_sizes"``); model code reads
 them through ``padded_head_count`` (attention pads its heads to a multiple
 of the "model" axis) and ``hint``.  The reference's ``hint`` becomes
-``jax.lax.with_sharding_constraint`` for GSPMD; eager PyTorch has no
-compiler to constrain, so here it returns ``x`` unchanged.
+``jax.lax.with_sharding_constraint``, and GSPMD partitions the compute of
+every position from those layouts.  Eager PyTorch has no partitioner: here
+``hint`` returns ``x`` unchanged, and the split is written out instead.
+
+``ModelGroup`` is that split (``use_group``; ``runtime/steps.py`` installs
+one per data lane): the lane's positions along "model", the ones the code
+runs for (all of them, or one when the dry run traces a position's
+program), and the collectives between them.  A leaf the rules put on
+"model" comes to the model code as ``ModelBlocks``, one block per position;
+the model's split blocks (``layers``, ``attention``, ``moe``) run each
+position's share on its device and combine the shares with ``psum`` (an
+all-reduce: float32 partial sums added in position order, rounded once),
+``pmax`` or ``all_gather``, each recorded under its collective kind in
+``runtime/sharding.count_transfers``.  Replicated work (norms, the
+embedding, the MoE router) runs once per lane, as each position would run
+it.
 
 ``record_lane_stats`` is the port's own: the sharded train step
 (``runtime/steps.py``) runs each data lane's rows through the model on
@@ -20,6 +34,8 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import dataclasses
+
+import torch
 
 _RULES: contextvars.ContextVar[dict | None] = contextvars.ContextVar(
     "repro_torch_logical_sharding_rules", default=None)
@@ -56,6 +72,161 @@ def padded_head_count(n_heads: int) -> int:
     if not m or n_heads % m == 0:
         return n_heads
     return -(-n_heads // m) * m
+
+
+def block_bounds(n: int, k: int, i: int) -> tuple[int, int]:
+    """Rows [start, stop) of block ``i`` of ``k`` over ``n`` (blocks of
+    ``ceil(n / k)``: ``runtime/sharding.shard_bounds``)."""
+    c = -(-n // k)
+    return min(i * c, n), min((i + 1) * c, n)
+
+
+@dataclasses.dataclass
+class ModelBlocks:
+    """One leaf (or activation) split over "model" into ``count`` blocks:
+    ``parts[j]`` is the block of the position with model coordinate
+    ``index[j]`` along ``dim`` (of a whole length ``size``), on that
+    position's device."""
+
+    parts: list
+    dim: int
+    size: int
+    index: tuple
+    count: int
+
+    def _like(self, parts: list, dim: int) -> "ModelBlocks":
+        return ModelBlocks(parts, dim, self.size, self.index, self.count)
+
+    def layer(self, i: int) -> "ModelBlocks":
+        """Layer ``i`` of a stacked leaf (views of the parts)."""
+        return self._like([p[i] for p in self.parts], self.dim - 1)
+
+    def layers(self, n: int) -> list:
+        """The ``n`` layers, each part unbound once (``layer_slices``)."""
+        per = [p.unbind(0) for p in self.parts]
+        return [self._like([u[i] for u in per], self.dim - 1)
+                for i in range(n)]
+
+    def bounds(self, j: int) -> tuple[int, int]:
+        """[start, stop) of part ``j`` in the whole dimension."""
+        return block_bounds(self.size, self.count, self.index[j])
+
+
+def is_blocks(x) -> bool:
+    return isinstance(x, ModelBlocks)
+
+
+@dataclasses.dataclass
+class ModelGroup:
+    """The "model" positions of one data lane: ``positions`` (mesh
+    coordinates, in model order), their ``devices``, and ``active``, the
+    model coordinates the code runs for: all of them, or one when the dry
+    run traces that position's program (``trace``).  ``rules`` decide a
+    cache leaf's split (``cache_dim``)."""
+
+    positions: tuple
+    devices: tuple
+    active: tuple
+    rules: dict
+
+    @property
+    def size(self) -> int:
+        return len(self.positions)
+
+    @property
+    def trace(self) -> bool:
+        return len(self.active) < self.size
+
+    @property
+    def home(self):
+        """The device of replicated activations: the first active
+        position's (the lane's own position when all run)."""
+        return self.devices[self.active[0]]
+
+    def bounds(self, n: int, k: int) -> tuple[int, int]:
+        return block_bounds(n, self.size, k)
+
+    def to(self, x: torch.Tensor, k: int) -> torch.Tensor:
+        """``x`` on position ``k``'s device (a broadcast of a replicated
+        activation; a no-op where the position shares the home device)."""
+        return x.to(self.devices[k])
+
+    def split_dim(self, axes: tuple, shape: tuple):
+        """The dimension of a leaf with logical ``axes`` that the rules put
+        on "model" alone and that splits evenly over the group, or None
+        (the leaf stays whole on every position)."""
+        for d, a in enumerate(axes):
+            if self.rules.get(a) == "model":
+                return d if shape[d] % self.size == 0 else None
+        return None
+
+    # -- collectives --------------------------------------------------------
+
+    def _record(self, kind: str, nbytes: int, factor: float) -> None:
+        """Each active position receives ``factor x nbytes`` from its ring
+        neighbour (ring all-reduce: 2 (M - 1) / M of the buffer; ring
+        all-gather: (M - 1) / M)."""
+        from repro_torch.runtime import sharding as shd
+        m = self.size
+        for k in self.active:
+            shd.moved(kind, self.positions[(k - 1) % m], self.positions[k],
+                      int(factor * nbytes * (m - 1) / m))
+
+    def psum(self, parts: list, dtype=None) -> torch.Tensor:
+        """The all-reduce of the positions' partial results (aligned with
+        ``active``): float32 sums in position order on the home device,
+        rounded once to ``dtype`` (None: left float32).  Traced for one
+        position, its own partial stands for the sum."""
+        acc = None
+        for p in parts:
+            p = p.to(self.home, torch.float32)
+            acc = p if acc is None else acc + p
+        self._record("all-reduce", acc.numel() * 4, 2.0)
+        return acc if dtype is None else acc.to(dtype)
+
+    def pmax(self, parts: list) -> torch.Tensor:
+        """The all-reduce max of the positions' float32 parts."""
+        acc = None
+        for p in parts:
+            p = p.to(self.home, torch.float32)
+            acc = p if acc is None else torch.maximum(acc, p)
+        self._record("all-reduce", acc.numel() * 4, 2.0)
+        return acc
+
+    def all_gather(self, parts: list, dim: int, size: int) -> torch.Tensor:
+        """The whole tensor from the positions' blocks along ``dim`` (of
+        length ``size``), on the home device.  Traced for one position, the
+        other blocks are left unwritten."""
+        if not self.trace:
+            out = torch.cat([p.to(self.home) for p in parts], dim=dim)
+        else:
+            p = parts[0]
+            shape = list(p.shape)
+            shape[dim] = size
+            out = p.new_empty(shape)
+            lo, hi = self.bounds(size, self.active[0])
+            out.narrow(dim, lo, hi - lo).copy_(p)
+        self._record("all-gather", out.numel() * out.element_size(), 1.0)
+        return out
+
+
+_GROUP: contextvars.ContextVar[ModelGroup | None] = contextvars.ContextVar(
+    "repro_torch_model_group", default=None)
+
+
+def model_group() -> ModelGroup | None:
+    """The enclosing ``use_group``'s group, or None (no split)."""
+    return _GROUP.get()
+
+
+@contextlib.contextmanager
+def use_group(group: ModelGroup | None):
+    """Run the block as ``group``'s split program (None: unsplit)."""
+    token = _GROUP.set(group)
+    try:
+        yield group
+    finally:
+        _GROUP.reset(token)
 
 
 @dataclasses.dataclass

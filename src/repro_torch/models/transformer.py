@@ -39,6 +39,7 @@ from .layers import (chunked_softmax_xent, embed, embed_defs, ffn, ffn_defs,
                      logits_last, remat, rmsnorm, rmsnorm_defs, unembed_defs)
 from .moe import MoEConfig, moe_defs, moe_ffn
 from .params import ParamDef, stack_defs
+from .sharding_ctx import ModelBlocks, is_blocks, model_group
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,7 +115,7 @@ def layer_slice(tree, i: int):
     """Layer ``i`` of a stacked parameter (sub)tree."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
-    if isinstance(tree, (PackedTensor, ShardedPackedTensor)):
+    if isinstance(tree, (PackedTensor, ShardedPackedTensor, ModelBlocks)):
         return tree.layer(i)
     return tree[i]
 
@@ -129,10 +130,56 @@ def layer_slices(tree, n: int) -> list:
         return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
     if isinstance(tree, (PackedTensor, ShardedPackedTensor)):
         return [tree.layer(i) for i in range(n)]
+    if isinstance(tree, ModelBlocks):
+        return tree.layers(n)
     return list(tree.unbind(0))
 
 
+def _cache_leaf(shape, axes, dtype, device):
+    """A zero cache leaf of a prefill: whole, or inside a "model" group
+    whose rules split it (kv heads or kv_seq on "model", evenly) one
+    zero block per position (``ModelBlocks``)."""
+    g = model_group()
+    dim = None if g is None else g.split_dim(axes, shape)
+    if dim is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    parts = []
+    for k in g.active:
+        lo, hi = g.bounds(shape[dim], k)
+        part = list(shape)
+        part[dim] = hi - lo
+        parts.append(torch.zeros(part, dtype=dtype, device=g.devices[k]))
+    return ModelBlocks(parts, dim, shape[dim], tuple(g.active), g.size)
+
+
+def _put_rows(leaf, i: int, s: int, r) -> None:
+    """Layer ``i``'s rows [0, s) of a prefill cache leaf from its
+    attention's rows ``r`` (whole, or ``ModelBlocks`` over the kv heads);
+    a split leaf takes each position's block (kv heads, or rows of its
+    sequence block)."""
+    if not is_blocks(leaf):
+        if is_blocks(r):
+            r = model_group().all_gather(r.parts, 2, r.size)
+        leaf[i, :, :s] = r
+        return
+    g = model_group()
+    if is_blocks(r) and leaf.dim != 3:
+        r = g.all_gather(r.parts, 2, r.size)
+    for j, part in enumerate(leaf.parts):
+        lo, hi = leaf.bounds(j)
+        if leaf.dim == 2:                   # the sequence (kv_seq)
+            n = max(0, min(hi, s) - lo)
+            part[i, :, :n] = g.to(r[:, lo:lo + n], leaf.index[j])
+        elif is_blocks(r):                  # kv heads, split alike
+            part[i, :, :s] = r.parts[j]
+        else:
+            part[i, :, :s] = g.to(r[:, :, lo:hi], leaf.index[j])
+
+
 class TransformerLM:
+    #: the "model" axis splits this family's compute (``runtime/steps``)
+    model_split = True
+
     def __init__(self, cfg: LMConfig):
         self.cfg = cfg
 
@@ -250,9 +297,8 @@ class TransformerLM:
             name = f"layers_{gi}_{kind}"
             leaves = None
             if collect_cache:
-                leaves = {n: torch.zeros(shape, dtype=cfg.dtype,
-                                         device=h.device)
-                          for n, (shape, _) in self._cache_leaves(
+                leaves = {n: _cache_leaf(shape, axes, cfg.dtype, h.device)
+                          for n, (shape, axes) in self._cache_leaves(
                               count, b, max_len or s).items()}
                 cache[name] = leaves
             for i, lp in enumerate(layer_slices(params[name], count)):
@@ -260,7 +306,7 @@ class TransformerLM:
                                        self._layer, kind, lp, h, positions)
                 if leaves is not None:
                     for leaf, r in zip(leaves.values(), rows):
-                        leaf[i, :, :s] = r
+                        _put_rows(leaf, i, s, r)
                 aux = aux + aux_l
         return h, cache, aux
 
@@ -361,12 +407,14 @@ class TransformerLM:
                 hn = self._norm(lp["ln1"], h)
                 if cfg.attention == "mla":
                     a = attn_mod.mla_decode(
-                        lp["attn"], cfg.mla_config(), hn, c["ckv"][i],
-                        c["kr"][i], cur_len)
+                        lp["attn"], cfg.mla_config(), hn,
+                        layer_slice(c["ckv"], i), layer_slice(c["kr"], i),
+                        cur_len)
                 else:
                     a = attn_mod.gqa_decode(
-                        lp["attn"], cfg.attn_config(), hn, c["k"][i],
-                        c["v"][i], cur_len)
+                        lp["attn"], cfg.attn_config(), hn,
+                        layer_slice(c["k"], i), layer_slice(c["v"], i),
+                        cur_len)
                 h = self._ffn_residual(kind, lp, h + a)
         h = self._norm(params["final_norm"], h)
         return logits_last(params["unembed"], h[:, -1]), cache

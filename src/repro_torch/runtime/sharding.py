@@ -26,9 +26,11 @@ positions that differ only on axes a leaf does not use hold equal copies.
 
 ``count_transfers`` counts, inside its block, the bytes that cross
 between positions: what ``gather`` and ``put`` copy from one position to
-another, and the float32 gradient blocks of the sharded train step's
-reduce-scatter (``runtime/steps.reduce_grads_at``), under the reference's
-collective kinds.  Positions are told apart by coordinate, not by device:
+another, the float32 gradient blocks of the sharded train step's
+reduce-scatter (``runtime/steps.reduce_grads_at``), and the collectives of
+a lane's "model" group (``models/sharding_ctx.ModelGroup``: "all-reduce"
+of partial sums, "all-gather" of split activations), under the
+reference's collective kinds.  Positions are told apart by coordinate, not by device:
 every position of a one-card or meta mesh shares a device.  Outside the
 block nothing is counted.
 """
@@ -196,8 +198,8 @@ def zeros(shape, dtype, sharding: NamedSharding) -> ShardedTensor:
     return ShardedTensor(sharding, tuple(shape), dtype, shards)
 
 
-def gather(st: ShardedTensor, device, at=None,
-           rows: int | None = None) -> torch.Tensor:
+def gather(st: ShardedTensor, device, at=None, rows: int | None = None,
+           keep: str | None = None) -> torch.Tensor:
     """The whole leaf on ``device`` (an all-gather of its blocks).
 
     Without ``at`` the blocks come from ``canonical()``'s holders.  With
@@ -207,13 +209,19 @@ def gather(st: ShardedTensor, device, at=None,
     (``count_transfers``), and a leaf that ``at`` holds whole on
     ``device`` comes back as ``at``'s own shard, not copied.  ``rows`` (a
     dimension) keeps only ``at``'s block along it: a lane's rows of a
-    cache."""
+    cache.  ``keep`` (a mesh axis) keeps only ``at``'s block of the
+    dimension that axis maps to: a position's own "model" block, gathered
+    over the other axes."""
     names = st.mesh.axis_names
     ref = (0,) * len(names) if at is None else tuple(at)
     want = local_slices(st.sharding, st.shape, ref)
+    own_dims = [] if rows is None else [rows]
+    if keep is not None:
+        own_dims += [d for d, e in enumerate(st.sharding.spec)
+                     if keep in _dim_axes(e)]
     shape = list(st.shape)
-    if rows is not None:
-        shape[rows] = want[rows].stop - want[rows].start
+    for d in own_dims:
+        shape[d] = want[d].stop - want[d].start
     own = None if at is None else st.shards.get(ref)
     if (own is not None and tuple(own.shape) == tuple(shape)
             and own.device == torch.device(device)):
@@ -224,10 +232,10 @@ def gather(st: ShardedTensor, device, at=None,
         if any(i != r for a, i, r in zip(names, c, ref) if a not in used):
             continue
         sl = list(local_slices(st.sharding, st.shape, c))
-        if rows is not None:
-            if sl[rows] != want[rows]:
-                continue
-            sl[rows] = slice(0, shape[rows])
+        if any(sl[d] != want[d] for d in own_dims):
+            continue
+        for d in own_dims:
+            sl[d] = slice(0, shape[d])
         full[tuple(sl)].copy_(t)
         if at is not None:
             moved("all-gather", c, ref, t.numel() * t.element_size())

@@ -24,14 +24,22 @@ leaves) the step is data-parallel over the batch axes, in one process:
     gradients, which are summed in float32 into gradient shards laid out
     as the parameters (a reduce-scatter), and AdamW updates every
     position's slices.
-The compute of the "model" axis is not split (no tensor parallelism): it
-shards storage only.  Each piece is a function of its own
-(``gather_lane_params``, ``lanes_grads``, ``reduce_grads_at``: position
-by position), so the dry run (``launch/dryrun.py``) traces one lane's and
-one position's part of the same code; ``make_lane_prefill_step`` /
-``make_lane_decode_step`` are the serving steps of a lane on sharded
-parameters and cache.  On several cards the lanes, issued one after
-another from the host, still overlap, since CUDA launches are
+For the families whose model sets ``model_split`` (the dense and MoE
+transformers) the "model" axis splits each lane's compute too, as GSPMD
+splits the reference's: the lane's positions along "model" form a
+``sharding_ctx.ModelGroup`` (``lane_group``); each keeps its own block of
+every leaf the rules put on "model" (gathered over the other axes only)
+and computes its share, and the model's split blocks combine the shares
+(``models/layers``, ``attention``, ``moe``).  A gradient block of such a
+leaf is reduced over the data lanes only.  The other families compute each
+lane whole on its first position (the "model" axis shards their storage
+only).  Each piece is a function of its own (``gather_lane_params``,
+``lanes_grads``, ``reduce_grads_at``: position by position), so the dry run
+(``launch/dryrun.py``) traces one position's program of the same code (a
+group whose ``active`` is that position alone); ``make_lane_prefill_step``
+/ ``make_lane_decode_step`` are the serving steps of a lane on sharded
+parameters and cache.  On several cards the lanes and positions, issued one
+after another from the host, still overlap, since CUDA launches are
 asynchronous.
 """
 from __future__ import annotations
@@ -41,7 +49,9 @@ from typing import Callable
 
 import torch
 
-from repro_torch.models.sharding_ctx import record_lane_stats
+from repro_torch.models import sharding_ctx
+from repro_torch.models.sharding_ctx import (ModelBlocks, is_blocks,
+                                             record_lane_stats, use_group)
 
 from . import sharding as shd
 from .optim import OptConfig, adamw_update, tree_leaves, tree_map
@@ -103,25 +113,88 @@ def lane_positions(mesh, batch_axes=None) -> list:
     return out
 
 
-def gather_lane_params(leaves: list, lane) -> list:
-    """Every sharded parameter leaf whole at the lane's position (an
-    all-gather; a leaf the lane holds whole is its own shard)."""
-    return [shd.gather(p, p.mesh.device(lane), at=lane) for p in leaves]
+def lane_group(model, mesh, lane, at=None):
+    """The "model" group of the data lane at ``lane`` (its positions along
+    "model"), or None where the lane computes whole: a model without
+    ``model_split``, or no "model" axis of two or more positions.
+    ``at``: a position of the lane whose program alone runs (the dry
+    run's trace); by default all of them.  The group's rules are the
+    installed ones (``sharding_ctx.get_rules``), else the mesh's."""
+    sizes = mesh.shape
+    if not getattr(model, "model_split", False) or sizes.get("model", 1) < 2:
+        return None
+    names = mesh.axis_names
+    mi = names.index("model")
+    positions = tuple(tuple(lane[:mi]) + (m,) + tuple(lane[mi + 1:])
+                      for m in range(sizes["model"]))
+    active = (tuple(range(len(positions))) if at is None
+              else (tuple(at)[mi],))
+    rules = sharding_ctx.get_rules() or shd.make_rules(mesh)
+    return sharding_ctx.ModelGroup(
+        positions, tuple(mesh.device(c) for c in positions), active, rules)
+
+
+def _model_dim(st, m: int):
+    """The dimension of a sharded leaf its spec puts on "model" alone, if
+    it splits evenly over ``m`` positions, else None."""
+    for d, e in enumerate(st.sharding.spec):
+        if e == "model":
+            return d if st.shape[d] % m == 0 else None
+    return None
+
+
+def gather_lane(st, lane, group=None, rows=None):
+    """One sharded leaf for the lane: whole at the lane's position (an
+    all-gather; a leaf the position holds whole is its own shard), or,
+    inside a "model" group, ``ModelBlocks`` of each active position's own
+    "model" block gathered over the other axes.  ``rows``: keep the
+    position's block of that dimension (a cache's batch rows)."""
+    dim = None if group is None else _model_dim(st, group.size)
+    if dim is None:
+        home = lane if group is None else group.positions[group.active[0]]
+        return shd.gather(st, st.mesh.device(home), at=home, rows=rows)
+    parts = [shd.gather(st, group.devices[k], at=group.positions[k],
+                        rows=rows, keep="model") for k in group.active]
+    return ModelBlocks(parts, dim, st.shape[dim], tuple(group.active),
+                       group.size)
+
+
+def gather_lane_params(leaves: list, lane, group=None) -> list:
+    """Every sharded parameter leaf for the lane (``gather_lane``)."""
+    return [gather_lane(p, lane, group) for p in leaves]
 
 
 def reduce_grads_at(gacc: list, grads: list, lanes: list, at) -> None:
     """Position ``at``'s part of the float32 reduce-scatter: every lane's
     block of each gradient leaf, sent as float32 ("reduce-scatter" in
     ``sharding.count_transfers``), added into ``at``'s accumulator shard
-    in lane order.  ``grads``: per lane its leaf gradients or None."""
+    in lane order.  ``grads``: per lane its leaf gradients or None.  A
+    gradient split over "model" (``ModelBlocks``) reaches ``at`` from the
+    lane's position with ``at``'s model coordinate: reduced over the data
+    lanes only."""
     for j, acc in enumerate(gacc):
         t = acc.shards[at]
-        sl = shd.local_slices(acc.sharding, acc.shape, at)
+        sl = list(shd.local_slices(acc.sharding, acc.shape, at))
+        names = acc.mesh.axis_names
         for lane, g in zip(lanes, grads):
-            if g is not None and g[j] is not None:
-                blk = g[j][sl]
-                shd.moved("reduce-scatter", lane, at, blk.numel() * 4)
-                t.add_(blk.to(t.device, torch.float32))
+            if g is None or g[j] is None:
+                continue
+            src, gj = lane, g[j]
+            if is_blocks(gj):
+                mi = names.index("model")
+                if at[mi] not in gj.index:
+                    continue
+                part = gj.parts[gj.index.index(at[mi])]
+                if part is None:
+                    continue
+                own = list(sl)
+                own[gj.dim] = slice(0, part.shape[gj.dim])
+                blk = part[tuple(own)]
+                src = tuple(lane[:mi]) + (at[mi],) + tuple(lane[mi + 1:])
+            else:
+                blk = gj[tuple(sl)]
+            shd.moved("reduce-scatter", src, at, blk.numel() * 4)
+            t.add_(blk.to(t.device, torch.float32))
 
 
 def _aux_weight(model) -> float:
@@ -153,31 +226,57 @@ def _global_loss(model, stats: list, home) -> torch.Tensor:
     return loss
 
 
-def lanes_grads(model, params, lane_params: list, lane_batches: list):
+def _tensors(x) -> list:
+    return list(x.parts) if is_blocks(x) else [x]
+
+
+def _device(x):
+    return _tensors(x)[0].device
+
+
+def _requires(x):
+    """A leaf to differentiate: detached, requiring grad (each block)."""
+    if is_blocks(x):
+        return ModelBlocks([t.detach().requires_grad_() for t in x.parts],
+                           x.dim, x.size, x.index, x.count)
+    return x.detach().requires_grad_()
+
+
+def lanes_grads(model, params, lane_params: list, lane_batches: list,
+                groups=None):
     """(global loss, per lane the gradients of its leaves or None) of one
-    microbatch: each lane's forward pass under ``record_lane_stats``, then
-    one backward pass over all of them."""
-    req = [[p.detach().requires_grad_() for p in lp] for lp in lane_params]
+    microbatch: each lane's forward pass under ``record_lane_stats`` (and
+    its "model" group, ``groups``: one per lane or None), then one backward
+    pass over all of them.  A split leaf's gradient is ``ModelBlocks``."""
+    groups = groups or [None] * len(lane_params)
+    req = [[_requires(p) for p in lp] for lp in lane_params]
     stats = []
     with torch.enable_grad():
-        for r, mb in zip(req, lane_batches):
+        for r, mb, g in zip(req, lane_batches, groups):
             if mb is None:
                 continue
             it = iter(r)
-            with record_lane_stats() as st:
+            with record_lane_stats() as st, use_group(g):
                 model.train_loss(tree_map(lambda _: next(it), params), mb)
             stats.append(st)
-        loss = _global_loss(model, stats, lane_params[0][0].device)
+        loss = _global_loss(model, stats, _device(lane_params[0][0]))
         live = [r for r, mb in zip(req, lane_batches) if mb is not None]
-        flat = torch.autograd.grad(loss, [p for r in live for p in r],
-                                   allow_unused=True)
+        flat = torch.autograd.grad(
+            loss, [t for r in live for p in r for t in _tensors(p)],
+            allow_unused=True)
     grads, at = [], 0
     for r, mb in zip(req, lane_batches):
         if mb is None:
             grads.append(None)
-        else:
-            grads.append(flat[at:at + len(r)])
-            at += len(r)
+            continue
+        lane = []
+        for p in r:
+            n = len(_tensors(p))
+            got = flat[at:at + n]
+            at += n
+            lane.append(ModelBlocks(list(got), p.dim, p.size, p.index,
+                                    p.count) if is_blocks(p) else got[0])
+        grads.append(lane)
     return loss.detach(), grads
 
 
@@ -189,7 +288,9 @@ def sharded_microbatch_grads(model, params, batch: dict,
     leaves = tree_leaves(params)
     mesh = leaves[0].mesh
     lanes = lane_positions(mesh, batch_axes)
-    lane_params = [gather_lane_params(leaves, c) for c in lanes]
+    groups = [lane_group(model, mesh, c) for c in lanes]
+    lane_params = [gather_lane_params(leaves, c, g)
+                   for c, g in zip(lanes, groups)]
     gacc = [shd.zeros(p.shape, torch.float32, p.sharding) for p in leaves]
     mbs = _split_microbatches(batch, microbatches)
     loss_sum = 0.0
@@ -202,7 +303,8 @@ def sharded_microbatch_grads(model, params, batch: dict,
             lane_batches.append(None if hi == lo else {
                 n: (v if v.ndim == 0 else v[lo:hi]).to(mesh.device(c))
                 for n, v in mb.items()})
-        loss, grads = lanes_grads(model, params, lane_params, lane_batches)
+        loss, grads = lanes_grads(model, params, lane_params, lane_batches,
+                                  groups)
         for c in mesh.positions():
             reduce_grads_at(gacc, grads, lanes, c)
         loss_sum = loss_sum + loss
@@ -279,34 +381,44 @@ def _unflatten(like, leaves: list):
     return tree_map(lambda _: next(it), like)
 
 
-def make_lane_prefill_step(model, family: str, lane) -> Callable:
+def make_lane_prefill_step(model, family: str, lane, at=None) -> Callable:
     """``make_prefill_step`` for ``ShardedTensor`` parameters at the data
     lane whose position is ``lane``: the lane gathers them
-    (``gather_lane_params``), then prefills its rows."""
+    (``gather_lane_params``), then prefills its rows, inside its "model"
+    group where the family splits (``lane_group``; ``at``: that position's
+    program alone).  A split cache leaf comes back as ``ModelBlocks``, each
+    position's block (its kv heads, or its block of the sequence)."""
     prefill = make_prefill_step(model, family)
 
     def lane_prefill(params, tokens, extras=None, max_len=None):
-        p = _unflatten(params, gather_lane_params(tree_leaves(params), lane))
-        return prefill(p, tokens, extras, max_len)
+        leaves = tree_leaves(params)
+        g = lane_group(model, leaves[0].mesh, lane, at)
+        with use_group(g):
+            p = _unflatten(params, gather_lane_params(leaves, lane, g))
+            return prefill(p, tokens, extras, max_len)
 
     return lane_prefill
 
 
-def make_lane_decode_step(model, lane) -> Callable:
+def make_lane_decode_step(model, lane, at=None) -> Callable:
     """``make_decode_step`` for ``ShardedTensor`` parameters and cache at
     the data lane whose position is ``lane``: the lane gathers the
     parameters and its rows of every cache leaf (its block of the
-    "batch" dimension), then decodes them.  A leaf the lane holds whole
-    is used in place, so its cache rows are written there."""
+    "batch" dimension; inside a "model" group each position's own block of
+    a leaf split over "model"), then decodes them.  A leaf the position
+    holds whole is used in place, so its cache rows are written there."""
     decode = make_decode_step(model)
     batch_dim = tree_map(lambda d: d.axes.index("batch"),
                          model.cache_defs(1, 1))
 
     def lane_decode(params, cache, tokens, cur_len):
-        p = _unflatten(params, gather_lane_params(tree_leaves(params), lane))
-        rows = tree_map(lambda st, d: shd.gather(
-            st, st.mesh.device(lane), at=lane, rows=d), cache, batch_dim)
-        return decode(p, rows, tokens, cur_len)
+        leaves = tree_leaves(params)
+        g = lane_group(model, leaves[0].mesh, lane, at)
+        with use_group(g):
+            p = _unflatten(params, gather_lane_params(leaves, lane, g))
+            rows = tree_map(lambda st, d: gather_lane(st, lane, g, rows=d),
+                            cache, batch_dim)
+            return decode(p, rows, tokens, cur_len)
 
     return lane_decode
 

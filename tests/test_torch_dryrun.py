@@ -204,10 +204,24 @@ def test_counting_is_off_outside_the_block():
 # The dry run
 # ---------------------------------------------------------------------------
 
+def _replicated_width(model) -> int:
+    """The output widths, summed over the layers, of the projections every
+    "model" position computes whole: MLA's latent projections (``wdkv``,
+    ``wkr``) and the MoE router."""
+    c = model.cfg
+    width = c.n_layers * (c.mla_kv_rank + c.mla_qk_rope) \
+        if c.attention == "mla" else 0
+    return width + sum(n for kind, n in c.groups() if kind == "moe") * \
+        c.n_experts
+
+
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-lite-16b"])
 def test_one_lane_stands_for_all(arch):
     """On a (2, 2) mesh at smoke size, the dry run's per-position FLOPs x
-    the lanes equal the FLOPs of the whole ``make_train_step`` call."""
+    the positions equal the FLOPs of the whole ``make_train_step`` call,
+    less what the "model" positions' programs each repeat and the lane
+    runs once: the replicated projections, forward, recompute and the two
+    products of their backward."""
     mesh = make_mesh((2, 2), ("data", "model"), device="meta")
     model = get(arch).make_smoke()
     cell = ShapeCell("smoke", "train", 32, 8)
@@ -225,7 +239,12 @@ def test_one_lane_stands_for_all(arch):
     with dryrun._rules({**rules, "_mesh_sizes": dict(mesh.shape)}), \
             CostMode() as cm:
         steps.make_train_step(model, opt, 2)(params, state, batch)
-    assert rec["flops_per_device"] * rec["lanes"] == cm.cost.flops
+    m, rows = mesh.shape["model"], cell.global_batch // 2 // rec["lanes"]
+    repeated = (m - 1) * rec["lanes"] * 2 * 4 * 2 * rows * cell.seq_len * \
+        model.cfg.d_model * _replicated_width(model)
+    assert rec["flops_per_device"] * rec["lanes"] * m - repeated == \
+        cm.cost.flops
+    assert (repeated == 0) == (arch == "qwen3-1.7b")
     assert rec["flops_per_device"] > 0
     # the lane's gather and its share of the reduce-scatter cross
     assert rec["collectives"]["bytes"]["all-gather"] > 0

@@ -2,7 +2,8 @@
 run's prediction of qwen3's train step and decode steps on a (1, 1) mesh
 against the profiler's FLOP count of the same steps run on the CPU (peaks
 and device times are the card's), then two full-size cells of the grid
-and the roofline over their records."""
+and the roofline over their records, then the same train step and decode
+lane split over a (1, 4) mesh's "model" positions."""
 import pytest
 
 pytest.importorskip("torch")
@@ -33,4 +34,14 @@ def test_dryrun_group_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
     assert "(+0.0000%; matrix products)" in text
     assert "| qwen3-1.7b | decode_32k | base |" in text
     assert "measured device time not measured" in text
-    assert text.count("(phase wall") == 4      # and the kernel rows
+    sp = dr["split"]
+    assert sp["train"]["measured"]["flops"] == \
+        4 * sp["train"]["record"]["flops_per_device"] > 0
+    assert abs(sp["train"]["loss"] - tr["first_loss"]) < 1e-3
+    assert sp["decode"]["steps_equal"] + sp["decode"]["ties"] == 8 and \
+        sp["decode"]["logits_err"] < 0.05
+    assert sp["decode"]["overrides"] == {"heads": None, "kv_heads": None,
+                                         "kv_seq": "model"}
+    assert "(d) FLOPs: the dry run's per position" in text
+    assert "(e) 8 steps, the split lane fed the unsplit lane's tokens" in text
+    assert text.count("(phase wall") == 6      # and the kernel rows
