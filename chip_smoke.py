@@ -257,6 +257,19 @@ Phases (any failure exits nonzero and prints no result line):
      step but where the unsplit lane's two best logits tie within the
      step's logit difference (the top-2 margin printed where a token
      differs); both with host wall, device time and launches per step;
+     then the other families' split on the same (1, 4) mesh
+     (``DRYRUN["families"]``), held as (d) and (e) are: (f) mamba2-1.3b's
+     decode lane at full width and depth (8 rows, a random window and
+     state, put back before each run since a step rewrites them whole),
+     (g) whisper-large-v3's train step at full width and 2 + 2 of its 32
+     + 32 layers (2 rows of 1,500 frames and 448 tokens) against one
+     position's on the same weights and batch, in float32 within the mesh
+     tolerances, in bf16 within those or, where larger, 1.5 x one
+     position's own bf16-vs-float32 gap (deeper, the random full-width
+     model is chaotic: at 8 + 8 layers its float32 loss moves by ~0.02
+     when the frames move by one ulp), (h) pixtral-12b's decode lane at
+     4 of its 40 layers (8 rows, a random 32,768-token cache split over
+     its sequence); zamba2-7b's lanes still compute whole;
  20. print the ``kernels`` JSON line and, last, the device JSON line.
 
 The phases run in groups that share no state (``GROUPS``: main = 3-9,
@@ -465,10 +478,22 @@ DRYRUN = dict(
     flops_rtol=0.02, peak_rtol=0.15,
     split=dict(mesh=(1, 4), decode_steps=8, flops_rtol=0.005,
                logits_atol=0.05, floor_factor=1.5, loss_rtol=2e-4,
-               loss_atol=2e-4),
+               loss_atol=2e-4, f32_atol=5e-3, f32_share=0.05),
     cells=(("qwen3-1.7b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"),
            ("mamba2-1.3b", "long_500k"), ("whisper-large-v3", "prefill_32k"),
-           ("pixtral-12b", "prefill_32k")))
+           ("pixtral-12b", "prefill_32k")),
+    # (f)-(h): the other families' split on the same (1, 4) mesh, held as
+    # (d) and (e) are: (f) mamba2-1.3b's decode lane (8 rows, its O(1)
+    # cache), (h) pixtral-12b's (8 rows, a 32,768-token cache, 4 of its 40
+    # layers as the families group serves it), (g) whisper-large-v3's train
+    # step (2 encoder and 2 decoder layers: the random model is chaotic
+    # deeper; 2 rows of 1,500 frames and 448 tokens in one microbatch);
+    # each also in float32, the split held to the unsplit run there
+    families=dict(
+        ssm=dict(arch="mamba2-1.3b", batch=8, seq_len=32768),
+        vlm=dict(arch="pixtral-12b", batch=8, seq_len=32768, layers=4),
+        train=dict(arch="whisper-large-v3", seq_len=448, global_batch=2,
+                   microbatches=1, layers=2)))
 
 
 class PhaseError(RuntimeError):
@@ -4638,7 +4663,9 @@ def dryrun_group(ctx, cfg: dict) -> dict:
     decode = steps.make_lane_decode_step(model, (0, 0))
     cur = dc["seq_len"] - 1
     with rules_for(mesh), torch.no_grad():
-        logits, _ = decode(params, cache, tokens, cur)      # warm-up
+        # the step returns the cache rows it wrote: a view of the whole
+        # cache, which ``_`` would keep alive past the ``del`` below
+        logits = decode(params, cache, tokens, cur)[0]      # warm-up
         need(bool(torch.isfinite(logits).all()) and tuple(logits.shape)
              == (dc["batch"], vocab), "decode gave no finite logits")
         runs = [profiled_step(ctx, lambda: decode(params, cache, tokens,
@@ -4657,6 +4684,8 @@ def dryrun_group(ctx, cfg: dict) -> dict:
     out["split"] = split_phases(ctx, cfg, model, spec, batch, loss0, gen,
                                 out["train"]["measured"])
     del batch
+    free(ctx)
+    out["split"].update(family_split_phases(ctx, cfg, gen))
     free(ctx)
 
     phase(f"dryrun (c): launch.dryrun on the single mesh for "
@@ -4689,8 +4718,7 @@ def split_phases(ctx, cfg: dict, model, spec, batch, loss0: float,
     from repro_torch.models.params import init_params, param_pspecs
     from repro_torch.runtime import sharding as shd
     from repro_torch.runtime import steps
-    from repro_torch.runtime.optim import (OptConfig, init_opt_state,
-                                           tree_map)
+    from repro_torch.runtime.optim import OptConfig, init_opt_state
     torch, dev = ctx.torch, ctx.dev
     sc = cfg["split"]
     d, m = sc["mesh"]
@@ -4764,53 +4792,303 @@ def split_phases(ctx, cfg: dict, model, spec, batch, loss0: float,
     free(ctx)
 
     dc = cfg["decode"]
-    b, smax, n = dc["batch"], dc["seq_len"], sc["decode_steps"]
-
-    class Production:                 # the production mesh's model axis
-        shape = {"data": 16, "model": 16}
-    ov = dryrun.sharding_overrides(spec, Production, "decode", model)
+    ov = production_overrides(spec, model)
     phase(f"dryrun (e): the decode_32k lane of (b) split over the ({d}, "
           f"{m}) mesh's \"model\" positions with the production layout "
-          f"{ov}: {n} greedy steps from a random {smax:,}-token cache "
-          f"against the unsplit lane")
-    vocab = model.cfg.vocab
-    plain = init_params(defs, SEED, dev)
-    one = make_host_mesh(1, 1, device=dev)
-    prules, srules = shd.make_rules(one, ov), shd.make_rules(mesh, ov)
-    p1 = shd.device_put(plain, shd.named(one, param_pspecs(defs, prules)))
-    ps = shd.device_put(plain, shd.named(mesh, param_pspecs(defs, srules)))
-    del plain
-    cdefs = model.cache_defs(b, smax)
-    whole = {}
-    for grp, leaves in cdefs.items():
-        whole[grp] = {}
-        for name, dd in leaves.items():
-            t = torch.empty(dd.shape, dtype=dd.dtype, device=dev)
-            for i in range(dd.shape[0]):
-                t[i] = torch.randn(dd.shape[1:], generator=gen, device=dev,
-                                   dtype=torch.float32).to(dd.dtype)
-            whole[grp][name] = t
+          f"{ov}: {sc['decode_steps']} greedy steps from a random "
+          f"{dc['seq_len']:,}-token cache against the unsplit lane")
+    out["decode"] = split_decode(ctx, "(e)", model, spec, sc, dc["batch"],
+                                 dc["seq_len"], gen)
+    return out
 
-    def views(msh, rules, rows=slice(None)):
+
+def family_split_phases(ctx, cfg: dict, gen) -> dict:
+    """(f)-(h) of the dry-run group: the SSM's and the VLM's decode lanes
+    and the encoder-decoder's train step split over the (1, 4) mesh of
+    ``cfg["split"]``, held as (d) and (e) are (``cfg["families"]``)."""
+    import dataclasses
+
+    from repro_torch.configs import get
+    torch = ctx.torch
+    sc, fc = cfg["split"], cfg["families"]
+    d, m = sc["mesh"]
+    out = {}
+
+    def make(arch):
+        spec = get(arch)
+        return spec, (spec.make_model() if cfg["preset"] == "full"
+                      else spec.make_smoke())
+
+    c = fc["ssm"]
+    spec, model = make(c["arch"])
+    phase(f"dryrun (f): the {c['arch']} ({cfg['preset']}) decode lane of "
+          f"{c['batch']} rows split over the ({d}, {m}) mesh's \"model\" "
+          f"positions with the production layout "
+          f"{production_overrides(spec, model)}: {sc['decode_steps']} greedy "
+          f"steps from a random window and state against the unsplit lane")
+    out["ssm"] = split_decode(ctx, "(f)", model, spec, sc, c["batch"],
+                              c["seq_len"], gen, f32=True)
+
+    c = fc["train"]
+    spec, model = make(c["arch"])
+    mc = model.cfg
+    model = type(model)(dataclasses.replace(
+        mc, n_enc_layers=min(c["layers"], mc.n_enc_layers),
+        n_dec_layers=min(c["layers"], mc.n_dec_layers)))
+    out["encdec"] = split_train_phase(ctx, "(g)", model, spec, sc, c, gen,
+                                      cfg["preset"])
+
+    c = fc["vlm"]
+    spec, model = make(c["arch"])
+    lm = model.cfg.lm
+    model = type(model)(dataclasses.replace(model.cfg, lm=dataclasses.replace(
+        lm, n_layers=min(c["layers"], lm.n_layers))))
+    phase(f"dryrun (h): the {c['arch']} ({cfg['preset']}, "
+          f"{model.cfg.lm.n_layers} of {lm.n_layers} layers) decode lane of "
+          f"{c['batch']} rows split over the ({d}, {m}) mesh's \"model\" "
+          f"positions with the production layout "
+          f"{production_overrides(spec, model)}: {sc['decode_steps']} greedy "
+          f"steps from a random {c['seq_len']:,}-token cache against the "
+          f"unsplit lane")
+    out["vlm"] = split_decode(ctx, "(h)", model, spec, sc, c["batch"],
+                              c["seq_len"], gen, f32=True)
+    return out
+
+
+def split_train_phase(ctx, label: str, model, spec, sc: dict, c: dict,
+                      gen, preset: str) -> dict:
+    """A train step of ``model`` (the encoder-decoder: the batch's frames
+    drawn from ``gen``) on one position, then split over the (1, M) mesh
+    of ``sc``, each in bf16 and in float32 (the same weights and batch
+    upcast): the split loss in float32 within the mesh group's tolerances
+    of one position's, in bf16 within the larger of those and
+    ``floor_factor`` x one position's own bf16 noise (its loss in bf16
+    against float32); the dry run's per-position FLOPs x M against the
+    profiler's (the bf16 split step); the per-position peak x M beside
+    ``max_memory_allocated``.  The random full-width model is chaotic past
+    a few layers (PERF.md §6), so ``c["layers"]`` cuts its depth."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models.params import init_params, param_pspecs
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.optim import OptConfig, init_opt_state, tree_map
+    torch, dev = ctx.torch, ctx.dev
+    d, m = sc["mesh"]
+    arch, mb = c["arch"], c["microbatches"]
+    b, s = c["global_batch"], c["seq_len"]
+    mc = model.cfg
+    phase(f"dryrun {label}: the {arch} ({preset}) train step, {b} rows of "
+          f"{mc.n_frames} frames and {s} tokens in {mb} microbatch(es), on "
+          f"one position and split over a ({d}, {m}) mesh's \"model\" "
+          f"positions on {dev}, in bf16 and float32: the loss against one "
+          f"position's, the dry run's FLOPs x {m} against the profiler's")
+    print(f"  {label} device memory allocated at the start: {held(ctx)}")
+    defs = model.param_defs()
+    toks = torch.randint(0, mc.vocab, (b, s + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    frames = 0.1 * torch.randn((b, mc.n_frames, mc.d_model), generator=gen,
+                               device=dev)
+    models = {False: model, True: type(model)(dataclasses.replace(
+        mc, dtype=torch.float32))}
+    opt = OptConfig()
+    one, split = make_host_mesh(1, 1, device=dev), make_host_mesh(
+        d, m, device=dev)
+    losses, walls = {}, {}
+    for name, msh, wide in (("one", one, False), ("split", split, False),
+                            ("one", one, True), ("split", split, True)):
+        key = name + (" float32" if wide else "")
+        mdl = models[wide]
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:],
+                 "frames": frames.to(mdl.cfg.dtype)}
+        rules = shd.make_rules(msh, dryrun.sharding_overrides(
+            spec, msh, "train", mdl))
+        params = shd.device_put(tree_map(
+            lambda t: t.float() if wide and t.is_floating_point() else t,
+            init_params(defs, SEED, dev)), shd.named(
+                msh, param_pspecs(defs, rules)))
+        state = init_opt_state(params, opt)
+        step = steps.make_train_step(mdl, opt, mb)
+        box = {}
+
+        def first_step():
+            t0 = time.perf_counter()
+            box["loss"] = float(step(params, state, batch)[2]["loss"])
+            ctx.sync()
+            box["host_ms"] = (time.perf_counter() - t0) * 1e3
+
+        with rules_for(msh, rules):
+            if key == "split":
+                got = profiled_step(ctx, first_step)
+            else:
+                first_step()
+        losses[key], walls[key] = box["loss"], box["host_ms"]
+        del params, state, step, batch
+        free(ctx)
+    cell = ShapeCell("train", "train", s, b)
+    rec = dryrun.run_cell(arch, cell, make_mesh((d, m), ("data", "model"),
+                                                device="meta"),
+                          f"{d}x{m}", microbatch=mb, model=model)
+
+    def tol(ref: float) -> float:
+        return sc["loss_atol"] + sc["loss_rtol"] * abs(ref)
+    one32 = losses["one float32"]
+    noise = abs(losses["one"] - one32)
+    allowed32 = tol(one32)
+    allowed = max(tol(losses["one"]), sc["floor_factor"] * noise)
+    err32 = abs(losses["split float32"] - one32)
+    err = abs(losses["split"] - losses["one"])
+    print(f"  {label} losses: {json.dumps(losses)}")
+    print(f"  {label} float32: |split - one| {err32:.3e}, allowed "
+          f"{allowed32:.3e} (rtol = atol = {sc['loss_rtol']}); bf16: |split "
+          f"- one| {err:.3e}, allowed {allowed:.3e} (the larger of those and "
+          f"{sc['floor_factor']} x one position's |bf16 - float32| "
+          f"{noise:.3e})")
+    need(err32 <= allowed32, f"{label}: in float32 the split step's loss "
+         f"{losses['split float32']} differs from one position's {one32} "
+         f"by more than {allowed32}")
+    need(err <= allowed, f"{label}: the split step's bf16 loss "
+         f"{losses['split']} differs from one position's {losses['one']} "
+         f"by more than {allowed}")
+    pred = rec["flops_per_device"] * m
+    f_err = got["flops"] / pred - 1
+    print(f"  {label} FLOPs: the dry run's per position "
+          f"{rec['flops_per_device']:.6e} x {m} = {pred:.6e}, profiler "
+          f"{got['flops']:.6e} ({f_err:+.4%}; matrix products); scheme "
+          f"{rec['scheme']!r}; all-reduce "
+          f"{rec['collectives']['bytes']['all-reduce']:.4e} B per position")
+    n, f = got["aborted"]
+    if n:
+        print(f"  {label} {n} more product calls ({f:.6e} FLOPs) recorded by "
+              "the profiler ran nothing: checkpoint recomputes that stopped "
+              "inside them")
+    need(abs(f_err) <= sc["flops_rtol"], f"{label}: the profiler's FLOPs "
+         f"differ from the dry run's x {m} by {f_err:+.4%}")
+    ppk, peak = rec["peak_bytes_per_device"], got["peak"]
+    print(f"  {label} peak: the dry run's per position {ppk / 2**30:.3f} GiB "
+          f"(x {m} = {m * ppk / 2**30:.3f} GiB), max_memory_allocated "
+          f"{peak and f'{peak / 2**30:.3f} GiB'} for the {m} positions on "
+          f"one card")
+    print(f"  {label} the bf16 split step: host wall {walls['split']:.1f} ms "
+          f"(under the profiler), device time {got['device_ms']} ms, launches "
+          f"{got['launches']}; unprofiled host walls: one position "
+          f"{walls['one']:.1f} ms, float32 one {walls['one float32']:.1f} / "
+          f"split {walls['split float32']:.1f} ms")
+    return dict(record=rec, measured=got, losses=losses, noise=noise,
+                allowed=allowed, allowed32=allowed32, peak=peak,
+                host_ms=walls)
+
+
+def production_overrides(spec, model) -> dict:
+    """The dry run's decode overrides for the production mesh's "model"
+    axis of 16 (the layout a (1, M) lane on the card takes)."""
+    from repro_torch.launch import dryrun
+
+    class Production:
+        shape = {"data": 16, "model": 16}
+    return dryrun.sharding_overrides(spec, Production, "decode", model)
+
+
+def split_decode(ctx, label: str, model, spec, sc: dict, b: int, smax: int,
+                 gen, f32: bool = False) -> dict:
+    """A decode lane of ``model`` split over the (1, M) mesh of ``sc`` with
+    the production mesh's layout, against the unsplit lane on the same
+    weights and random cache (``b`` rows, ``smax`` of them for a KV cache):
+    ``sc["decode_steps"]`` greedy steps, the split lane fed the unsplit
+    lane's tokens; tokens equal but at ties; its logits within the larger
+    of ``logits_atol`` and ``floor_factor`` x the unsplit lane's own noise:
+    its difference when its first step runs row by row and (``f32``) its
+    difference at each step from the same lane in float32 (the same
+    weights and cache upcast, fed the same tokens).  With ``f32`` the
+    split lane in float32 is held to the unsplit one in float32 too, at
+    each step within the larger of ``f32_atol`` and ``f32_share`` of the
+    unsplit lane's bf16-against-float32 difference: a random full-width
+    model amplifies float32's rounding too (pixtral's wq takes its fan-in
+    from the head count, so its scores over a random cache have a std near
+    12 and the softmax is near one-hot), and the split's float32 error
+    must stay far below the bf16 noise the bf16 check allows.  A cache
+    that a step rewrites whole (the SSM's window and state: no "kv_seq"
+    rows) is put back before each run.  Prints host wall, device time and
+    launches per step."""
+    import dataclasses
+
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.params import init_params, param_pspecs
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.optim import tree_leaves, tree_map
+    torch, dev = ctx.torch, ctx.dev
+    print(f"  {label} device memory allocated at the start: {held(ctx)}")
+    d, m = sc["mesh"]
+    n = sc["decode_steps"]
+    ov = production_overrides(spec, model)
+    defs = model.param_defs()
+    vocab = getattr(model.cfg, "lm", model.cfg).vocab
+    one, mesh = make_host_mesh(1, 1, device=dev), make_host_mesh(d, m,
+                                                                 device=dev)
+    rules = {"unsplit": (one, shd.make_rules(one, ov)),
+             "split": (mesh, shd.make_rules(mesh, ov))}
+    plain = init_params(defs, SEED, dev)
+    cdefs = model.cache_defs(b, smax)
+
+    def random_leaf(dd):
+        t = torch.empty(dd.shape, dtype=dd.dtype, device=dev)
+        for i in range(dd.shape[0]):
+            t[i] = torch.randn(dd.shape[1:], generator=gen, device=dev,
+                               dtype=torch.float32).to(dd.dtype)
+        return t
+    caches = {False: tree_map(random_leaf, cdefs)}
+    models = {False: model}
+    if f32:
+        def up(t):
+            return t.float() if t.is_floating_point() else t
+        caches[True] = tree_map(up, caches[False])
+        cfg, f32_of = model.cfg, torch.float32
+        models[True] = type(model)(
+            dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm,
+                                                            dtype=f32_of))
+            if hasattr(cfg, "lm") else dataclasses.replace(cfg, dtype=f32_of))
+    rewritten = not any("kv_seq" in dd.axes for dd in tree_leaves(cdefs))
+    pristine = ({k: tree_map(torch.clone, c) for k, c in caches.items()}
+                if rewritten else None)
+
+    def restore(wide):
+        if pristine is not None:
+            for w, p in zip(tree_leaves(caches[wide]),
+                            tree_leaves(pristine[wide])):
+                w.copy_(p)
+
+    def views(wide, msh, rl, rows=slice(None)):
         """The cache's ``rows`` as ``ShardedTensor``s of ``msh`` whose
         shards are views of it (the lanes share its memory)."""
-        specs = param_pspecs(cdefs, rules)
+        specs = param_pspecs(cdefs, rl)
         return tree_map(lambda t, sp: shd.ShardedTensor(
             shd.NamedSharding(msh, sp), tuple(t.shape), t.dtype, {
                 c: t[shd.local_slices(shd.NamedSharding(msh, sp), t.shape,
                                       c)] for c in msh.positions()}),
-            tree_map(lambda t: t[:, rows], whole), specs)
-    c1, cs_ = views(one, prules), views(mesh, srules)
+            tree_map(lambda t: t[:, rows], caches[wide]), specs)
     tokens = torch.randint(0, vocab, (b, 1), generator=gen, device=dev,
                            dtype=torch.int32)
     start = smax - n
-    runs, fed = {}, None
+    runs, fed, floor = {}, None, (0.0, 0.0)
+    order = [("unsplit", False), ("split", False)] + (
+        [("unsplit", True), ("split", True)] if f32 else [])
     with torch.no_grad():
-        for label, msh, rules, params, cache in (
-                ("unsplit", one, prules, p1, c1),
-                ("split", mesh, srules, ps, cs_)):
-            decode = steps.make_lane_decode_step(model, (0, 0))
-            with rules_for(msh, rules):
+        for kind, wide in order:
+            name = kind + (" float32" if wide else "")
+            msh, rl = rules[kind]
+            mdl = models[wide]
+            params = shd.device_put(
+                tree_map(lambda t: t.float() if wide and
+                         t.is_floating_point() else t, plain),
+                shd.named(msh, param_pspecs(defs, rl)))
+            cache = views(wide, msh, rl)
+            decode = steps.make_lane_decode_step(mdl, (0, 0))
+            restore(wide)
+            with rules_for(msh, rl):
                 t, logits, walls = tokens, [], []
                 for i in range(n):
                     t0 = time.perf_counter()
@@ -4818,8 +5096,8 @@ def split_phases(ctx, cfg: dict, model, spec, batch, loss0: float,
                     ctx.sync()
                     walls.append((time.perf_counter() - t0) * 1e3)
                     logits.append(lg.float())
-                    # the split lane is fed the unsplit lane's tokens, so a
-                    # tie broken the other way does not fork the two runs
+                    # every lane is fed the unsplit lane's tokens, so a
+                    # tie broken the other way does not fork the runs
                     t = (fed[i] if fed else
                          lg.argmax(-1, keepdim=True).to(torch.int32))
                 prof = profiled_step(ctx, lambda: decode(
@@ -4829,27 +5107,34 @@ def split_phases(ctx, cfg: dict, model, spec, batch, loss0: float,
                        for lg in logits]
                 # the unsplit lane's own noise: its first step again, row
                 # by row (cuBLAS's accumulation order at one row)
-                with rules_for(msh, rules):
+                restore(wide)
+                with rules_for(msh, rl):
                     alone = torch.cat([decode(
-                        params, views(msh, rules, slice(r, r + 1)),
+                        params, views(wide, msh, rl, slice(r, r + 1)),
                         tokens[r:r + 1], start)[0].float() for r in range(b)])
-                d = (alone - logits[0]).abs()
-                floor = (float(d.max()), float(d.mean()))
-                print(f"  (e) unsplit, its first step row by row: logits max "
-                      f"|diff| {floor[0]:.4e}, mean {floor[1]:.4e} (its "
+                dl = (alone - logits[0]).abs()
+                floor = (float(dl.max()), float(dl.mean()))
+                print(f"  {label} unsplit, its first step row by row: logits "
+                      f"max |diff| {floor[0]:.4e}, mean {floor[1]:.4e} (its "
                       f"largest |logit| {float(logits[0].abs().max()):.3f})")
-            runs[label] = dict(logits=logits, walls=walls, prof=prof)
-            print(f"  (e) {label}: host wall per step "
+            runs[name] = dict(logits=logits, walls=walls, prof=prof)
+            print(f"  {label} {name}: host wall per step "
                   f"{[round(w, 2) for w in walls]} ms; a profiled step: "
                   f"device time {prof['device_ms']} ms, launches "
                   f"{prof['launches']}, FLOPs {prof['flops']:.6e}")
-    worst, same, ties, errs, means = 0.0, 0, 0, [], []
+            del params, cache
+            free(ctx)
+
+    def diffs(a: str, w: str) -> list:
+        return [float((x - y).abs().max()) for x, y in
+                zip(runs[a]["logits"], runs[w]["logits"])]
+    gaps = (diffs("unsplit", "unsplit float32") if f32 else [0.0] * n)
+    allowed = [max(sc["logits_atol"], sc["floor_factor"] * max(floor[0], g))
+               for g in gaps]
+    same, ties, errs, means = 0, 0, diffs("split", "unsplit"), []
     for i, (a, w) in enumerate(zip(runs["split"]["logits"],
                                    runs["unsplit"]["logits"])):
-        err = float((a - w).abs().max())
-        errs.append(err)
         means.append(float((a - w).abs().mean()))
-        worst = max(worst, err)
         top = w.topk(2, dim=-1).values
         margin = top[:, 0] - top[:, 1]
         differ = a.argmax(-1) != w.argmax(-1)
@@ -4858,30 +5143,45 @@ def split_phases(ctx, cfg: dict, model, spec, batch, loss0: float,
             continue
         # a row whose two best unsplit logits lie within the step's logit
         # difference has no greedy token to agree on: a tie
-        tied = bool((margin[differ] <= 2 * err).all())
+        tied = bool((margin[differ] <= 2 * errs[i]).all())
         ties += tied
-        print(f"  (e) step {i}: tokens differ in rows "
+        print(f"  {label} step {i}: tokens differ in rows "
               f"{differ.nonzero()[:, 0].tolist()}; the unsplit lane's top-2 "
               f"margin there {margin[differ].tolist()} (max logit |diff| "
-              f"{err:.4e}: {'a tie' if tied else 'NOT a tie'})")
-    allowed = max(sc["logits_atol"], sc["floor_factor"] * floor[0])
-    print(f"  (e) {n} steps, the split lane fed the unsplit lane's tokens: "
-          f"logits max |split - unsplit| per step "
+              f"{errs[i]:.4e}: {'a tie' if tied else 'NOT a tie'})")
+    print(f"  {label} {n} steps, the split lane fed the unsplit lane's "
+          f"tokens: logits max |split - unsplit| per step "
           f"{[f'{e:.4e}' for e in errs]}, mean "
-          f"{[f'{e:.4e}' for e in means]}; allowed {allowed:.4e} (the "
-          f"larger of {sc['logits_atol']} and {sc['floor_factor']} x the "
-          f"unsplit lane's own row-by-row difference); greedy tokens equal "
-          f"at {same} of {n} steps, {ties} ties")
-    need(worst <= allowed and same + ties == n, "(e): the split lane's "
-         f"decode differs from the unsplit lane's ({worst}, allowed "
-         f"{allowed}; tokens equal at {same} of {n} steps, {ties} ties)")
-    out["decode"] = dict(logits_err=worst, steps_equal=same, ties=ties,
-                         floor=floor, allowed=allowed, overrides=ov,
-                         **{k: dict(walls=v["walls"], device_ms=v["prof"][
-                             "device_ms"], launches=v["prof"]["launches"])
-                            for k, v in runs.items()})
-    del whole, c1, cs_, p1, ps, runs
-    return out
+          f"{[f'{e:.4e}' for e in means]}; allowed "
+          f"{[f'{e:.4e}' for e in allowed]} (the larger of "
+          f"{sc['logits_atol']} and {sc['floor_factor']} x the unsplit "
+          f"lane's own noise: its row-by-row difference"
+          f"{', its difference from float32 per step' if f32 else ''}); "
+          f"greedy tokens equal at {same} of {n} steps, {ties} ties")
+    need(all(e <= a for e, a in zip(errs, allowed)) and same + ties == n,
+         f"{label}: the split lane's decode differs from the unsplit lane's "
+         f"({errs}, allowed {allowed}; tokens equal at {same} of {n} steps, "
+         f"{ties} ties)")
+    res = dict(logits_err=max(errs), steps_equal=same, ties=ties,
+               floor=floor, allowed=allowed, overrides=ov,
+               **{k: dict(walls=v["walls"], device_ms=v["prof"][
+                   "device_ms"], launches=v["prof"]["launches"])
+                  for k, v in runs.items()})
+    if f32:
+        e32 = diffs("split float32", "unsplit float32")
+        a32 = [max(sc["f32_atol"], sc["f32_share"] * g) for g in gaps]
+        print(f"  {label} float32: logits max |split - unsplit| per step "
+              f"{[f'{e:.4e}' for e in e32]}, allowed "
+              f"{[f'{e:.4e}' for e in a32]} (the larger of "
+              f"{sc['f32_atol']} and {sc['f32_share']} x the unsplit lane's "
+              f"bf16 against float32: {[f'{e:.4e}' for e in gaps]})")
+        need(all(e <= a for e, a in zip(e32, a32)), f"{label}: in float32 "
+             f"the split lane differs from the unsplit lane by {e32} "
+             f"(allowed {a32})")
+        res["f32_err"], res["bf16_gap"] = max(e32), gaps
+    del caches, pristine, plain, runs
+    free(ctx)
+    return res
 
 
 def free(ctx) -> None:
@@ -4889,6 +5189,13 @@ def free(ctx) -> None:
     gc.collect()
     if ctx.on_card:
         ctx.torch.cuda.empty_cache()
+
+
+def held(ctx) -> str:
+    """The device memory allocated now (what a phase starts with)."""
+    if not ctx.on_card:
+        return "not measured (no card)"
+    return f"{ctx.torch.cuda.memory_allocated() / 2**30:.3f} GiB"
 
 
 def run(torch, dev, preset: str = "full", grid: dict = GRID,

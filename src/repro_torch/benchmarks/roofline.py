@@ -20,10 +20,10 @@ inference cells (forward only), N = active parameters, D = tokens the step
 processes; useful_ratio = MODEL_FLOPS / (counted flops x positions).  The
 collective term takes every kind the records count, the "model" group's
 all-reduces and all-gathers among them.  Where the "model" axis splits
-compute (the record's ``scheme``: the dense and MoE transformers) each
-position does its share; elsewhere every position of a lane does the
-lane's whole work, and on the (data 16, model 16) meshes the ratio sits
-near 1/16.
+compute (the record's ``scheme``: every family but the hybrid) each
+position does its share; elsewhere (zamba2-7b) every position of a lane
+does the lane's whole work, and on the (data 16, model 16) meshes the
+ratio sits near 1/16.
 """
 from __future__ import annotations
 

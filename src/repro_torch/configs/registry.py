@@ -46,14 +46,16 @@ class ArchSpec:
     microbatch: dict[str, int] = dataclasses.field(default_factory=dict)
     notes: str = ""
 
-    def input_specs(self, shape) -> dict:
+    def input_specs(self, shape, model=None) -> dict:
         """Meta tensors for every model input of the shape cell (a name in
         ``SHAPES`` or a ``ShapeCell``): int32 tokens (and labels), the
         VLM's bf16 ``patches`` [B, 256, 1024] with S - 256 text tokens,
         the encoder-decoder's bf16 ``frames`` [B, 1500, 1280]; at decode
-        tokens [B, 1] and a 0-d int32 ``cur_len``."""
+        tokens [B, 1] and a 0-d int32 ``cur_len``.  ``model``: size the
+        frontends' inputs for it (a smoke model) instead of the full one."""
         cell = SHAPES[shape] if isinstance(shape, str) else shape
         b, s = cell.global_batch, cell.seq_len
+        c = getattr(model, "cfg", None)
 
         def meta(shape, dtype=torch.int32):
             return torch.empty(shape, dtype=dtype, device="meta")
@@ -61,11 +63,13 @@ class ArchSpec:
         extras = {}
         text_len = s
         if self.family == "vlm":
-            n_patch, d_vit = 256, 1024
+            n_patch, d_vit = (256, 1024) if c is None else (c.n_patches,
+                                                            c.d_vit)
             extras["patches"] = meta((b, n_patch, d_vit), torch.bfloat16)
             text_len = s - n_patch
         if self.family == "encdec":
-            extras["frames"] = meta((b, 1500, 1280), torch.bfloat16)
+            frames = (1500, 1280) if c is None else (c.n_frames, c.d_model)
+            extras["frames"] = meta((b,) + frames, torch.bfloat16)
         if cell.kind == "train":
             return {"tokens": meta((b, text_len)),
                     "labels": meta((b, text_len)), **extras}

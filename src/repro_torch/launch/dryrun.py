@@ -11,12 +11,13 @@ The mesh is ``make_production_mesh(multi_pod=..., device="meta")``: (data
 program on every data lane (``runtime/steps.py``: the lanes gather the
 parameters, each runs its rows), so a cell traces one position of the
 first lane, the first and fullest, under
-``launch/cost_analysis.CostMode``.  For the dense and MoE transformers the
+``launch/cost_analysis.CostMode``.  For every family but the hybrid the
 lane's "model" positions split its compute (``steps.lane_group``), and the
 trace is that position's program alone: its own blocks of the leaves on
 "model", its share of every split product, the replicated work, and the
 collectives with the other positions (``scheme``: ``SCHEME_SPLIT``).  The
-other families compute the lane whole on its first position (``SCHEME``):
+hybrid (zamba2-7b) computes the lane whole on its first position
+(``SCHEME``):
 
   * train: ``steps.gather_lane_params``, then one microbatch of the lane
     (``steps.lanes_grads``) and the position's part of the float32
@@ -184,7 +185,7 @@ def build_cell(arch: str, shape, mesh, variant: str = "base",
     def lane_inputs(rows: int) -> dict:
         lo, hi = shd.shard_bounds(rows, len(lanes), 0)
         return spec.input_specs(ShapeCell(cell.name, cell.kind, cell.seq_len,
-                                          hi - lo))
+                                          hi - lo), model)
 
     if cell.kind == "train":
         mb = microbatch or pick_microbatch(spec.microbatch.get(cell.name, 1),

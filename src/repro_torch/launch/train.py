@@ -21,7 +21,7 @@ more than one position the parameters and AdamW moments are stored as
 per-position shards (``runtime/sharding.py``), initialised whole and cut,
 resumed straight into shards, and trained by the data-parallel step of
 ``runtime/steps.py``; a mesh of one position keeps plain tensors and the
-one-device step.  The dense and MoE transformers split each lane's compute
+one-device step.  Every family but the hybrid splits each lane's compute
 over its "model" positions too (``steps.lane_group``).
 
 ``--preset smoke`` trains the arch's reduced config, ``paper100m`` a

@@ -21,7 +21,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .layers import rmsnorm, rmsnorm_defs, rope
+from .layers import contract_parallel, rmsnorm, rmsnorm_defs, rope
 from .params import ParamDef
 from .sharding_ctx import (ModelBlocks, is_blocks, model_group,
                            padded_head_count)
@@ -153,8 +153,8 @@ def gqa_attention(p, cfg: AttnConfig, x: torch.Tensor,
     cache keeps the true kv-head count.
     """
     g = model_group()
-    if g is not None and kv_override is None:
-        return gqa_attention_split(g, p, cfg, x, positions)
+    if g is not None:
+        return gqa_attention_split(g, p, cfg, x, positions, kv_override)
     q = head_proj(p, "wq", x, cfg.n_heads, cfg.head_dim)
     if kv_override is None:
         k = head_proj(p, "wk", x, cfg.n_kv_heads, cfg.head_dim)
@@ -179,7 +179,13 @@ def gqa_attention(p, cfg: AttnConfig, x: torch.Tensor,
 
 def encoder_kv(p, cfg: AttnConfig, memory: torch.Tensor):
     """Cross-attention K/V [B, Sm, KV, Dh] of encoder output memory [B, Sm,
-    D]: projected, neither normalised nor roped."""
+    D]: projected, neither normalised nor roped.  Inside a "model" group
+    each is whole or ``ModelBlocks`` of the positions' kv heads (as
+    ``gqa_attention_split`` returns its cache rows)."""
+    g = model_group()
+    if g is not None:
+        return tuple(_rows_blocks(g, _proj_split(g, memory, p[n]),
+                                  cfg.n_kv_heads) for n in ("wk", "wv"))
     k = head_proj(p, "wk", memory, cfg.n_kv_heads, cfg.head_dim)
     v = head_proj(p, "wv", memory, cfg.n_kv_heads, cfg.head_dim)
     return k, v
@@ -249,8 +255,9 @@ def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
     the ``Smax`` rows is attended.  Returns out [B, 1, D].
     """
     g = model_group()
-    if g is not None and not cross:
-        return gqa_decode_split(g, p, cfg, x, cache_k, cache_v, cur_len)
+    if g is not None:
+        return gqa_decode_split(g, p, cfg, x, cache_k, cache_v, cur_len,
+                                cross)
     b, smax = cache_k.shape[0], cache_k.shape[1]
     per_slot = isinstance(cur_len, torch.Tensor) and cur_len.dim() == 1
     if per_slot:
@@ -495,7 +502,11 @@ def mla_decode(p, cfg: MLAConfig, x: torch.Tensor, cache_ckv: torch.Tensor,
 # ("kv_seq" on "model") is attended block by block: every position holds
 # all the q heads, its block's scores, and the softmax's max and sum are
 # all-reduced before its partial product with the values (two passes, so
-# the weights round to the cache dtype as the unsplit softmax's do).
+# the weights round to the cache dtype as the unsplit softmax's do).  The
+# encoder-decoder's attention splits alike: an encoder's K/V
+# (``encoder_kv``) by the positions' kv heads or projected whole, the
+# non-causal pass over them by q heads, and cross-attention decode against
+# the static K/V cache (whole or over its kv heads) by padded q heads.
 # MLA splits its q heads and their ``wuk`` / ``wuv`` / ``wo`` blocks; its
 # latent projections stay whole on every position, and a latent cache
 # split over "kv_seq" is attended block by block in the latent space.
@@ -505,35 +516,25 @@ def _each(fn, x):
     return [fn(t) for t in x] if isinstance(x, list) else fn(x)
 
 
-def _contract_proj(g, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., D] @ w [D, H, Dh] for a weight every position holds whole:
-    each position's block of D, a float32 partial product, ``psum``,
-    rounded once to x's dtype."""
-    d, parts = x.shape[-1], []
-    for k in g.active:
-        lo, hi = g.bounds(d, k)
-        parts.append(torch.einsum(
-            "...d,dhk->...hk", g.to(x[..., lo:hi], k).to(torch.float32),
-            g.to(w[lo:hi], k).to(torch.float32)))
-    return g.psum(parts, x.dtype)
-
-
 def _proj_split(g, x: torch.Tensor, w):
     """Per position its heads [..., h, Dh] of x @ w (``ModelBlocks`` w:
-    column-parallel), or the whole [..., H, Dh] (w held whole)."""
+    column-parallel), or the whole [..., H, Dh] (w held whole: its
+    contracted D split, ``layers.contract_parallel``)."""
     if is_blocks(w):
         return [torch.einsum("...d,dhk->...hk", g.to(x, k), wp.to(x.dtype))
                 for k, wp in zip(w.index, w.parts)]
-    return _contract_proj(g, x, w)
+    d, h, k = w.shape
+    return contract_parallel(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
 
 
-def _q_blocks(g, q, n_heads: int, pad: bool) -> list:
+def _q_blocks(g, q, n_heads: int) -> list:
     """Per active position (its q heads, lo, hi): its block of q's head
-    dim, a list already (split wq), or cut from the whole q padded to
-    ``padded_head_count`` (``pad``) and cut in blocks of whole heads."""
+    dim, a list already (split wq), or cut from the whole q padded with
+    zero heads to a multiple of the group (``padded_head_count`` of the
+    group's axis) and cut in blocks of whole heads."""
     if isinstance(q, list):
         return [(qk, *g.bounds(n_heads, k)) for qk, k in zip(q, g.active)]
-    hp = padded_head_count(n_heads) if pad else n_heads
+    hp = -(-n_heads // g.size) * g.size
     if hp != n_heads:
         q = F.pad(q, (0, 0, 0, hp - n_heads))
     return [(g.to(q[..., lo:hi, :], k), lo, hi) for k in g.active
@@ -597,16 +598,28 @@ def _rows_blocks(g, t, size: int):
 
 
 def gqa_attention_split(g, p, cfg: AttnConfig, x: torch.Tensor,
-                        positions: torch.Tensor):
+                        positions: torch.Tensor, kv_override=None):
     """``gqa_attention`` split over ``g``: (out [B, S, D], (k, v) rows,
-    each whole or ``ModelBlocks`` over the kv heads)."""
+    each whole or ``ModelBlocks`` over the kv heads).  ``kv_override``:
+    an encoder's (k, v) as ``encoder_kv`` gives them inside the group (no
+    RoPE, no mask); they come back as the rows."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
     q = _proj_split(g, x, p["wq"])
-    k = _proj_split(g, x, p["wk"])
-    v = _proj_split(g, x, p["wv"])
-    q = _norm_rope(p, "q_norm", q, positions, cfg.rope_theta, cfg.qk_norm)
-    k = _norm_rope(p, "k_norm", k, positions, cfg.rope_theta, cfg.qk_norm)
-    blocks = _q_blocks(g, q, h, pad=True)
+    causal = cfg.causal
+    if kv_override is None:
+        k = _proj_split(g, x, p["wk"])
+        v = _proj_split(g, x, p["wv"])
+        q = _norm_rope(p, "q_norm", q, positions, cfg.rope_theta,
+                       cfg.qk_norm)
+        k = _norm_rope(p, "k_norm", k, positions, cfg.rope_theta,
+                       cfg.qk_norm)
+    else:
+        k, v = (list(t.parts) if is_blocks(t) else t for t in kv_override)
+        if cfg.qk_norm:
+            q = _each(lambda t: rmsnorm({"scale": p["q_norm"]["scale"].to(
+                t.device)}, t), q)
+        causal = False
+    blocks = _q_blocks(g, q, h)
     outs = []
     for j, (qk, lo, hi) in enumerate(blocks):
         if isinstance(k, list):
@@ -614,10 +627,12 @@ def gqa_attention_split(g, p, cfg: AttnConfig, x: torch.Tensor,
         else:
             kk, _ = _kv_heads(g.to(k, g.active[j]), lo, hi, h, h // kv)
             vv, _ = _kv_heads(g.to(v, g.active[j]), lo, hi, h, h // kv)
-        outs.append(_flash(qk, kk, vv, causal=cfg.causal,
+        outs.append(_flash(qk, kk, vv, causal=causal,
                            kv_chunk=min(cfg.kv_chunk, kk.shape[1])))
     out = _merge_split(g, p["wo"], outs, [b[1:] for b in blocks], h,
                        x.dtype)
+    if kv_override is not None:
+        return out, kv_override
     return out, (_rows_blocks(g, k, kv), _rows_blocks(g, v, kv))
 
 
@@ -702,20 +717,30 @@ def _decode_lens(x: torch.Tensor, cur_len):
 
 
 def gqa_decode_split(g, p, cfg: AttnConfig, x: torch.Tensor, cache_k,
-                     cache_v, cur_len) -> torch.Tensor:
+                     cache_v, cur_len, cross: bool = False) -> torch.Tensor:
     """``gqa_decode`` split over ``g``; the caches are whole tensors or
-    ``ModelBlocks`` over their kv heads (dim 2) or sequence (dim 1)."""
+    ``ModelBlocks`` over their kv heads (dim 2) or sequence (dim 1).
+    ``cross``: an encoder's static K/V, whole or over their kv heads (q
+    not roped, nothing written, every row attended), the q heads padded
+    as ``gqa_attention_split`` pads them."""
     b = x.shape[0]
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lens, cur, valid = _decode_lens(x, cur_len)
     pos = lens[:, None]
-    q = _norm_rope(p, "q_norm", _proj_split(g, x, p["wq"]), pos,
-                   cfg.rope_theta, cfg.qk_norm)
-    k_new = _norm_rope(p, "k_norm", _proj_split(g, x, p["wk"]), pos,
-                       cfg.rope_theta, cfg.qk_norm)
-    v_new = _proj_split(g, x, p["wv"])
-    _write_new(g, cache_k, lens, _each(lambda u: u[:, 0], k_new), cur, kv)
-    _write_new(g, cache_v, lens, _each(lambda u: u[:, 0], v_new), cur, kv)
+    q = _proj_split(g, x, p["wq"])
+    if cross:
+        if cfg.qk_norm:
+            q = _each(lambda t: rmsnorm({"scale": p["q_norm"]["scale"].to(
+                t.device)}, t), q)
+    else:
+        q = _norm_rope(p, "q_norm", q, pos, cfg.rope_theta, cfg.qk_norm)
+        k_new = _norm_rope(p, "k_norm", _proj_split(g, x, p["wk"]), pos,
+                           cfg.rope_theta, cfg.qk_norm)
+        v_new = _proj_split(g, x, p["wv"])
+        _write_new(g, cache_k, lens, _each(lambda u: u[:, 0], k_new), cur,
+                   kv)
+        _write_new(g, cache_v, lens, _each(lambda u: u[:, 0], v_new), cur,
+                   kv)
     if is_blocks(cache_k) and cache_k.dim == 1:
         qf = g.all_gather(q, 2, h) if isinstance(q, list) else q
         qr = qf.reshape(b, kv, h // kv, d).to(torch.float32)
@@ -729,11 +754,11 @@ def gqa_decode_split(g, p, cfg: AttnConfig, x: torch.Tensor, cache_k,
         blocks = [(g.to(o[:, :, lo:hi], k), lo, hi) for k in g.active
                   for lo, hi in [g.bounds(h, k)]]
     else:
-        blocks = _q_blocks(g, q, h, pad=False)
+        blocks = _q_blocks(g, q, h)
         smax = (cache_k.parts[0] if is_blocks(cache_k) else
                 cache_k).shape[1]
-        mask = (torch.arange(smax, device=x.device)[None, :]
-                < valid)[:, None, None, :]
+        mask = None if cross else (torch.arange(smax, device=x.device)[
+            None, :] < valid)[:, None, None, :]
         outs = []
         for j, (qk, lo, hi) in enumerate(blocks):
             kdev = g.active[j]
@@ -742,7 +767,8 @@ def gqa_decode_split(g, p, cfg: AttnConfig, x: torch.Tensor, cache_k,
             else:
                 ck, _ = _kv_heads(g.to(cache_k, kdev), lo, hi, h, h // kv)
                 cv, _ = _kv_heads(g.to(cache_v, kdev), lo, hi, h, h // kv)
-            outs.append(_decode_core(qk, ck, cv, g.to(mask, kdev)))
+            outs.append(_decode_core(qk, ck, cv, None if mask is None
+                                     else g.to(mask, kdev)))
         blocks = [(o, lo, hi) for o, (_, lo, hi) in zip(outs, blocks)]
     return _merge_split(g, p["wo"], [o for o, _, _ in blocks],
                         [(lo, hi) for _, lo, hi in blocks], h, x.dtype)

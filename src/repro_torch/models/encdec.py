@@ -18,6 +18,15 @@ as in the reference.
 
 ``train_loss(params, batch)`` takes the batch's ``"frames"``; every encoder
 and decoder layer is rematerialised under ``cfg.remat``.
+
+Inside a lane's "model" group (``sharding_ctx.use_group``) every attention
+splits its q heads, padded to a multiple of the axis (whisper's 20 on 16
+to 32): the encoder's non-causal pass, the decoder's self-attention and
+its cross-attention over the encoder's K/V (``attention.encoder_kv``,
+``gqa_attention_split``, ``gqa_decode_split``), and both FFNs their "mlp"
+dim; the cache leaves come as ``ModelBlocks`` where the rules split them
+(the self K/V over kv heads or "kv_seq", the cross K/V over kv heads, the
+frames whole).
 """
 from __future__ import annotations
 
@@ -30,7 +39,7 @@ from .attention import AttnConfig
 from .layers import (chunked_softmax_xent, embed, embed_defs, ffn, ffn_defs,
                      logits_last, remat, rmsnorm, rmsnorm_defs, unembed_defs)
 from .params import ParamDef, stack_defs
-from .transformer import layer_slice, layer_slices
+from .transformer import _cache_leaf, _put_rows, layer_slice, layer_slices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +78,9 @@ def _sinusoid(n: int, d: int, device=None) -> torch.Tensor:
 
 
 class EncDecLM:
+    #: the "model" axis splits this family's compute (``runtime/steps``)
+    model_split = True
+
     def __init__(self, cfg: EncDecConfig):
         self.cfg = cfg
 
@@ -164,8 +176,10 @@ class EncDecLM:
             h, (k, v), xkv = remat(c.remat and cache is None, self._dec_layer,
                                    lp, h, memory, positions)
             if cache is not None:
-                cache["self_k"][i, :, :s], cache["self_v"][i, :, :s] = k, v
-                cache["cross_k"][i], cache["cross_v"][i] = xkv
+                _put_rows(cache["self_k"], i, s, k)
+                _put_rows(cache["self_v"], i, s, v)
+                for n, r in zip(("cross_k", "cross_v"), xkv):
+                    _put_rows(cache[n], i, c.n_frames, r)
         return rmsnorm(params["final_norm"], h)
 
     def train_loss(self, params, batch: dict, rng=None):
@@ -184,7 +198,7 @@ class EncDecLM:
         [B, V] float32 of its last position, cache)."""
         b, s = tokens.shape
         memory = self.encode(params, frames)
-        cache = {n: torch.zeros(d.shape, dtype=d.dtype, device=memory.device)
+        cache = {n: _cache_leaf(d.shape, d.axes, d.dtype, memory.device)
                  for n, d in self.cache_defs(b, max_len or s).items()}
         h = self._decoder_full(params, tokens, memory, cache)
         return logits_last(params["unembed"], h[:, -1]), cache
@@ -199,11 +213,12 @@ class EncDecLM:
             lp = layer_slice(params["dec_layers"], i)
             h = h + attn_mod.gqa_decode(
                 lp["self_attn"], self_cfg, rmsnorm(lp["ln1"], h),
-                cache["self_k"][i], cache["self_v"][i], cur_len)
+                layer_slice(cache["self_k"], i),
+                layer_slice(cache["self_v"], i), cur_len)
             h = h + attn_mod.gqa_decode(
                 lp["cross_attn"], cross_cfg, rmsnorm(lp["lnx"], h),
-                cache["cross_k"][i], cache["cross_v"][i], cur_len,
-                cross=True)
+                layer_slice(cache["cross_k"], i),
+                layer_slice(cache["cross_v"], i), cur_len, cross=True)
             h = h + ffn(lp["ffn"], rmsnorm(lp["ln2"], h), "gelu")
         h = rmsnorm(params["final_norm"], h)
         return logits_last(params["unembed"], h[:, -1]), cache

@@ -24,6 +24,20 @@ packable ``mixer`` scope, so it stays in bf16 as in the reference.
 ``train_loss`` rematerialises under ``cfg.remat`` as the reference's
 nested ``jax.checkpoint``s do: every segment (its Mamba2 blocks and the
 shared block's use) and, inside it and in the tail, every Mamba2 block.
+
+Inside a "model" group (``sharding_ctx.use_group``) the blocks split:
+the Mamba2 mixers their heads (``ssm._mamba2_split``), the shared block
+its attention heads and FFN (``attention.gqa_attention_split``,
+``layers.ffn``), each use's LoRA as ``_ffn_with_lora`` says, and a
+prefill's cache leaves come as ``ModelBlocks`` where the rules split them.
+But ``model_split`` is off, so a data lane computes whole on its first
+position: the smoke model's float32 training is too sensitive for a split.
+A one-ulp change of 1% of one leaf's weights moves its gradients by 2e-5
+of a leaf's scale, so the float32 sums a split adds in another order move
+the sharded step's 3-step trajectory 2.6e-4 off the one-device step's on a
+(2, 2) mesh, past the 1e-4 that ``tests/test_torch_train_mesh_ssm.py``
+holds it to (a split of the data lanes only, which reorders no sum within
+a sequence, stays within 4e-6).
 """
 from __future__ import annotations
 
@@ -33,12 +47,15 @@ import torch
 
 from . import attention as attn_mod
 from .attention import AttnConfig
-from .layers import (chunked_softmax_xent, embed, embed_defs, ffn, ffn_defs,
-                     logits_last, remat, rmsnorm, rmsnorm_defs, unembed_defs)
+from .layers import (chunked_softmax_xent, column_parallel,
+                     contract_parallel, embed, embed_defs, ffn, ffn_defs,
+                     logits_last, remat, rmsnorm, rmsnorm_defs, row_parallel,
+                     unembed_defs)
 from .params import ParamDef, stack_defs
+from .sharding_ctx import is_blocks, set_layer
 from .ssm import SSMConfig, mamba2_defs
 from .ssm_lm import mamba_cache_defs, mamba_stack_decode, mamba_stack_full
-from .transformer import layer_slice, layer_slices
+from .transformer import _cache_leaf, _put_rows, layer_slice, layer_slices
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +105,10 @@ class HybridConfig:
 
 
 class HybridLM:
+    #: the "model" axis does not split this family's compute: its float32
+    #: training is too sensitive for it (the module docstring)
+    model_split = False
+
     def __init__(self, cfg: HybridConfig):
         self.cfg = cfg
         self.ssm = cfg.ssm_config()
@@ -147,11 +168,24 @@ class HybridLM:
 
     def _ffn_with_lora(self, shared, lora, hn: torch.Tensor) -> torch.Tensor:
         """The shared FFN plus the use's rank-r correction of its
-        up-projection, taken through the raw ``wo``."""
+        up-projection, taken through the raw ``wo``.
+
+        Split over "model" (``ffn_b`` and ``wo`` over "mlp"): ``ffn_a``,
+        which every position holds whole, over its contracted D
+        (``contract_parallel``, as GSPMD splits it); ``ffn_b``
+        column-parallel; the correction through each position's rows of
+        ``wo`` with an all-reduce of its own, not the FFN's.  Each sum is
+        rounded once to bf16 and the two are added in bf16, as the
+        unsplit ``f + delta @ wo`` rounds its two products; one shared
+        all-reduce would round their float32 sum once instead."""
         f = ffn(shared["ffn"], hn)
         dtype = hn.dtype
-        delta = (hn @ lora["ffn_a"].to(dtype)) @ lora["ffn_b"].to(dtype)
-        return f + delta @ shared["ffn"]["wo"].to(dtype)
+        wb, wo = lora["ffn_b"], shared["ffn"]["wo"]
+        if is_blocks(wb):
+            a = contract_parallel(hn, lora["ffn_a"])
+            return f + row_parallel(column_parallel(a, wb), wo, dtype)
+        delta = (hn @ lora["ffn_a"].to(dtype)) @ wb.to(dtype)
+        return f + delta @ wo.to(dtype)
 
     def _segment_full(self, shared, seg, h, positions):
         """One segment in training: its Mamba2 blocks (each rematerialised
@@ -209,7 +243,7 @@ class HybridLM:
         positions = torch.arange(s, device=tokens.device).expand(b, s)
         h = embed(params["embed"], tokens).to(c.dtype)
         shared = params["shared"]
-        cache = {k: {n: torch.zeros(d.shape, dtype=d.dtype, device=h.device)
+        cache = {k: {n: _cache_leaf(d.shape, d.axes, d.dtype, h.device)
                      for n, d in leaves.items()}
                  for k, leaves in self.cache_defs(b, max_len).items()}
         seg_c, kv = cache["seg_mamba"], cache["shared_kv"]
@@ -217,15 +251,16 @@ class HybridLM:
             seg = layer_slice(params["segments"], u)
             h, conv, state = mamba_stack_full(self.ssm, seg["mamba"], h,
                                               c.mamba_per_segment)
-            seg_c["conv"][u], seg_c["state"][u] = conv, state
+            set_layer(seg_c["conv"], u, conv)
+            set_layer(seg_c["state"], u, state)
             h, (k, v) = self._shared_block_full(shared, seg["lora"], h,
                                                 positions)
-            kv["k"][u, :, :s], kv["v"][u, :, :s] = k, v
+            _put_rows(kv["k"], u, s, k)
+            _put_rows(kv["v"], u, s, v)
         if c.n_tail:        # the smoke config has no tail
             h, conv, state = mamba_stack_full(self.ssm, params["tail"], h,
                                               c.n_tail)
-            tail = cache["tail_mamba"]
-            tail["conv"][:], tail["state"][:] = conv, state
+            cache["tail_mamba"] = {"conv": conv, "state": state}
         h = rmsnorm(params["final_norm"], h)
         return logits_last(params["unembed"], h[:, -1]), cache
 
@@ -239,11 +274,12 @@ class HybridLM:
         for u in range(c.n_shared_uses):
             seg = layer_slice(params["segments"], u)
             h = mamba_stack_decode(self.ssm, seg["mamba"], h,
-                                   {"conv": sm["conv"][u],
-                                    "state": sm["state"][u]},
+                                   {"conv": layer_slice(sm["conv"], u),
+                                    "state": layer_slice(sm["state"], u)},
                                    c.mamba_per_segment)
             h = self._shared_block_decode(shared, seg["lora"], h,
-                                          kv["k"][u], kv["v"][u], cur_len)
+                                          layer_slice(kv["k"], u),
+                                          layer_slice(kv["v"], u), cur_len)
         h = mamba_stack_decode(self.ssm, params["tail"], h,
                                cache["tail_mamba"], c.n_tail)
         h = rmsnorm(params["final_norm"], h)

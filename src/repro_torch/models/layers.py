@@ -12,9 +12,11 @@ forms: column-parallel (each position multiplies by its block of output
 columns), row-parallel (each position's block of the contracted dim, its
 float32 partial product, ``psum``), the vocab-parallel ``logits_last`` and
 ``chunked_softmax_xent`` (max, sum of exponentials and the target's logit
-all-reduced over the group).  A partial product is float32 and the sum is
-rounded once, so a split product rounds as the unsplit one, up to the order
-of accumulation.
+all-reduced over the group).  A weight the group holds whole takes
+``contract_parallel`` where GSPMD splits it (the unembed of a vocab that
+does not divide the axis): its contracted dim in blocks, ``psum``.  A
+partial product is float32 and the sum is rounded once, so a split product
+rounds as the unsplit one, up to the order of accumulation.
 """
 from __future__ import annotations
 
@@ -123,6 +125,20 @@ def row_parallel(parts: list, w, dtype) -> torch.Tensor:
                   dtype)
 
 
+def contract_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` [D, N] for a weight every position of the group holds
+    whole, as GSPMD partitions such a product in the reference's SPMD
+    records: each position's block of the contracted D, a float32 partial
+    product, ``psum``, rounded once to x's dtype."""
+    g = model_group()
+    d, parts = x.shape[-1], []
+    for k in g.active:
+        lo, hi = g.bounds(d, k)
+        parts.append(partial_product(g.to(x[..., lo:hi], k),
+                                     g.to(w[lo:hi], k)))
+    return g.psum(parts, x.dtype)
+
+
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w``; a ``ModelBlocks`` ``w`` [D_in, D_out] takes its split
     form: column-parallel then gathered (output columns split), or
@@ -221,12 +237,15 @@ def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
 def logits_last(unembed_p, h_last: torch.Tensor) -> torch.Tensor:
     """Decode-time logits for the last position only. h_last: [B, D].
     A vocab split over "model" gives each position its block of the
-    logits, gathered whole."""
+    logits, gathered whole; a vocab the group holds whole (it does not
+    divide the axis) is split over D (``contract_parallel``)."""
     w = unembed_p.get("w")
+    g = model_group()
     if is_blocks(w):
-        g = model_group()
         return g.all_gather([part.to(torch.float32) for part in
                              column_parallel(h_last, w)], -1, w.size)
+    if g is not None and w is not None:
+        return contract_parallel(h_last, w).to(torch.float32)
     return linear(unembed_p, "w", h_last).to(torch.float32)
 
 
@@ -249,7 +268,10 @@ def remat(enabled: bool, fn, *args):
 
 def _chunk_loss(hc: torch.Tensor, w: torch.Tensor, yc: torch.Tensor,
                 mc: torch.Tensor):
-    logits = (hc @ w.to(hc.dtype)).to(torch.float32)
+    """One chunk's masked loss sum and count; inside a "model" group the
+    whole vocab's logits are split over D (``contract_parallel``)."""
+    logits = (hc @ w.to(hc.dtype) if model_group() is None
+              else contract_parallel(hc, w)).to(torch.float32)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
     return ((logz - gold) * mc).sum(), mc.sum()

@@ -12,6 +12,12 @@ serving ``max_len`` counts the patches too.  The text backbone is
 ``TransformerLM`` (its FFN under ``mixer``, packed as the dense archs').
 ``train_loss`` takes the batch's ``"patches"`` and scores the text
 positions only.
+
+Inside a lane's "model" group (``sharding_ctx.use_group``) the text
+backbone splits as ``TransformerLM`` does, and the logits and the loss take
+the vocab-parallel forms; the projector has no "model" dim (``w1`` (None,
+"embed"), ``w2`` ("embed", None)) and every position computes it whole
+(replicated work).
 """
 from __future__ import annotations
 
@@ -32,6 +38,9 @@ class VLMConfig:
 
 
 class VLM:
+    #: the "model" axis splits this family's compute (``runtime/steps``)
+    model_split = True
+
     def __init__(self, cfg: VLMConfig):
         self.cfg = cfg
         self.lm = TransformerLM(cfg.lm)

@@ -17,8 +17,9 @@ program), and the collectives between them.  A leaf the rules put on
 the model's split blocks (``layers``, ``attention``, ``moe``) run each
 position's share on its device and combine the shares with ``psum`` (an
 all-reduce: float32 partial sums added in position order, rounded once),
-``pmax`` or ``all_gather``, each recorded under its collective kind in
-``runtime/sharding.count_transfers``.  Replicated work (norms, the
+``pmax``, ``all_gather`` or ``permute`` (a block one position sends
+another: the SSM's conv channels), each recorded under its collective kind
+in ``runtime/sharding.count_transfers``.  Replicated work (norms, the
 embedding, the MoE router) runs once per lane, as each position would run
 it.
 
@@ -116,6 +117,36 @@ def is_blocks(x) -> bool:
     return isinstance(x, ModelBlocks)
 
 
+def stack(items: list):
+    """``torch.stack`` of tensors, or of ``ModelBlocks`` part by part (a
+    new leading dim)."""
+    if not is_blocks(items[0]):
+        return torch.stack(items)
+    first = items[0]
+    return ModelBlocks([torch.stack(ps) for ps in zip(*(
+        it.parts for it in items))], first.dim + 1, first.size, first.index,
+        first.count)
+
+
+def cat(items: list, dim: int):
+    """``torch.cat`` along ``dim`` (not the split one) of tensors, or of
+    ``ModelBlocks`` part by part."""
+    if not is_blocks(items[0]):
+        return torch.cat(items, dim=dim)
+    return items[0]._like([torch.cat(ps, dim=dim) for ps in zip(*(
+        it.parts for it in items))], items[0].dim)
+
+
+def set_layer(leaf, i: int, value) -> None:
+    """Write layer ``i`` of a stacked cache leaf in place: a tensor, or
+    ``ModelBlocks`` part by part from a value split alike."""
+    if is_blocks(leaf):
+        for part, v in zip(leaf.parts, value.parts):
+            part[i] = v
+    else:
+        leaf[i] = value
+
+
 @dataclasses.dataclass
 class ModelGroup:
     """The "model" positions of one data lane: ``positions`` (mesh
@@ -192,6 +223,16 @@ class ModelGroup:
             acc = p if acc is None else torch.maximum(acc, p)
         self._record("all-reduce", acc.numel() * 4, 2.0)
         return acc
+
+    def permute(self, x: torch.Tensor, src: int, dst: int) -> torch.Tensor:
+        """Position ``src``'s tensor ``x`` on position ``dst``'s device: a
+        "collective-permute" of its bytes where the two differ (what the
+        receiving program ``dst`` gets)."""
+        if src != dst:
+            from repro_torch.runtime import sharding as shd
+            shd.moved("collective-permute", self.positions[src],
+                      self.positions[dst], x.numel() * x.element_size())
+        return x.to(self.devices[dst])
 
     def all_gather(self, parts: list, dim: int, size: int) -> torch.Tensor:
         """The whole tensor from the positions' blocks along ``dim`` (of

@@ -10,6 +10,13 @@ sequence axis, so the engine's prefix cache (which keeps sequence rows)
 does not apply to it.  Prompts prefill whole, at their exact length.
 ``train_loss`` runs the whole batch through the stack at once, each block
 rematerialised under ``cfg.remat``.
+
+Inside a lane's "model" group (``sharding_ctx.use_group``) every block's
+mixer splits its heads over the positions (``ssm._mamba2_split``), the
+cache leaves come as ``ModelBlocks`` (the conv window in ceil(C / M)
+channel blocks, the state over its heads), and the logits and the loss
+take the vocab-parallel forms (or, a vocab that does not divide the axis,
+the contracted D split: ``layers.contract_parallel``).
 """
 from __future__ import annotations
 
@@ -20,6 +27,7 @@ import torch
 from .layers import (chunked_softmax_xent, embed, embed_defs, logits_last,
                      remat, rmsnorm, rmsnorm_defs, unembed_defs)
 from .params import ParamDef, stack_defs
+from .sharding_ctx import cat, set_layer, stack
 from .ssm import SSMConfig, mamba2_block, mamba2_decode, mamba2_defs
 from .transformer import layer_slice, layer_slices
 
@@ -64,32 +72,36 @@ def mamba_stack_full(ssm: SSMConfig, stacked, h: torch.Tensor, n: int,
                      rematerialise: bool = False):
     """``n`` pre-norm Mamba2 residual blocks over a full sequence, each
     rematerialised in the backward pass with ``rematerialise``.  Returns
-    (h, conv tails [n, B, W - 1, C], final states [n, B, H, P, N])."""
+    (h, conv tails [n, B, W - 1, C], final states [n, B, H, P, N]; each
+    ``ModelBlocks`` where a "model" group splits the cache leaf)."""
     convs, states = [], []
     for lp in layer_slices(stacked, n):
         h, conv, state = remat(rematerialise, _mamba_residual, ssm, lp, h)
         convs.append(conv)
         states.append(state)
-    return h, torch.stack(convs), torch.stack(states)
+    return h, stack(convs), stack(states)
 
 
 def mamba_stack_decode(ssm: SSMConfig, stacked, h: torch.Tensor,
                        cache: dict, n: int) -> torch.Tensor:
     """``n`` Mamba2 residual blocks on one token; the blocks' windows and
-    states in ``cache`` (``{"conv", "state"}``, leading axis n) are
-    replaced in place."""
+    states in ``cache`` (``{"conv", "state"}``, leading axis n; tensors or
+    ``ModelBlocks``) are replaced in place."""
     for i in range(n):
         lp = layer_slice(stacked, i)
         out, (conv, state) = mamba2_decode(
             lp["mamba"], ssm, rmsnorm(lp["ln"], h),
-            (cache["conv"][i], cache["state"][i]))
+            (layer_slice(cache["conv"], i), layer_slice(cache["state"], i)))
         h = h + out
-        cache["conv"][i] = conv
-        cache["state"][i] = state
+        set_layer(cache["conv"], i, conv)
+        set_layer(cache["state"], i, state)
     return h
 
 
 class SSMLM:
+    #: the "model" axis splits this family's compute (``runtime/steps``)
+    model_split = True
+
     def __init__(self, cfg: SSMLMConfig):
         self.cfg = cfg
         self.ssm = cfg.ssm_config()
@@ -147,8 +159,7 @@ class SSMLM:
                          state))
         logits, conv, state = zip(*rows)
         return (torch.cat(logits),
-                {"conv": torch.cat(conv, dim=1),
-                 "state": torch.cat(state, dim=1)})
+                {"conv": cat(conv, 1), "state": cat(state, 1)})
 
     def decode_step(self, params, cache, tokens: torch.Tensor,
                     cur_len=None):

@@ -24,17 +24,18 @@ leaves) the step is data-parallel over the batch axes, in one process:
     gradients, which are summed in float32 into gradient shards laid out
     as the parameters (a reduce-scatter), and AdamW updates every
     position's slices.
-For the families whose model sets ``model_split`` (the dense and MoE
-transformers) the "model" axis splits each lane's compute too, as GSPMD
-splits the reference's: the lane's positions along "model" form a
+For the families whose model sets ``model_split`` (every family but the
+hybrid) the "model" axis splits each lane's compute too, as GSPMD splits
+the reference's: the lane's positions along "model" form a
 ``sharding_ctx.ModelGroup`` (``lane_group``); each keeps its own block of
 every leaf the rules put on "model" (gathered over the other axes only)
 and computes its share, and the model's split blocks combine the shares
-(``models/layers``, ``attention``, ``moe``).  A gradient block of such a
-leaf is reduced over the data lanes only.  The other families compute each
-lane whole on its first position (the "model" axis shards their storage
-only).  Each piece is a function of its own (``gather_lane_params``,
-``lanes_grads``, ``reduce_grads_at``: position by position), so the dry run
+(``models/layers``, ``attention``, ``moe``, ``ssm``).  A gradient block of
+such a leaf is reduced over the data lanes only.  The hybrid computes each
+lane whole on its first position (the "model" axis shards its storage
+only; ``models/hybrid.py`` says why).  Each piece is a function of its
+own (``gather_lane_params``, ``lanes_grads``, ``reduce_grads_at``:
+position by position), so the dry run
 (``launch/dryrun.py``) traces one position's program of the same code (a
 group whose ``active`` is that position alone); ``make_lane_prefill_step``
 / ``make_lane_decode_step`` are the serving steps of a lane on sharded
@@ -157,6 +158,52 @@ def gather_lane(st, lane, group=None, rows=None):
                         rows=rows, keep="model") for k in group.active]
     return ModelBlocks(parts, dim, st.shape[dim], tuple(group.active),
                        group.size)
+
+
+def _write_back(st, t, at, own_dims: list, written=None) -> None:
+    """Put ``t``, position ``at``'s gather of a leaf that keeps ``at``'s
+    blocks along ``own_dims``, back into the shards it was gathered from
+    where it is a copy (the leaf is split over an axis the lane gathers
+    whole: "model" for a family that computes its lanes whole, or in
+    blocks that do not divide; "data" under a replicated batch): every
+    holder of those same blocks takes its slice of ``t``, as a
+    "collective-permute" from ``at`` where it is another position.
+    ``written``: (dim, row) where the step wrote one row of that dim (a
+    decode step's cache row), the rest being as gathered."""
+    if t is st.shards.get(tuple(at)):
+        return
+    want = shd.local_slices(st.sharding, st.shape, at)
+    for c, part in st.shards.items():
+        sl = list(shd.local_slices(st.sharding, st.shape, c))
+        if any(sl[d] != want[d] for d in own_dims):
+            continue
+        dst = [slice(None)] * part.dim()
+        if written is not None:
+            d, row = written
+            if not sl[d].start <= row < sl[d].stop:
+                continue
+            dst[d] = slice(row - sl[d].start, row - sl[d].start + 1)
+            sl[d] = slice(row, row + 1)
+        for d in own_dims:
+            sl[d] = slice(0, t.shape[d])
+        piece = t[tuple(sl)]
+        shd.moved("collective-permute", at, c,
+                  piece.numel() * piece.element_size())
+        part[tuple(dst)] = piece.to(part.device)
+
+
+def write_back_lane(st, t, lane, group=None, rows=None,
+                    written=None) -> None:
+    """Undo ``gather_lane``'s copies after a step wrote into them (a
+    decode step's cache): ``_write_back`` of the whole leaf, or of each
+    active position's ``ModelBlocks`` part."""
+    own = [] if rows is None else [rows]
+    if not is_blocks(t):
+        home = lane if group is None else group.positions[group.active[0]]
+        _write_back(st, t, home, own, written)
+        return
+    for k, part in zip(t.index, t.parts):
+        _write_back(st, part, group.positions[k], own + [t.dim], written)
 
 
 def gather_lane_params(leaves: list, lane, group=None) -> list:
@@ -406,10 +453,13 @@ def make_lane_decode_step(model, lane, at=None) -> Callable:
     parameters and its rows of every cache leaf (its block of the
     "batch" dimension; inside a "model" group each position's own block of
     a leaf split over "model"), then decodes them.  A leaf the position
-    holds whole is used in place, so its cache rows are written there."""
+    holds whole is used in place, so its cache rows are written there; a
+    gathered copy is written back to its holders (``write_back_lane``)."""
     decode = make_decode_step(model)
-    batch_dim = tree_map(lambda d: d.axes.index("batch"),
-                         model.cache_defs(1, 1))
+    defs = model.cache_defs(1, 1)
+    batch_dim = tree_map(lambda d: d.axes.index("batch"), defs)
+    seq_dim = tree_map(lambda d: d.axes.index("kv_seq") if "kv_seq" in
+                       d.axes else -1, defs)
 
     def lane_decode(params, cache, tokens, cur_len):
         leaves = tree_leaves(params)
@@ -418,7 +468,13 @@ def make_lane_decode_step(model, lane, at=None) -> Callable:
             p = _unflatten(params, gather_lane_params(leaves, lane, g))
             rows = tree_map(lambda st, d: gather_lane(st, lane, g, rows=d),
                             cache, batch_dim)
-            return decode(p, rows, tokens, cur_len)
+            out = decode(p, rows, tokens, cur_len)
+            # a sequence's one new row where the fill is one int
+            one = not (isinstance(cur_len, torch.Tensor) and cur_len.dim())
+            tree_map(lambda st, t, d, sd: write_back_lane(
+                st, t, lane, g, d, (sd, int(cur_len)) if sd >= 0 and one
+                else None), cache, rows, batch_dim, seq_dim)
+            return out
 
     return lane_decode
 

@@ -69,7 +69,12 @@ def cpu_scales(cs) -> dict:
                     train=dict(seq_len=64, global_batch=8, microbatches=2),
                     decode=dict(seq_len=64, batch=4, steps=2),
                     cells=(("mamba2-1.3b", "long_500k"),
-                           ("qwen3-1.7b", "decode_32k"))))
+                           ("qwen3-1.7b", "decode_32k")),
+                    families=dict(
+                        cs.DRYRUN["families"],
+                        vlm=dict(cs.DRYRUN["families"]["vlm"], seq_len=64),
+                        train=dict(cs.DRYRUN["families"]["train"],
+                                   seq_len=16))))
 
 
 def rehearse(group: str, capsys, tmp_path, monkeypatch):

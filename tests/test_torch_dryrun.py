@@ -280,7 +280,7 @@ def test_main_writes_complete_records_and_restarts(tmp_path, monkeypatch,
                 "peak_bytes_per_device", "trace_s"):
         assert key in rec, key
     assert rec["ok"] and rec["n_devices"] == 256
-    assert rec["scheme"] == dryrun.SCHEME
+    assert rec["scheme"] == dryrun.SCHEME_SPLIT
     assert set(rec["collectives"]) == {"bytes", "counts", "total_bytes"}
     for key in ("flops_per_device", "bytes_per_device",
                 "peak_bytes_per_device"):

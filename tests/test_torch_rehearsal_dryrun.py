@@ -3,7 +3,9 @@ run's prediction of qwen3's train step and decode steps on a (1, 1) mesh
 against the profiler's FLOP count of the same steps run on the CPU (peaks
 and device times are the card's), then two full-size cells of the grid
 and the roofline over their records, then the same train step and decode
-lane split over a (1, 4) mesh's "model" positions."""
+lane split over a (1, 4) mesh's "model" positions, and (f)-(h) the other
+families' split on that mesh: mamba2's and pixtral's decode lanes, whisper's
+train step."""
 import pytest
 
 pytest.importorskip("torch")
@@ -44,4 +46,20 @@ def test_dryrun_group_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
                                          "kv_seq": "model"}
     assert "(d) FLOPs: the dry run's per position" in text
     assert "(e) 8 steps, the split lane fed the unsplit lane's tokens" in text
-    assert text.count("(phase wall") == 6      # and the kernel rows
+    for lab, key in (("(f)", "ssm"), ("(h)", "vlm")):
+        fam = sp[key]
+        assert fam["steps_equal"] + fam["ties"] == 8, key
+        assert fam["logits_err"] <= max(fam["allowed"]), key
+        assert f"{lab} 8 steps, the split lane fed the unsplit lane's" in text
+        assert fam["f32_err"] <= 5e-3 and len(fam["bf16_gap"]) == 8, key
+    assert sp["vlm"]["overrides"]["kv_seq"] == "model"
+    enc = sp["encdec"]
+    assert enc["measured"]["flops"] == \
+        4 * enc["record"]["flops_per_device"] > 0
+    assert enc["record"]["scheme"] == dryrun.SCHEME_SPLIT
+    ls = enc["losses"]
+    assert abs(ls["split float32"] - ls["one float32"]) <= enc["allowed32"]
+    assert abs(ls["split"] - ls["one"]) <= enc["allowed"]
+    assert enc["allowed32"] == 2e-4 + 2e-4 * ls["one float32"]
+    assert "(g) FLOPs: the dry run's per position" in text
+    assert text.count("(phase wall") == 9      # and the kernel rows

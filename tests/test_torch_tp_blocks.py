@@ -3,7 +3,11 @@ against their unsplit forms at smoke size, on groups of 2 and 4 CPU
 positions: column- and row-parallel products and FFN, the vocab-parallel
 logits and cross-entropy, GQA (split heads and kv heads, padded heads of a
 whole projection, a cache split over its sequence and combined by its
-log-sum-exp), MLA, and the experts over "model".
+log-sum-exp), MLA, the experts over "model", the Mamba2 mixer (its heads,
+its d_state blocks of B and C, conv channel blocks that straddle the head
+blocks, the gated RMSNorm's float32 all-reduce), the hybrid's LoRA FFN and
+whisper's attention with its heads padded (an encoder pass and
+cross-attention decode).
 
 Tolerances, stated once: float32 within ``F32_TOL``; bf16 within one ulp
 of the unsplit result (the split product rounds once, as the unsplit one,
@@ -15,8 +19,9 @@ import _torch_cpu  # noqa: F401
 import pytest
 import torch
 
+from repro_torch.configs import get
 from repro_torch.models import attention as attn
-from repro_torch.models import layers, moe
+from repro_torch.models import layers, moe, ssm
 from repro_torch.models.params import DEFAULT_RULES, init_params
 from repro_torch.models.sharding_ctx import (ModelBlocks, ModelGroup,
                                              block_bounds, set_rules,
@@ -264,3 +269,132 @@ def test_traced_position_runs_its_share_alone():
     assert y.shape == (2, 96)
     assert torch.equal(y[:, 48:72], x @ w[:, 48:72])
     assert rec.bytes["all-gather"] == math.ceil(2 * 96 * 4 * 3 / 4)
+
+
+def _mamba(dtype):
+    """The smoke mixer (8 heads of 16, d_state 16: conv channels 160) with
+    its decay, step bias, skip and norm scale drawn so that they matter."""
+    cfg = ssm.SSMConfig(64, 128, 16, 16, chunk=8)
+    p = init_params(ssm.mamba2_defs(cfg, dtype), 18, "cpu")
+    for i, n in enumerate(("a_log", "dt_bias", "d_skip")):
+        p[n] = rand(8, seed=20 + i)
+    p["norm"] = {"scale": rand(128, seed=23) + 1}
+    return cfg, p
+
+
+def _split_mamba(p, m):
+    out = dict(p)
+    for n in ("wz", "wx", "wdt", "conv"):
+        out[n] = blocks(p[n], 1, m)
+    for n in ("a_log", "dt_bias", "d_skip"):
+        out[n] = blocks(p[n], 0, m)
+    out["wo"] = blocks(p["wo"], 0, m)
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", GROUPS)
+def test_mamba2_mixer_split(m, dtype):
+    """Full sequence (20 steps: 2 chunks and a padded one) and a decode
+    step from its cache.  The conv's ceil(160 / m) channel blocks straddle
+    the positions' channels (xs heads, then B and C blocks): 40 against
+    32 + 4 + 4 at m = 4, 80 against 64 + 8 + 8 at m = 2."""
+    cfg, p = _mamba(dtype)
+    assert cfg.conv_channels // m != cfg.d_inner // m       # they straddle
+    x = rand(2, 20, 64, dtype=dtype, seed=24)
+    y, (conv, state) = ssm.mamba2_block(p, cfg, x)
+    sp = _split_mamba(p, m)
+    with use_group(group(m)), shd.count_transfers() as rec:
+        y2, (conv2, state2) = ssm.mamba2_block(sp, cfg, x)
+    close(y2, y)
+    assert torch.equal(torch.cat(conv2.parts, 2), conv)
+    close(torch.cat(state2.parts, 1), state)
+    # the gated norm's sums, wo's partials; B / C gathered; conv channels
+    # (each collective counted at each of the m receiving positions)
+    assert rec.counts["all-reduce"] == 2 * m
+    assert rec.counts["all-gather"] == 2 * m
+    assert rec.bytes["collective-permute"] > 0
+
+    xt = rand(2, 1, 64, dtype=dtype, seed=25)
+    yd, (win, st) = ssm.mamba2_decode(p, cfg, xt, (conv, state))
+    with use_group(group(m)):
+        yd2, (win2, st2) = ssm.mamba2_decode(
+            sp, cfg, xt, (blocks(conv, 2, m), blocks(state, 1, m)))
+    close(yd2, yd)
+    assert torch.equal(torch.cat(win2.parts, 2), win)
+    close(torch.cat(st2.parts, 1), st)
+
+
+def test_mamba2_gated_norm_all_reduces_float32_sums():
+    """The gated RMSNorm over the whole d_inner from the positions' float32
+    sums of squares, each position scaling its block: one all-reduce of
+    [B, L, 1] float32 before wo's."""
+    cfg, p = _mamba(torch.bfloat16)
+    y = rand(2, 6, 8, 16, seed=26)
+    z = rand(2, 6, 128, dtype=torch.bfloat16, seed=27)
+    want = ssm._gate_out(p, cfg, y, z, torch.bfloat16)
+    sp = _split_mamba(p, 4)
+    g = group(4)
+    with use_group(g), shd.count_transfers() as rec:
+        got = ssm._gate_out_split(
+            g, sp, cfg, [y[:, :, 2 * k:2 * k + 2] for k in range(4)],
+            [z[..., 32 * k:32 * k + 32] for k in range(4)], torch.bfloat16)
+    close(got, want)
+    # per position a ring's 2 (M - 1) / M of [2, 6, 1] and of wo's [2, 6, 64]
+    assert rec.bytes["all-reduce"] == 4 * (72 + 4608)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m", GROUPS)
+def test_lora_ffn_split(m, dtype):
+    """The shared FFN plus one use's LoRA correction: ``ffn_a`` over its
+    contracted D, ``ffn_b`` column-parallel, the correction through wo's
+    rows with an all-reduce of its own."""
+    model = get("zamba2-7b").make_smoke()
+    shared = init_params(layers.ffn_defs(64, 128, True, dtype), 28, "cpu")
+    lora = {"ffn_a": rand(64, 8, dtype=dtype, seed=29),
+            "ffn_b": rand(8, 128, dtype=dtype, seed=30)}
+    hn = rand(2, 6, 64, dtype=dtype, seed=31)
+    want = model._ffn_with_lora({"ffn": shared}, lora, hn)
+    sf = {n: blocks(w, 0 if n == "wo" else 1, m) for n, w in shared.items()}
+    sl = dict(lora, ffn_b=blocks(lora["ffn_b"], 1, m))
+    with use_group(group(m)), shd.count_transfers() as rec:
+        got = model._ffn_with_lora({"ffn": sf}, sl, hn)
+    close(got, want)
+    # the FFN's, ffn_a's and the correction's, at each of the m positions
+    assert rec.counts["all-reduce"] == 3 * m
+
+
+def test_whisper_attention_pads_its_heads_on_three_positions():
+    """whisper's 4 smoke heads on a (1, 3) group, wq / wk / wv / wo whole
+    (their heads do not divide): padded to 6, two a position, the third
+    position's all zero heads.  The encoder's non-causal pass over its own
+    K/V, then cross-attention decode against a static cache."""
+    model = get("whisper-large-v3").make_smoke()
+    cfg = model.cfg.attn_config(False)
+    p = init_params(attn.gqa_defs(cfg, torch.float32), 32, "cpu")
+    mem = rand(2, 16, 64, seed=33)
+    pos = torch.arange(16).expand(2, 16)
+    kv = attn.encoder_kv(p, cfg, mem)
+    want, _ = attn.gqa_attention(p, cfg, mem, pos, kv_override=kv)
+    xd = rand(2, 1, 64, seed=34)
+    want_d = attn.gqa_decode(p, cfg, xd, kv[0], kv[1], 5, cross=True)
+    rules = {**DEFAULT_RULES, "heads": None, "kv_heads": None,
+             "_mesh_sizes": {"model": 3}}
+    g = group(3, rules)
+    seen = []
+    real = attn._flash
+    with use_group(g):
+        kv2 = attn.encoder_kv(p, cfg, mem)
+        for a, b in zip(kv2, kv):
+            close(a, b)
+        try:
+            attn._flash = lambda q, *a, **kw: (seen.append(q.shape[2]),
+                                               real(q, *a, **kw))[1]
+            got, rows = attn.gqa_attention(p, cfg, mem, pos, kv_override=kv2)
+        finally:
+            attn._flash = real
+        got_d = attn.gqa_decode(p, cfg, xd, kv2[0], kv2[1], 5, cross=True)
+    assert seen == [2, 2, 2] and rows is kv2
+    close(got, want)
+    close(got_d, want_d)

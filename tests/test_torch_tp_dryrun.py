@@ -1,20 +1,25 @@
 """The dry run of the split over "model" (``launch/dryrun.build_cell``
 tracing one position's program):
 
-  * for the six dense and MoE smoke archs and each kind of step, the
-    FLOPs of a lane's positions add up to the unsplit lane's within 1%,
-    less the projections every position computes whole (MLA's latents,
-    the MoE router), and no position gets more than its 1 / M share of
+  * for the nine smoke archs whose model splits (all but zamba2-7b, whose
+    lanes compute whole: ROADMAP Queue 1 item 7) and each kind of step,
+    the FLOPs of a lane's positions add up to the unsplit lane's within 1%,
+    less the work every position does whole (``_replicated_flops``: MLA's
+    latents, the MoE router, the SSD's head-independent C.B product, the
+    VLM's projector), and no position gets more than its 1 / M share of
     the rest; a split leaf is gathered over the other axes only, and the
     positions all-reduce;
   * the reference's SPMD records of decode_32k on the production mesh
     (``repro.launch.dryrun.run_cell``, run in a subprocess: the module
     sets 512 host devices when it is imported) against the port's: within
-    1% for the dense archs; for llama4-scout the remainder is what the
-    reference's partition does differently, term by term (its ``wo`` kept
-    whole on every position, its router split, and its decode routing one
-    group of the global batch across all 256 devices where a port lane
-    routes its 8 rows).
+    1% for the dense archs, mamba2-1.3b and pixtral-12b; for llama4-scout
+    and whisper-large-v3 the remainder is what the reference's partition
+    does differently, term by term (llama4: its ``wo`` kept whole on every
+    position, its router split, and its decode routing one group of the
+    global batch across all 256 devices where a port lane routes its 8
+    rows; whisper: its 20 heads do not divide the axis, and the reference
+    keeps both attentions' ``wo`` and the cross-attention whole on every
+    position where the port's position takes its 2 of the padded 32).
 """
 import json
 import os
@@ -35,7 +40,8 @@ from repro_torch.runtime import steps
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ["qwen3-1.7b", "gemma-7b", "granite-8b", "deepseek-67b",
-         "deepseek-v2-lite-16b", "llama4-scout-17b-a16e"]
+         "deepseek-v2-lite-16b", "llama4-scout-17b-a16e", "mamba2-1.3b",
+         "whisper-large-v3", "pixtral-12b"]
 CELLS = {"train": ShapeCell("t", "train", 32, 8),
          "prefill": ShapeCell("p", "prefill", 32, 4),
          "decode": ShapeCell("d", "decode", 64, 4)}
@@ -43,17 +49,37 @@ M = 4
 
 
 def _replicated_flops(model, cell, lanes: int) -> float:
-    """One position's FLOPs of the projections it computes whole: MLA's
-    latent projections and the MoE router, [tokens, D] @ [D, width]; a
-    train step runs each forward, again in the recompute, and the two
-    products of its backward."""
+    """One position's FLOPs of the work it does whole: MLA's latent
+    projections and the MoE router, [tokens, D] @ [D, width]; the SSD's
+    C.B product of every chunk, [Q, N] @ [N, Q] (prefill and train: decode
+    runs the recurrence); the VLM's projector, [P, d_vit] @ [d_vit, D] and
+    [P, D] @ [D, D] a row.  A train step runs a rematerialised layer's
+    forward, again in the recompute, and the two products of its
+    backward; the projector runs outside the remat: its forward, and in
+    the backward both products' weight gradients and the second's input
+    gradient."""
     c = model.cfg
+    rows = cell.global_batch // lanes
+    seq = 1 if cell.kind == "decode" else cell.seq_len
+    train = cell.kind == "train"
+    if hasattr(c, "d_state"):              # the SSM
+        q = min(c.ssd_chunk, seq)
+        if cell.kind == "decode":
+            return 0.0
+        ssd = 2 * rows * (-(-seq // q)) * q * q * c.d_state
+        return (4 if train else 1) * c.n_layers * ssd
+    if hasattr(c, "lm"):                   # the VLM
+        per = 2 * rows * c.n_patches * c.lm.d_model
+        return (0.0 if cell.kind == "decode" else per * (
+            (2 if train else 1) * c.d_vit + (3 if train else 1)
+            * c.lm.d_model))
+    if not hasattr(c, "attention"):        # the encoder-decoder
+        return 0.0
     width = c.n_layers * (c.mla_kv_rank + c.mla_qk_rope) \
         if c.attention == "mla" else 0
     width += sum(n for kind, n in c.groups() if kind == "moe") * c.n_experts
-    rows = cell.global_batch // lanes
-    tokens = rows * (1 if cell.kind == "decode" else cell.seq_len)
-    return (4 if cell.kind == "train" else 1) * 2 * tokens * c.d_model * width
+    tokens = rows * seq
+    return (4 if train else 1) * 2 * tokens * c.d_model * width
 
 
 @pytest.mark.parametrize("kind", list(CELLS))
@@ -81,7 +107,9 @@ def test_positions_add_up_to_the_unsplit_lane(arch, kind):
     assert abs(sum(flops) - (M - 1) * repl - whole) <= 0.01 * whole
     for f in flops:
         assert f <= (whole - repl) / M * 1.01 + repl
-    assert (repl > 0) == (arch == "deepseek-v2-lite-16b" or "llama4" in arch)
+    assert (repl > 0) == (arch in ("deepseek-v2-lite-16b", "mamba2-1.3b",
+                                   "pixtral-12b") or "llama4" in arch) \
+        or kind == "decode"
 
 
 @pytest.mark.parametrize("arch", ["qwen3-1.7b", "deepseek-v2-lite-16b"])
@@ -120,7 +148,8 @@ print(json.dumps(out))
 """
 
 REF_ARCHS = ["qwen3-1.7b", "gemma-7b", "granite-8b", "deepseek-67b",
-             "llama4-scout-17b-a16e"]
+             "llama4-scout-17b-a16e", "mamba2-1.3b", "pixtral-12b",
+             "whisper-large-v3"]
 
 
 @pytest.fixture(scope="module")
@@ -160,6 +189,25 @@ def _llama4_remainder(model, mesh) -> float:
                          + (experts_ref - experts_port))
 
 
+def _whisper_remainder(model, mesh) -> float:
+    """The reference's decode_32k FLOPs per device less the port's, for
+    whisper-large-v3, from the config: its 20 heads do not divide the 16
+    positions, and per decoder layer the reference keeps (a) the
+    self-attention's and (b) the cross-attention's ``wo`` whole on every
+    position, and (c) the cross-attention's scores and values whole (20
+    heads over the 1,500 frames), where the port's position takes its 2
+    heads of the 32 padded ones in all three.  The self-attention's
+    scores and values (every head over the position's block of the
+    sequence) and the rest are partitioned alike."""
+    c, cell = model.cfg, dryrun.SHAPES["decode_32k"]
+    rows = cell.global_batch // mesh.shape["data"]
+    m = mesh.shape["model"]
+    own = -(-c.n_heads // m)              # 2 heads a position of 32 padded
+    wo = 2 * rows * c.hd * c.d_model * (c.n_heads - own)
+    cross = 2 * 2 * rows * c.n_frames * c.hd * (c.n_heads - own)
+    return c.n_dec_layers * (2 * wo + cross)
+
+
 @pytest.mark.parametrize("arch", REF_ARCHS)
 def test_decode_flops_match_the_reference_spmd_records(arch,
                                                         reference_records):
@@ -167,8 +215,10 @@ def test_decode_flops_match_the_reference_spmd_records(arch,
     rec = dryrun.run_cell(arch, "decode_32k", mesh, "single")
     want = reference_records[arch]
     got = rec["flops_per_device"]
-    if arch.startswith("llama4"):
-        rem = _llama4_remainder(get(arch).make_model(), mesh)
+    remainder = {"llama4-scout-17b-a16e": _llama4_remainder,
+                 "whisper-large-v3": _whisper_remainder}.get(arch)
+    if remainder:
+        rem = remainder(get(arch).make_model(), mesh)
         assert abs(got + rem - want) <= 1e-3 * want, (got, rem, want)
         assert got < 0.75 * want     # the port splits what the ref keeps
     else:
