@@ -269,7 +269,16 @@ Phases (any failure exits nonzero and prints no result line):
      model is chaotic: at 8 + 8 layers its float32 loss moves by ~0.02
      when the frames move by one ulp), (h) pixtral-12b's decode lane at
      4 of its 40 layers (8 rows, a random 32,768-token cache split over
-     its sequence); zamba2-7b's lanes still compute whole;
+     its sequence), (i) zamba2-7b at full width: its decode lane at full
+     depth (8 rows, a random 2,048-token cache of its 13 shared-block
+     uses, split over their kv heads), in bf16 held as (f) and in float32
+     held to the unsplit lane within 1e-6 of its largest logit (float32
+     sums that cross the split accumulate in float64 on both sides, so
+     the two should be equal), then its float32 train step at 13 of its
+     81 blocks (2 rows of 512 tokens) on one position and split, the
+     split's profiler FLOPs against 4 x the dry run's per-position count
+     of matrix products within 0.01%, its loss against one position's,
+     the peak beside the dry run's;
  20. print the ``kernels`` JSON line and, last, the device JSON line.
 
 The phases run in groups that share no state (``GROUPS``: main = 3-9,
@@ -478,7 +487,7 @@ DRYRUN = dict(
     flops_rtol=0.02, peak_rtol=0.15,
     split=dict(mesh=(1, 4), decode_steps=8, flops_rtol=0.005,
                logits_atol=0.05, floor_factor=1.5, loss_rtol=2e-4,
-               loss_atol=2e-4, f32_atol=5e-3, f32_share=0.05),
+               loss_atol=2e-4),
     cells=(("qwen3-1.7b", "train_4k"), ("deepseek-v2-lite-16b", "decode_32k"),
            ("mamba2-1.3b", "long_500k"), ("whisper-large-v3", "prefill_32k"),
            ("pixtral-12b", "prefill_32k")),
@@ -488,12 +497,25 @@ DRYRUN = dict(
     # layers as the families group serves it), (g) whisper-large-v3's train
     # step (2 encoder and 2 decoder layers: the random model is chaotic
     # deeper; 2 rows of 1,500 frames and 448 tokens in one microbatch);
-    # each also in float32, the split held to the unsplit run there
+    # each also in float32, the split held to the unsplit run there (a
+    # decode lane within ``f32_rtol`` of the unsplit lane's largest logit:
+    # float32 cross-split sums accumulate in float64 on both sides; (h)'s
+    # layout holds the heads whole and splits wq / wk / wv over "embed",
+    # which on the CPU rounds otherwise than the unsplit float32 product,
+    # 1.7e-5 of the largest logit in the CPU rehearsal, so 1e-4 there); (i)
+    # zamba2-7b's decode lane at full depth (a 2,048-token cache: its 13
+    # uses' KV caches, bf16 and float32, fit beside the weights), and its
+    # float32 train step at ``layers`` of its 81 blocks (its loss within
+    # ``loss_rtol`` of one position's)
     families=dict(
-        ssm=dict(arch="mamba2-1.3b", batch=8, seq_len=32768),
-        vlm=dict(arch="pixtral-12b", batch=8, seq_len=32768, layers=4),
+        ssm=dict(arch="mamba2-1.3b", batch=8, seq_len=32768, f32_rtol=1e-6),
+        vlm=dict(arch="pixtral-12b", batch=8, seq_len=32768, layers=4,
+                 f32_rtol=1e-4),
         train=dict(arch="whisper-large-v3", seq_len=448, global_batch=2,
-                   microbatches=1, layers=2)))
+                   microbatches=1, layers=2),
+        hybrid=dict(arch="zamba2-7b", batch=8, seq_len=2048, f32_rtol=1e-6,
+                    train=dict(seq_len=512, global_batch=2, microbatches=1,
+                               layers=13, flops_rtol=1e-4, loss_rtol=1e-6))))
 
 
 class PhaseError(RuntimeError):
@@ -4809,6 +4831,8 @@ def family_split_phases(ctx, cfg: dict, gen) -> dict:
     import dataclasses
 
     from repro_torch.configs import get
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
     torch = ctx.torch
     sc, fc = cfg["split"], cfg["families"]
     d, m = sc["mesh"]
@@ -4827,7 +4851,7 @@ def family_split_phases(ctx, cfg: dict, gen) -> dict:
           f"{production_overrides(spec, model)}: {sc['decode_steps']} greedy "
           f"steps from a random window and state against the unsplit lane")
     out["ssm"] = split_decode(ctx, "(f)", model, spec, sc, c["batch"],
-                              c["seq_len"], gen, f32=True)
+                              c["seq_len"], gen, f32_rtol=c["f32_rtol"])
 
     c = fc["train"]
     spec, model = make(c["arch"])
@@ -4851,8 +4875,133 @@ def family_split_phases(ctx, cfg: dict, gen) -> dict:
           f"steps from a random {c['seq_len']:,}-token cache against the "
           f"unsplit lane")
     out["vlm"] = split_decode(ctx, "(h)", model, spec, sc, c["batch"],
-                              c["seq_len"], gen, f32=True)
+                              c["seq_len"], gen, f32_rtol=c["f32_rtol"])
+    del model
+    free(ctx)
+
+    c = fc["hybrid"]
+    spec, model = make(c["arch"])
+    # the mesh's own layout: the production mesh's for the full model
+    # (32 heads, 32 kv heads and the vocab divide 4 and 16 alike)
+    ov = dryrun.sharding_overrides(
+        spec, make_host_mesh(d, m, device="meta"), "decode", model)
+    phase(f"dryrun (i): the {c['arch']} ({cfg['preset']}) decode lane of "
+          f"{c['batch']} rows split over the ({d}, {m}) mesh's \"model\" "
+          f"positions with its layout {ov} (the production mesh's "
+          f"{production_overrides(spec, model)}): {sc['decode_steps']} "
+          f"greedy steps from a random {c['seq_len']:,}-token cache against "
+          f"the unsplit lane, in bf16 and float32 (float32 within "
+          f"{c['f32_rtol']} of the unsplit lane's largest logit)")
+    out["hybrid"] = split_decode(ctx, "(i)", model, spec, sc, c["batch"],
+                                 c["seq_len"], gen, f32_rtol=c["f32_rtol"],
+                                 overrides=ov)
+    free(ctx)
+    t = c["train"]
+    mc = model.cfg
+    model = type(model)(dataclasses.replace(
+        mc, n_blocks=min(t["layers"], mc.n_blocks), dtype=torch.float32))
+    out["hybrid_train"] = f32_split_train(ctx, "(i)", model, spec, sc, t,
+                                          gen, cfg["preset"])
     return out
+
+
+def f32_split_train(ctx, label: str, model, spec, sc: dict, c: dict, gen,
+                    preset: str) -> dict:
+    """A float32 train step of ``model`` on random tokens from ``gen``, on
+    one position and split over the (1, M) mesh of ``sc`` (the same
+    weights and batch): the split's loss against one position's within
+    ``c["loss_rtol"]`` of it (float32 cross-split sums accumulate in
+    float64 on both sides, so the two should be equal), the split step's
+    profiler FLOPs against M x the dry run's per-position count within
+    ``c["flops_rtol"]``, ``max_memory_allocated`` beside M x the dry run's
+    per-position peak; host wall, device time and launches of both."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_mesh
+    from repro_torch.models.params import init_params, param_pspecs
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime import steps
+    from repro_torch.runtime.optim import OptConfig, init_opt_state
+    torch, dev = ctx.torch, ctx.dev
+    d, m = sc["mesh"]
+    b, s, mb = c["global_batch"], c["seq_len"], c["microbatches"]
+    mc = model.cfg
+    phase(f"dryrun {label}: the {spec.arch_id} ({preset}, {mc.n_blocks} "
+          f"blocks) float32 train step, {b} x {s} tokens in {mb} "
+          f"microbatch(es), on one position and split over a ({d}, {m}) "
+          f"mesh's \"model\" positions on {dev}: the loss against one "
+          f"position's, the dry run's FLOPs x {m} against the profiler's")
+    print(f"  {label} device memory allocated at the start: {held(ctx)}")
+    defs = model.param_defs()
+    toks = torch.randint(0, mc.vocab, (b, s + 1), generator=gen, device=dev,
+                         dtype=torch.int32)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    opt = OptConfig()
+    runs = {}
+    for name, shape in (("one", (1, 1)), ("split", (d, m))):
+        msh = make_host_mesh(*shape, device=dev)
+        rules = shd.make_rules(msh, dryrun.sharding_overrides(
+            spec, msh, "train", model))
+        params = shd.device_put(init_params(defs, SEED, dev), shd.named(
+            msh, param_pspecs(defs, rules)))
+        state = init_opt_state(params, opt)
+        step = steps.make_train_step(model, opt, mb)
+        box = {}
+
+        def first_step():
+            t0 = time.perf_counter()
+            box["loss"] = float(step(params, state, batch)[2]["loss"])
+            ctx.sync()
+            box["host_ms"] = (time.perf_counter() - t0) * 1e3
+
+        with rules_for(msh, rules):
+            got = profiled_step(ctx, first_step)
+        runs[name] = dict(got, **box)
+        peak = got["peak"]
+        print(f"  {label} {name}: loss {box['loss']:.7f}, host wall "
+              f"{box['host_ms']:.1f} ms (under the profiler), device time "
+              f"{got['device_ms']} ms, launches {got['launches']}, FLOPs "
+              f"{got['flops']:.6e}, max_memory_allocated "
+              f"{peak and f'{peak / 2**30:.3f} GiB'}")
+        del params, state, step, box
+        free(ctx)
+    rec = dryrun.run_cell(spec.arch_id, ShapeCell("train", "train", s, b),
+                          make_mesh((d, m), ("data", "model"),
+                                    device="meta"),
+                          f"{d}x{m}", microbatch=mb, model=model)
+    one, split = runs["one"]["loss"], runs["split"]["loss"]
+    err = abs(split - one)
+    print(f"  {label} float32 loss split {split!r}, one position {one!r}: "
+          f"{'equal' if split == one else f'|diff| {err:.3e}'} (allowed "
+          f"{c['loss_rtol']} x |one|)")
+    need(err <= c["loss_rtol"] * abs(one),
+         f"{label}: the float32 split step's loss {split} differs from one "
+         f"position's {one}")
+    got = runs["split"]
+    conv = rec["conv_flops_per_device"]
+    pred = (rec["flops_per_device"] - conv) * m
+    f_err = got["flops"] / pred - 1
+    print(f"  {label} FLOPs: the dry run's per position "
+          f"{rec['flops_per_device']:.6e}, less its convolutions' "
+          f"{conv:.6e} (the profiler counts matrix products only), x {m} = "
+          f"{pred:.6e}, profiler {got['flops']:.6e} ({f_err:+.4%}); scheme "
+          f"{rec['scheme']!r}; all-reduce "
+          f"{rec['collectives']['bytes']['all-reduce']:.4e} B per position")
+    n, f = got["aborted"]
+    if n:
+        print(f"  {label} {n} more product calls ({f:.6e} FLOPs) recorded by "
+              "the profiler ran nothing: checkpoint recomputes that stopped "
+              "inside them")
+    need(rec["scheme"] == dryrun.SCHEME_SPLIT and abs(f_err) <= c[
+        "flops_rtol"], f"{label}: the profiler's FLOPs differ from the dry "
+         f"run's x {m} by {f_err:+.4%} ({rec['scheme']})")
+    ppk, peak = rec["peak_bytes_per_device"], got["peak"]
+    print(f"  {label} peak: the dry run's per position {ppk / 2**30:.3f} GiB "
+          f"(x {m} = {m * ppk / 2**30:.3f} GiB), max_memory_allocated "
+          f"{peak and f'{peak / 2**30:.3f} GiB'} for the {m} positions on "
+          f"one card")
+    return dict(record=rec, runs=runs, loss_err=err, flops_err=f_err,
+                peak=peak)
 
 
 def split_train_phase(ctx, label: str, model, spec, sc: dict, c: dict,
@@ -4993,26 +5142,26 @@ def production_overrides(spec, model) -> dict:
 
 
 def split_decode(ctx, label: str, model, spec, sc: dict, b: int, smax: int,
-                 gen, f32: bool = False) -> dict:
+                 gen, f32_rtol: float | None = None,
+                 overrides=None) -> dict:
     """A decode lane of ``model`` split over the (1, M) mesh of ``sc`` with
     the production mesh's layout, against the unsplit lane on the same
     weights and random cache (``b`` rows, ``smax`` of them for a KV cache):
     ``sc["decode_steps"]`` greedy steps, the split lane fed the unsplit
     lane's tokens; tokens equal but at ties; its logits within the larger
     of ``logits_atol`` and ``floor_factor`` x the unsplit lane's own noise:
-    its difference when its first step runs row by row and (``f32``) its
-    difference at each step from the same lane in float32 (the same
-    weights and cache upcast, fed the same tokens).  With ``f32`` the
-    split lane in float32 is held to the unsplit one in float32 too, at
-    each step within the larger of ``f32_atol`` and ``f32_share`` of the
-    unsplit lane's bf16-against-float32 difference: a random full-width
-    model amplifies float32's rounding too (pixtral's wq takes its fan-in
-    from the head count, so its scores over a random cache have a std near
-    12 and the softmax is near one-hot), and the split's float32 error
-    must stay far below the bf16 noise the bf16 check allows.  A cache
-    that a step rewrites whole (the SSM's window and state: no "kv_seq"
-    rows) is put back before each run.  Prints host wall, device time and
-    launches per step."""
+    its difference when its first step runs row by row and (``f32_rtol``
+    given) its difference at each step from the same lane in float32 (the
+    same weights and cache upcast, fed the same tokens).  With
+    ``f32_rtol`` the split lane in float32 is held to the unsplit one in
+    float32 too, within that share of the unsplit lane's largest |logit|
+    at each step (float32 cross-split sums accumulate in float64 on both
+    sides, so the two should be equal), and the steps whose logits are
+    equal are counted.  ``overrides``:
+    the layout (default the production mesh's, ``production_overrides``).
+    The cache leaves a step rewrites whole (an SSM's window and state: no
+    "kv_seq" rows) are put back before each run.  Prints host wall, device
+    time and launches per step."""
     import dataclasses
 
     from repro_torch.launch.mesh import make_host_mesh
@@ -5024,7 +5173,9 @@ def split_decode(ctx, label: str, model, spec, sc: dict, b: int, smax: int,
     print(f"  {label} device memory allocated at the start: {held(ctx)}")
     d, m = sc["mesh"]
     n = sc["decode_steps"]
-    ov = production_overrides(spec, model)
+    f32 = f32_rtol is not None
+    ov = production_overrides(spec, model) if overrides is None else \
+        overrides
     defs = model.param_defs()
     vocab = getattr(model.cfg, "lm", model.cfg).vocab
     one, mesh = make_host_mesh(1, 1, device=dev), make_host_mesh(d, m,
@@ -5051,15 +5202,17 @@ def split_decode(ctx, label: str, model, spec, sc: dict, b: int, smax: int,
             dataclasses.replace(cfg, lm=dataclasses.replace(cfg.lm,
                                                             dtype=f32_of))
             if hasattr(cfg, "lm") else dataclasses.replace(cfg, dtype=f32_of))
-    rewritten = not any("kv_seq" in dd.axes for dd in tree_leaves(cdefs))
-    pristine = ({k: tree_map(torch.clone, c) for k, c in caches.items()}
-                if rewritten else None)
+    # the leaves a step rewrites whole (an SSM's window and state: no
+    # "kv_seq" rows), put back before each run
+    whole = [i for i, dd in enumerate(tree_leaves(cdefs))
+             if "kv_seq" not in dd.axes]
+    pristine = {k: [tree_leaves(c)[i].clone() for i in whole]
+                for k, c in caches.items()}
 
     def restore(wide):
-        if pristine is not None:
-            for w, p in zip(tree_leaves(caches[wide]),
-                            tree_leaves(pristine[wide])):
-                w.copy_(p)
+        leaves = tree_leaves(caches[wide])
+        for i, p in zip(whole, pristine[wide]):
+            leaves[i].copy_(p)
 
     def views(wide, msh, rl, rows=slice(None)):
         """The cache's ``rows`` as ``ShardedTensor``s of ``msh`` whose
@@ -5069,7 +5222,8 @@ def split_decode(ctx, label: str, model, spec, sc: dict, b: int, smax: int,
             shd.NamedSharding(msh, sp), tuple(t.shape), t.dtype, {
                 c: t[shd.local_slices(shd.NamedSharding(msh, sp), t.shape,
                                       c)] for c in msh.positions()}),
-            tree_map(lambda t: t[:, rows], caches[wide]), specs)
+            tree_map(lambda t, dd: t[(slice(None),) * dd.axes.index(
+                "batch") + (rows,)], caches[wide], cdefs), specs)
     tokens = torch.randint(0, vocab, (b, 1), generator=gen, device=dev,
                            dtype=torch.int32)
     start = smax - n
@@ -5081,10 +5235,11 @@ def split_decode(ctx, label: str, model, spec, sc: dict, b: int, smax: int,
             name = kind + (" float32" if wide else "")
             msh, rl = rules[kind]
             mdl = models[wide]
-            params = shd.device_put(
-                tree_map(lambda t: t.float() if wide and
-                         t.is_floating_point() else t, plain),
-                shd.named(msh, param_pspecs(defs, rl)))
+            # leaf by leaf: a float32 copy of the whole tree beside its
+            # shards would not fit for zamba2-7b
+            params = tree_map(lambda t, sh: shd.put(
+                t.float() if wide and t.is_floating_point() else t, sh),
+                plain, shd.named(msh, param_pspecs(defs, rl)))
             cache = views(wide, msh, rl)
             decode = steps.make_lane_decode_step(mdl, (0, 0))
             restore(wide)
@@ -5169,12 +5324,16 @@ def split_decode(ctx, label: str, model, spec, sc: dict, b: int, smax: int,
                   for k, v in runs.items()})
     if f32:
         e32 = diffs("split float32", "unsplit float32")
-        a32 = [max(sc["f32_atol"], sc["f32_share"] * g) for g in gaps]
+        whole32 = runs["unsplit float32"]["logits"]
+        a32 = [f32_rtol * float(w.abs().max()) for w in whole32]
+        rule = f"{f32_rtol} x the unsplit float32 lane's largest |logit|"
+        equal = sum(bool(torch.equal(a, w)) for a, w in zip(
+            runs["split float32"]["logits"], whole32))
         print(f"  {label} float32: logits max |split - unsplit| per step "
               f"{[f'{e:.4e}' for e in e32]}, allowed "
-              f"{[f'{e:.4e}' for e in a32]} (the larger of "
-              f"{sc['f32_atol']} and {sc['f32_share']} x the unsplit lane's "
-              f"bf16 against float32: {[f'{e:.4e}' for e in gaps]})")
+              f"{[f'{e:.4e}' for e in a32]} ({rule}); equal at {equal} of "
+              f"{n} steps")
+        res["f32_equal"] = equal
         need(all(e <= a for e, a in zip(e32, a32)), f"{label}: in float32 "
              f"the split lane differs from the unsplit lane by {e32} "
              f"(allowed {a32})")

@@ -258,6 +258,10 @@ def run_cell(arch: str, shape, mesh, mesh_name: str, variant: str = "base",
     rec["trace_s"] = round(time.time() - t0, 2)
     s = summarize(cm.cost)
     rec["flops_per_device"] = s["flops"]
+    # the convolutions' share (the Mamba2 mixer's conv): a profiler's FLOP
+    # count covers matrix products only
+    rec["conv_flops_per_device"] = sum(
+        f for name, (_, f, _) in cm.by_op.items() if "convolution" in name)
     rec["bytes_per_device"] = s["bytes"]
     rec["collectives"] = {"bytes": s["collective_bytes"],
                           "counts": s["collective_counts"],

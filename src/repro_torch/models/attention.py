@@ -21,31 +21,35 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .layers import contract_parallel, rmsnorm, rmsnorm_defs, rope
+from .layers import (compute_dtype, contract_parallel, product, rmsnorm,
+                     rmsnorm_defs, rope, shared, sum_product)
 from .params import ParamDef
-from .sharding_ctx import (ModelBlocks, is_blocks, model_group,
+from .sharding_ctx import (ModelBlocks, accum_dtype, is_blocks, model_group,
                            padded_head_count)
 
 
 def head_proj(p, name: str, x: torch.Tensor, heads: int,
               hdim: int) -> torch.Tensor:
-    """x [..., D] @ [D, H, Dh] -> [..., H, Dh], PUD-packed aware."""
+    """x [..., D] @ [D, H, Dh] -> [..., H, Dh] (``layers.product``; x may
+    come ``shared``), PUD-packed aware."""
     packed = p.get(name + "_pud")
     if packed is not None:
         from repro_torch.pud.gemv import pud_linear
-        y = pud_linear(x, packed).to(x.dtype)
+        dtype = compute_dtype(x)
+        y = pud_linear(x.to(dtype), packed).to(dtype)
         return y.reshape(y.shape[:-1] + (heads, hdim))
-    return torch.einsum("...d,dhk->...hk", x, p[name].to(x.dtype))
+    return product(x, p[name], "...d,dhk->...hk")
 
 
 def merge_proj(p, name: str, x: torch.Tensor) -> torch.Tensor:
-    """x [..., H, Dh] @ [H, Dh, D] -> [..., D], PUD-packed aware."""
+    """x [..., H, Dh] @ [H, Dh, D] -> [..., D] (``layers.sum_product``:
+    the split divides the heads), PUD-packed aware."""
     packed = p.get(name + "_pud")
     if packed is not None:
         from repro_torch.pud.gemv import pud_linear
         flat = x.reshape(x.shape[:-2] + (x.shape[-2] * x.shape[-1],))
         return pud_linear(flat, packed).to(x.dtype)
-    return torch.einsum("...hk,hkd->...d", x, p[name].to(x.dtype))
+    return sum_product(x, p[name], "...hk,hkd->...d")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +159,7 @@ def gqa_attention(p, cfg: AttnConfig, x: torch.Tensor,
     g = model_group()
     if g is not None:
         return gqa_attention_split(g, p, cfg, x, positions, kv_override)
+    x = shared(x)                 # wq, wk and wv read it
     q = head_proj(p, "wq", x, cfg.n_heads, cfg.head_dim)
     if kv_override is None:
         k = head_proj(p, "wk", x, cfg.n_kv_heads, cfg.head_dim)
@@ -183,6 +188,7 @@ def encoder_kv(p, cfg: AttnConfig, memory: torch.Tensor):
     each is whole or ``ModelBlocks`` of the positions' kv heads (as
     ``gqa_attention_split`` returns its cache rows)."""
     g = model_group()
+    memory = shared(memory)
     if g is not None:
         return tuple(_rows_blocks(g, _proj_split(g, memory, p[n]),
                                   cfg.n_kv_heads) for n in ("wk", "wv"))
@@ -209,6 +215,7 @@ def gqa_prefill_chunk(p, cfg: AttnConfig, x: torch.Tensor,
     b, c, _ = x.shape
     start = int(start)
     positions = start + torch.arange(c, device=x.device).expand(b, c)
+    dtype, x = x.dtype, shared(x)
     q = head_proj(p, "wq", x, cfg.n_heads, cfg.head_dim)
     k_new = head_proj(p, "wk", x, cfg.n_kv_heads, cfg.head_dim)
     v_new = head_proj(p, "wv", x, cfg.n_kv_heads, cfg.head_dim)
@@ -219,8 +226,8 @@ def gqa_prefill_chunk(p, cfg: AttnConfig, x: torch.Tensor,
     k_new = rope(k_new, positions, cfg.rope_theta)
     cache_k[:, start:start + c] = k_new.to(cache_k.dtype)
     cache_v[:, start:start + c] = v_new.to(cache_v.dtype)
-    k = cache_k[:, :kv_len].to(x.dtype)
-    v = cache_v[:, :kv_len].to(x.dtype)
+    k = cache_k[:, :kv_len].to(dtype)
+    v = cache_v[:, :kv_len].to(dtype)
     q, k, v, h_true = _pad_heads(q, k, v)
     out = _flash(q, k, v, causal=True, kv_chunk=min(cfg.kv_chunk, kv_len),
                  q_offset=start)
@@ -264,6 +271,7 @@ def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
         lens = cur_len.to(device=x.device, dtype=torch.int64)
     else:
         cur_len = int(cur_len)
+    x = shared(x)
     q = head_proj(p, "wq", x, cfg.n_heads, cfg.head_dim)
     if cross:
         if cfg.qk_norm:
@@ -296,23 +304,46 @@ def gqa_decode(p, cfg: AttnConfig, x: torch.Tensor, cache_k: torch.Tensor,
 def _decode_core(q: torch.Tensor, cache_k: torch.Tensor,
                  cache_v: torch.Tensor, mask) -> torch.Tensor:
     """One query row per sequence q [B, 1, H, Dh] against the cache [B,
-    S, KV, Dh] (H = KV x G), float32 scores, the softmax's weights rounded
-    to the cache dtype; returns [B, 1, H, Dh] in the cache dtype."""
+    S, KV, Dh] (H = KV x G), float32 scores (``_scores``), the softmax's
+    weights rounded to the cache dtype (``_softmax``), the product with the
+    values one precision above it; returns [B, 1, H, Dh] in the cache
+    dtype."""
     b, h, d = q.shape[0], q.shape[2], q.shape[3]
     kvh = cache_k.shape[2]
     g = h // kvh
     qr = q.reshape(b, kvh, g, d).to(torch.float32)
     scale = torch.tensor(d ** -0.5, dtype=torch.float32, device=q.device)
-    s = torch.einsum("bkgd,bpkd->bkgp", qr,
-                     cache_k.to(torch.float32)) * scale
+    s = _scores(qr, cache_k, scale)
     if mask is not None:
         s = torch.where(mask, s,
                         torch.tensor(float("-inf"), device=q.device))
-    w = torch.softmax(s, dim=-1)
-    o = torch.einsum("bkgp,bpkd->bkgd",
-                     w.to(cache_v.dtype).to(torch.float32),
-                     cache_v.to(torch.float32)).to(cache_v.dtype)
+    acc = accum_dtype(cache_v.dtype)
+    w = _softmax(s, cache_v.dtype)
+    o = torch.einsum("bkgp,bpkd->bkgd", w.to(cache_v.dtype).to(acc),
+                     cache_v.to(acc)).to(cache_v.dtype)
     return o.reshape(b, 1, h, d)
+
+
+def _scores(qr: torch.Tensor, cache_k: torch.Tensor, scale) -> torch.Tensor:
+    """float32 scores [B, KV, G, S] of the query rows qr [B, KV, G, Dh]
+    against the keys [B, S, KV, Dh], times ``scale``: the product one
+    precision above the cache dtype, rounded to float32.  (The batched
+    product of a block of the kv heads, or of the rows, rounds otherwise
+    than the whole one in float32.)"""
+    acc = accum_dtype(cache_k.dtype)
+    return torch.einsum("bkgd,bpkd->bkgp", qr.to(acc), cache_k.to(acc)).to(
+        torch.float32) * scale
+
+
+def _softmax(s: torch.Tensor, dtype) -> torch.Tensor:
+    """The softmax of float32 scores ``s`` over their last dim against a
+    cache of ``dtype``: bf16 through ``torch.softmax``; float32 as a cache
+    split over its sequence takes it (``_seq_softmax_pv``: the max, the
+    exponentials' sum in float64 rounded once), so that the two agree."""
+    if accum_dtype(dtype) != torch.float64:
+        return torch.softmax(s, dim=-1)
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return e / e.to(torch.float64).sum(dim=-1, keepdim=True).to(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -519,9 +550,10 @@ def _each(fn, x):
 def _proj_split(g, x: torch.Tensor, w):
     """Per position its heads [..., h, Dh] of x @ w (``ModelBlocks`` w:
     column-parallel), or the whole [..., H, Dh] (w held whole: its
-    contracted D split, ``layers.contract_parallel``)."""
+    contracted D split, ``layers.contract_parallel``); x may come
+    ``shared``."""
     if is_blocks(w):
-        return [torch.einsum("...d,dhk->...hk", g.to(x, k), wp.to(x.dtype))
+        return [product(g.to(x, k), wp, "...d,dhk->...hk")
                 for k, wp in zip(w.index, w.parts)]
     d, h, k = w.shape
     return contract_parallel(x, w.reshape(d, h * k)).unflatten(-1, (h, k))
@@ -564,8 +596,9 @@ def _merge_split(g, w, outs: list, blocks: list, n_heads: int,
                  dtype) -> torch.Tensor:
     """Row-parallel ``wo`` [H, Dh, D]: each position's heads' outputs
     [..., h, Dh] times its rows of wo (its ``ModelBlocks`` part, or the
-    real heads' rows of a whole wo), float32 partials, ``psum``."""
-    parts = []
+    real heads' rows of a whole wo), partials in ``accum_dtype(dtype)``,
+    ``psum``."""
+    parts, acc = [], accum_dtype(dtype)
     for j, (o, (lo, hi)) in enumerate(zip(outs, blocks)):
         if is_blocks(w):
             wk = w.parts[j]
@@ -573,8 +606,7 @@ def _merge_split(g, w, outs: list, blocks: list, n_heads: int,
             real = max(0, min(hi, n_heads) - lo)
             o = o[..., :real, :]
             wk = g.to(w[lo:lo + real], g.active[j])
-        parts.append(torch.einsum("...hk,hkd->...d", o.to(torch.float32),
-                                  wk.to(torch.float32)))
+        parts.append(torch.einsum("...hk,hkd->...d", o.to(acc), wk.to(acc)))
     return g.psum(parts, dtype)
 
 
@@ -604,6 +636,7 @@ def gqa_attention_split(g, p, cfg: AttnConfig, x: torch.Tensor,
     an encoder's (k, v) as ``encoder_kv`` gives them inside the group (no
     RoPE, no mask); they come back as the rows."""
     h, kv = cfg.n_heads, cfg.n_kv_heads
+    dtype, x = x.dtype, shared(x)          # wq, wk and wv read it
     q = _proj_split(g, x, p["wq"])
     causal = cfg.causal
     if kv_override is None:
@@ -629,8 +662,7 @@ def gqa_attention_split(g, p, cfg: AttnConfig, x: torch.Tensor,
             vv, _ = _kv_heads(g.to(v, g.active[j]), lo, hi, h, h // kv)
         outs.append(_flash(qk, kk, vv, causal=causal,
                            kv_chunk=min(cfg.kv_chunk, kk.shape[1])))
-    out = _merge_split(g, p["wo"], outs, [b[1:] for b in blocks], h,
-                       x.dtype)
+    out = _merge_split(g, p["wo"], outs, [b[1:] for b in blocks], h, dtype)
     if kv_override is not None:
         return out, kv_override
     return out, (_rows_blocks(g, k, kv), _rows_blocks(g, v, kv))
@@ -691,16 +723,17 @@ def _seq_softmax_pv(g, ss: list, vs: list, eq: str, dtype) -> torch.Tensor:
     """Each position's masked float32 scores ``ss`` over its block of a
     cache split over its sequence, and its block of the values ``vs``: the
     max and the sum of exponentials all-reduced, the weights rounded to the
-    values' dtype, the partial products (``eq``) ``psum``'d to ``dtype``."""
+    values' dtype, the partial products (``eq``) ``psum``'d to ``dtype``;
+    the sums one precision above the values' dtype (``_softmax``)."""
+    acc = accum_dtype(vs[0].dtype)
     gmax = g.pmax([s.amax(dim=-1) for s in ss])
     es = [torch.exp(s - g.to(gmax, k)[..., None])
           for s, k in zip(ss, g.active)]
-    total = g.psum([e.sum(dim=-1) for e in es])
+    total = g.psum([e.to(acc).sum(dim=-1) for e in es])
     parts = []
     for e, v, k in zip(es, vs, g.active):
         w = (e / g.to(total, k)[..., None]).to(v.dtype)
-        parts.append(torch.einsum(eq, w.to(torch.float32),
-                                  v.to(torch.float32)))
+        parts.append(torch.einsum(eq, w.to(acc), v.to(acc)))
     return g.psum(parts, dtype)
 
 
@@ -727,6 +760,7 @@ def gqa_decode_split(g, p, cfg: AttnConfig, x: torch.Tensor, cache_k,
     h, kv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     lens, cur, valid = _decode_lens(x, cur_len)
     pos = lens[:, None]
+    dtype, x = x.dtype, shared(x)
     q = _proj_split(g, x, p["wq"])
     if cross:
         if cfg.qk_norm:
@@ -745,10 +779,9 @@ def gqa_decode_split(g, p, cfg: AttnConfig, x: torch.Tensor, cache_k,
         qf = g.all_gather(q, 2, h) if isinstance(q, list) else q
         qr = qf.reshape(b, kv, h // kv, d).to(torch.float32)
         scale = torch.tensor(d ** -0.5, dtype=torch.float32, device=x.device)
-        ss = [_block_mask(torch.einsum(
-            "bkgd,bpkd->bkgp", g.to(qr, k), cache_k.parts[j].to(
-                torch.float32)) * g.to(scale, k), cache_k.bounds(j)[0],
-            valid) for j, k in enumerate(g.active)]
+        ss = [_block_mask(_scores(g.to(qr, k), cache_k.parts[j],
+                                  g.to(scale, k)), cache_k.bounds(j)[0],
+                          valid) for j, k in enumerate(g.active)]
         o = _seq_softmax_pv(g, ss, cache_v.parts, "bkgp,bpkd->bkgd",
                             cache_v.parts[0].dtype).reshape(b, 1, h, d)
         blocks = [(g.to(o[:, :, lo:hi], k), lo, hi) for k in g.active
@@ -771,7 +804,7 @@ def gqa_decode_split(g, p, cfg: AttnConfig, x: torch.Tensor, cache_k,
                                      else g.to(mask, kdev)))
         blocks = [(o, lo, hi) for o, (_, lo, hi) in zip(outs, blocks)]
     return _merge_split(g, p["wo"], [o for o, _, _ in blocks],
-                        [(lo, hi) for _, lo, hi in blocks], h, x.dtype)
+                        [(lo, hi) for _, lo, hi in blocks], h, dtype)
 
 
 def mla_attention_split(g, p, cfg: MLAConfig, x: torch.Tensor,

@@ -29,15 +29,11 @@ Inside a "model" group (``sharding_ctx.use_group``) the blocks split:
 the Mamba2 mixers their heads (``ssm._mamba2_split``), the shared block
 its attention heads and FFN (``attention.gqa_attention_split``,
 ``layers.ffn``), each use's LoRA as ``_ffn_with_lora`` says, and a
-prefill's cache leaves come as ``ModelBlocks`` where the rules split them.
-But ``model_split`` is off, so a data lane computes whole on its first
-position: the smoke model's float32 training is too sensitive for a split.
-A one-ulp change of 1% of one leaf's weights moves its gradients by 2e-5
-of a leaf's scale, so the float32 sums a split adds in another order move
-the sharded step's 3-step trajectory 2.6e-4 off the one-device step's on a
-(2, 2) mesh, past the 1e-4 that ``tests/test_torch_train_mesh_ssm.py``
-holds it to (a split of the data lanes only, which reorders no sum within
-a sequence, stays within 4e-6).
+prefill's cache leaves come as ``ModelBlocks`` where the rules split them
+(``model_split``).  In float32 every sum the split divides accumulates in
+float64 and rounds once, split or not (``layers``' module docstring), so a
+split lane gives the unsplit lane's bits and the sharded train step's
+gradients the one-device step's (``tests/test_torch_split_exact.py``).
 """
 from __future__ import annotations
 
@@ -49,8 +45,9 @@ from . import attention as attn_mod
 from .attention import AttnConfig
 from .layers import (chunked_softmax_xent, column_parallel,
                      contract_parallel, embed, embed_defs, ffn, ffn_defs,
-                     logits_last, remat, rmsnorm, rmsnorm_defs, row_parallel,
-                     unembed_defs)
+                     logits_last, product, remat, rmsnorm, rmsnorm_defs,
+                     row_parallel, sum_product, unembed_defs)
+from .layers import shared as shared_form
 from .params import ParamDef, stack_defs
 from .sharding_ctx import is_blocks, set_layer
 from .ssm import SSMConfig, mamba2_defs
@@ -105,9 +102,9 @@ class HybridConfig:
 
 
 class HybridLM:
-    #: the "model" axis does not split this family's compute: its float32
-    #: training is too sensitive for it (the module docstring)
-    model_split = False
+    #: a data lane's "model" positions split its compute
+    #: (``runtime/steps.lane_group``)
+    model_split = True
 
     def __init__(self, cfg: HybridConfig):
         self.cfg = cfg
@@ -175,17 +172,18 @@ class HybridLM:
         (``contract_parallel``, as GSPMD splits it); ``ffn_b``
         column-parallel; the correction through each position's rows of
         ``wo`` with an all-reduce of its own, not the FFN's.  Each sum is
-        rounded once to bf16 and the two are added in bf16, as the
-        unsplit ``f + delta @ wo`` rounds its two products; one shared
-        all-reduce would round their float32 sum once instead."""
-        f = ffn(shared["ffn"], hn)
-        dtype = hn.dtype
+        rounded once to the compute dtype and the two are added in it, as
+        the unsplit ``f + delta @ wo`` rounds its two products; one shared
+        all-reduce would round their sum once instead.  wi, wg and
+        ``ffn_a`` read hn's ``shared`` form."""
+        x, dtype = shared_form(hn), hn.dtype
+        f = ffn(shared["ffn"], x)
         wb, wo = lora["ffn_b"], shared["ffn"]["wo"]
         if is_blocks(wb):
-            a = contract_parallel(hn, lora["ffn_a"])
+            a = contract_parallel(x, lora["ffn_a"])
             return f + row_parallel(column_parallel(a, wb), wo, dtype)
-        delta = (hn @ lora["ffn_a"].to(dtype)) @ wb.to(dtype)
-        return f + delta @ wo.to(dtype)
+        return f + sum_product(product(sum_product(x, lora["ffn_a"]), wb),
+                               wo)
 
     def _segment_full(self, shared, seg, h, positions):
         """One segment in training: its Mamba2 blocks (each rematerialised

@@ -14,9 +14,26 @@ float32 partial product, ``psum``), the vocab-parallel ``logits_last`` and
 ``chunked_softmax_xent`` (max, sum of exponentials and the target's logit
 all-reduced over the group).  A weight the group holds whole takes
 ``contract_parallel`` where GSPMD splits it (the unembed of a vocab that
-does not divide the axis): its contracted dim in blocks, ``psum``.  A
-partial product is float32 and the sum is rounded once, so a split product
-rounds as the unsplit one, up to the order of accumulation.
+does not divide the axis): its contracted dim in blocks, ``psum``.
+
+Precision: a sum the split divides accumulates one precision above the
+compute dtype (``sharding_ctx.accum_dtype``) and rounds once, split or
+not.  bf16: float32 partial products, ``psum`` in float32, rounded once to
+bf16 (the unsplit bf16 GEMM accumulates in float32 too).  float32: the
+row-parallel and contract-parallel partials are float64, and their
+unsplit counterparts (``sum_product``: every wo, the LoRA's ffn_a)
+accumulate in float64 and round once, so that the split step gives the
+unsplit step's bits.  A column-parallel ``product`` divides no sum in
+its forward pass where a block of the output columns gets the whole
+product's bits: on the CPU in float32; on CUDA, where it does not, in
+float64.  Its backward does divide one, the gradient of its input summed
+over the output columns, so a float32 ``product`` takes its gradients in
+float64, and an activation that several products (or positions) read
+comes to them in its float64 form (``shared``): autograd adds their
+float64 gradients in float64 and rounds once, at that cast.  Not exact
+on the CPU: a head projection that a layout splits over "embed" (heads
+the axis does not divide, ``attention._proj_split``) against its unsplit
+float32 product.
 """
 from __future__ import annotations
 
@@ -27,7 +44,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .params import ParamDef
-from .sharding_ctx import is_blocks, lane_stats, model_group, use_group
+from .sharding_ctx import (accum_dtype, is_blocks, lane_stats, model_group,
+                           use_group)
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -67,6 +85,93 @@ ACT = {
 }
 
 
+def shared(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in the form in which several products (or positions) read it:
+    a float32 activation in float64 (exact), so that autograd sums its
+    readers' float64 gradients in float64 and rounds once, at this cast;
+    any other dtype as it is (bf16 readers' gradients add in bf16, as
+    they always have).  A float64 ``x`` is already shared."""
+    return x.to(torch.float64) if x.dtype == torch.float32 else x
+
+
+def compute_dtype(x: torch.Tensor) -> torch.dtype:
+    """The compute dtype of an activation: float32 for one in its float64
+    ``shared`` form (the models compute in bf16 or float32 only)."""
+    return torch.float32 if x.dtype == torch.float64 else x.dtype
+
+
+class _WideProduct(torch.autograd.Function):
+    """``x @ w`` of float32 values (x [..., D] float32 or its float64
+    ``shared`` form, w [D, N] float32), rounded once to float32: in
+    float32, or (``wide``) accumulated in float64.  Both gradients
+    accumulate in float64: x's is returned in x's dtype (unrounded for a
+    shared x), w's rounded once to float32."""
+
+    @staticmethod
+    def forward(ctx, x, w, wide):
+        ctx.save_for_backward(x, w)
+        if wide:
+            return (x.to(torch.float64) @ w.to(torch.float64)).to(
+                torch.float32)
+        return x.to(torch.float32) @ w
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        f64, dx, dw = torch.float64, None, None
+        dy = dy.to(f64)
+        if ctx.needs_input_grad[0]:
+            dx = (dy @ w.to(f64).t()).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = (x.reshape(-1, x.shape[-1]).to(f64).t()
+                  @ dy.reshape(-1, dy.shape[-1])).to(w.dtype)
+        return dx, dw, None
+
+
+def _product(x: torch.Tensor, w: torch.Tensor, eq: str | None,
+             wide: bool) -> torch.Tensor:
+    """``x @ w`` (or ``torch.einsum(eq, x, w)``, which contracts x's last
+    dims with w's first ones) in x's compute dtype: bf16 as torch
+    multiplies it; float32 through ``_WideProduct``."""
+    dtype = compute_dtype(x)
+    if accum_dtype(dtype) != torch.float64:
+        ws = w.to(dtype)
+        return x @ ws if eq is None else torch.einsum(eq, x, ws)
+    k = 1                            # the contracted dims: w's first k
+    if eq is not None:
+        ins, out_sub = eq.split("->")
+        k = sum(c not in out_sub for c in ins.split(",")[1])
+    tail = w.shape[k:]
+    out = _WideProduct.apply(x.flatten(-k), w.to(dtype).reshape(
+        math.prod(w.shape[:k]), math.prod(tail)), wide)
+    return out.unflatten(-1, tail) if len(tail) > 1 else out
+
+
+def product(x: torch.Tensor, w: torch.Tensor, eq: str | None = None):
+    """``x @ w`` for a product whose output columns the split divides
+    (column-parallel; ``eq``: the head projections' einsum).  float32:
+    gradients in float64 (x may come ``shared``); the forward multiplies
+    in float32 on the CPU, whose GEMM gives a block of the output columns
+    the whole product's bits, and in float64 on CUDA, where cuBLAS picks
+    its float32 kernel by the output width and a column block rounds
+    otherwise than the whole product in 88-97% of its elements (an H100,
+    PERF.md §6).  On the CPU a float64 forward would move the float32
+    models off the reference's float32 products (gemma-7b's engine
+    logits 4.5e-4, past their parity test's 1e-4)."""
+    return _product(x, w, eq, x.is_cuda)
+
+
+def sum_product(x: torch.Tensor, w, eq: str | None = None):
+    """``x @ w`` for a product whose contracted dims (``eq``: the merge of
+    heads) the split divides: a ``ModelBlocks`` w takes its split form
+    (``matmul``); a whole one is its unsplit counterpart, float32
+    accumulated in float64 both ways and rounded once, as the split's
+    ``psum`` of float64 partials is."""
+    if is_blocks(w):
+        return matmul(x, w)
+    return _product(x, w, eq, True)
+
+
 def rmsnorm_defs(dim: int) -> dict:
     return {"scale": ParamDef((dim,), ("norm",), init="ones")}
 
@@ -91,36 +196,39 @@ def dense(p, x: torch.Tensor) -> torch.Tensor:
 
 
 def partial_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` in float32: one position's unrounded share of a split
+    """``x @ w`` one precision above x's compute dtype (float32 for bf16,
+    float64 for float32): one position's unrounded share of a split
     product."""
-    return x.to(torch.float32) @ w.to(torch.float32)
+    acc = accum_dtype(x.dtype)
+    return x.to(acc) @ w.to(acc)
 
 
 def column_parallel(x: torch.Tensor, w) -> list:
     """Each active position's ``x @`` its block of ``w``'s output columns
-    (``ModelBlocks`` on the last dim), in x's dtype, on its device."""
-    g = model_group()
-    return [g.to(x, k) @ wp.to(x.dtype) for k, wp in zip(w.index, w.parts)]
+    (``ModelBlocks`` on the last dim), rounded to x's compute dtype, on its
+    device; the positions read x's ``shared`` form."""
+    g, xs = model_group(), shared(x)
+    return [product(g.to(xs, k), wp) for k, wp in zip(w.index, w.parts)]
 
 
 def row_parallel(parts: list, w, dtype) -> torch.Tensor:
     """The positions' inputs (blocks of the contracted dim, aligned with
     ``w``'s ``ModelBlocks`` on its first dim) times their blocks of ``w``:
-    float32 partial products, ``psum``, rounded once to ``dtype``.
+    partial products in ``accum_dtype(dtype)``, ``psum``, rounded once to
+    ``dtype``.
 
     Positions on one device run their products as one batched product: a
     layer that ends here (the FFN's ``wo``) and is rematerialised stops its
     recompute before that product, as one position's program stops before
     its own, so the lane recomputes what its positions' programs do."""
-    g = model_group()
+    g, acc = model_group(), accum_dtype(dtype)
     if len({h.device for h in parts}) > 1 or len({tuple(
             wp.shape) for wp in w.parts}) > 1:
         return g.psum([partial_product(h, wp) for h, wp in
                        zip(parts, w.parts)], dtype)
     lead = parts[0].shape[:-1]
     hs = torch.stack([h.reshape(-1, h.shape[-1]) for h in parts])
-    out = torch.bmm(hs.to(torch.float32),
-                    torch.stack(list(w.parts)).to(torch.float32))
+    out = torch.bmm(hs.to(acc), torch.stack(list(w.parts)).to(acc))
     return g.psum([o.reshape(lead + (o.shape[-1],)) for o in out.unbind(0)],
                   dtype)
 
@@ -128,29 +236,31 @@ def row_parallel(parts: list, w, dtype) -> torch.Tensor:
 def contract_parallel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``x @ w`` [D, N] for a weight every position of the group holds
     whole, as GSPMD partitions such a product in the reference's SPMD
-    records: each position's block of the contracted D, a float32 partial
-    product, ``psum``, rounded once to x's dtype."""
-    g = model_group()
+    records: each position's block of the contracted D (of x's ``shared``
+    form), a partial product one precision up, ``psum``, rounded once to
+    x's compute dtype."""
+    g, xs = model_group(), shared(x)
     d, parts = x.shape[-1], []
     for k in g.active:
         lo, hi = g.bounds(d, k)
-        parts.append(partial_product(g.to(x[..., lo:hi], k),
+        parts.append(partial_product(g.to(xs[..., lo:hi], k),
                                      g.to(w[lo:hi], k)))
-    return g.psum(parts, x.dtype)
+    return g.psum(parts, compute_dtype(x))
 
 
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
-    """``x @ w``; a ``ModelBlocks`` ``w`` [D_in, D_out] takes its split
-    form: column-parallel then gathered (output columns split), or
-    row-parallel over x's blocks of D_in (input rows split)."""
+    """``x @ w`` (``product``); a ``ModelBlocks`` ``w`` [D_in, D_out]
+    takes its split form: column-parallel then gathered (output columns
+    split), or row-parallel over x's blocks of D_in (input rows split)."""
     if not is_blocks(w):
-        return x @ w.to(x.dtype)
+        return product(x, w)
     g = model_group()
     if w.dim == w.parts[0].dim() - 1:
         return g.all_gather(column_parallel(x, w), -1, w.size)
-    parts = [g.to(x[..., slice(*w.bounds(j))], k)
+    xs = shared(x)
+    parts = [g.to(xs[..., slice(*w.bounds(j))], k)
              for j, k in enumerate(w.index)]
-    return row_parallel(parts, w, x.dtype)
+    return row_parallel(parts, w, compute_dtype(x))
 
 
 def embed_defs(vocab: int, d_model: int, dtype=torch.bfloat16) -> dict:
@@ -207,7 +317,8 @@ def linear(p, name: str, x: torch.Tensor) -> torch.Tensor:
     packed = p.get(name + "_pud")
     if packed is not None:
         from repro_torch.pud.gemv import pud_linear
-        return pud_linear(x, packed).to(x.dtype)
+        dtype = compute_dtype(x)
+        return pud_linear(x.to(dtype), packed).to(dtype)
     return matmul(x, p[name])
 
 
@@ -219,11 +330,13 @@ def _ffn_split(p, x: torch.Tensor, act) -> torch.Tensor:
         hs = [act(gk) * h for gk, h in zip(column_parallel(x, p["wg"]), hs)]
     else:
         hs = [act(h) for h in hs]
-    return row_parallel(hs, p["wo"], x.dtype)
+    return row_parallel(hs, p["wo"], compute_dtype(x))
 
 
 def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    """The (gated) FFN; x may come ``shared`` (wi and wg read it)."""
     act = ACT[activation]
+    x = shared(x)
     if is_blocks(p.get("wi")):
         return _ffn_split(p, x, act)
     h = linear(p, "wi", x)
@@ -231,7 +344,8 @@ def ffn(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
         h = act(linear(p, "wg", x)) * h
     else:
         h = act(h)
-    return linear(p, "wo", h)
+    return (linear(p, "wo", h) if "wo_pud" in p
+            else sum_product(h, p["wo"]))
 
 
 def logits_last(unembed_p, h_last: torch.Tensor) -> torch.Tensor:
@@ -266,13 +380,25 @@ def remat(enabled: bool, fn, *args):
     return fn(*args)
 
 
+def _logsumexp(logits: torch.Tensor, dtype) -> torch.Tensor:
+    """``logsumexp`` over the last dim of float32 logits computed in
+    ``dtype``: bf16 through ``torch.logsumexp``; float32 as the
+    vocab-parallel loss takes it (the max, the exponentials' sum in
+    float64 rounded once, its log plus the max), so that the two agree."""
+    if accum_dtype(dtype) != torch.float64:
+        return torch.logsumexp(logits, dim=-1)
+    m = logits.detach().amax(dim=-1)
+    total = torch.exp(logits - m[..., None]).to(torch.float64).sum(dim=-1)
+    return torch.log(total.to(torch.float32)) + m
+
+
 def _chunk_loss(hc: torch.Tensor, w: torch.Tensor, yc: torch.Tensor,
                 mc: torch.Tensor):
     """One chunk's masked loss sum and count; inside a "model" group the
     whole vocab's logits are split over D (``contract_parallel``)."""
-    logits = (hc @ w.to(hc.dtype) if model_group() is None
+    logits = (product(hc, w) if model_group() is None
               else contract_parallel(hc, w)).to(torch.float32)
-    logz = torch.logsumexp(logits, dim=-1)
+    logz = _logsumexp(logits, hc.dtype)
     gold = torch.gather(logits, -1, yc[..., None].long())[..., 0]
     return ((logz - gold) * mc).sum(), mc.sum()
 
@@ -280,14 +406,15 @@ def _chunk_loss(hc: torch.Tensor, w: torch.Tensor, yc: torch.Tensor,
 def _chunk_loss_split(hc: torch.Tensor, yc: torch.Tensor,
                       mc: torch.Tensor, w):
     """``_chunk_loss`` with the vocab split: each position's block of the
-    logits; the max, the sum of exponentials and the target's logit
-    all-reduced over the group."""
-    g = model_group()
+    logits; the max, the sum of exponentials (accumulated one precision
+    above hc's dtype) and the target's logit all-reduced over the group."""
+    g, acc = model_group(), accum_dtype(hc.dtype)
     logits = [part.to(torch.float32) for part in column_parallel(hc, w)]
     gmax = g.pmax([lg.detach().amax(dim=-1) for lg in logits])
     sums, gold = [], []
     for j, (k, lg) in enumerate(zip(w.index, logits)):
-        sums.append(torch.exp(lg - g.to(gmax, k)[..., None]).sum(dim=-1))
+        sums.append(torch.exp(lg - g.to(gmax, k)[..., None]).to(acc).sum(
+            dim=-1))
         lo, hi = w.bounds(j)
         y = g.to(yc, k).long()
         inside = (y >= lo) & (y < hi)

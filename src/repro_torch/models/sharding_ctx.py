@@ -16,7 +16,8 @@ program), and the collectives between them.  A leaf the rules put on
 "model" comes to the model code as ``ModelBlocks``, one block per position;
 the model's split blocks (``layers``, ``attention``, ``moe``) run each
 position's share on its device and combine the shares with ``psum`` (an
-all-reduce: float32 partial sums added in position order, rounded once),
+all-reduce: partial sums added in position order one precision above
+the compute dtype, ``accum_dtype``, rounded once),
 ``pmax``, ``all_gather`` or ``permute`` (a block one position sends
 another: the SSM's conv channels), each recorded under its collective kind
 in ``runtime/sharding.count_transfers``.  Replicated work (norms, the
@@ -73,6 +74,21 @@ def padded_head_count(n_heads: int) -> int:
     if not m or n_heads % m == 0:
         return n_heads
     return -(-n_heads // m) * m
+
+
+def accum_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulator one precision above the compute ``dtype``: float64
+    for float32 (and for float64, a float32 value in its ``shared`` form,
+    so that such an input cannot pick the narrower one), float32 for bf16
+    (and float16).  A sum that the "model" split divides
+    (``ModelGroup.psum`` of partial products or statistics) and its
+    unsplit counterpart accumulate in it and round once to the compute
+    dtype, so the two give the same bits (an exact float32 product of two
+    float32 values fits in float64, and float64 sums taken in two orders
+    round to the same float32 but where they straddle a float32 rounding
+    boundary)."""
+    return (torch.float64 if dtype in (torch.float32, torch.float64)
+            else torch.float32)
 
 
 def block_bounds(n: int, k: int, i: int) -> tuple[int, int]:
@@ -205,15 +221,20 @@ class ModelGroup:
 
     def psum(self, parts: list, dtype=None) -> torch.Tensor:
         """The all-reduce of the positions' partial results (aligned with
-        ``active``): float32 sums in position order on the home device,
-        rounded once to ``dtype`` (None: left float32).  Traced for one
-        position, its own partial stands for the sum."""
+        ``active``): sums in position order on the home device, in
+        ``accum_dtype(dtype)`` (float32 for bf16, float64 for float32),
+        rounded once to ``dtype``.  ``dtype`` None: float32 statistics
+        summed in the parts' own precision (float64 where the compute dtype
+        is float32, float32 under bf16) and rounded once to float32.
+        Traced for one position, its own partial stands for the sum."""
+        wide = (accum_dtype(dtype) if dtype is not None else
+                torch.promote_types(parts[0].dtype, torch.float32))
         acc = None
         for p in parts:
-            p = p.to(self.home, torch.float32)
+            p = p.to(self.home, wide)
             acc = p if acc is None else acc + p
-        self._record("all-reduce", acc.numel() * 4, 2.0)
-        return acc if dtype is None else acc.to(dtype)
+        self._record("all-reduce", acc.numel() * acc.element_size(), 2.0)
+        return acc.to(dtype or torch.float32)
 
     def pmax(self, parts: list) -> torch.Tensor:
         """The all-reduce max of the positions' float32 parts."""

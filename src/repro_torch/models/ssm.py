@@ -25,9 +25,11 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from .layers import rmsnorm, rmsnorm_defs, row_parallel, silu, softplus
+from .layers import (product, rmsnorm, rmsnorm_defs, row_parallel, shared,
+                     silu, softplus, sum_product)
 from .params import ParamDef
-from .sharding_ctx import ModelBlocks, block_bounds, is_blocks, model_group
+from .sharding_ctx import (ModelBlocks, accum_dtype, block_bounds, is_blocks,
+                           model_group)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,31 +85,59 @@ def _causal_conv(xbc: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
 
 
 def _proj_inputs(p, cfg: SSMConfig, x: torch.Tensor):
-    dtype = x.dtype
-    z = x @ p["wz"].to(dtype)
-    xs = x @ p["wx"].to(dtype)
-    bb = x @ p["wB"].to(dtype)
-    cc = x @ p["wC"].to(dtype)
-    dt = (x @ p["wdt"].to(dtype)).to(torch.float32)
-    return z, xs, bb, cc, dt
+    """(z, xs, B, C, dt float32) of x, the five products reading x's
+    ``shared`` form."""
+    x = shared(x)
+    return (product(x, p["wz"]), product(x, p["wx"]), product(x, p["wB"]),
+            product(x, p["wC"]), product(x, p["wdt"]).to(torch.float32))
+
+
+def _norm_wide(hs: list, scales: list, n: int, total) -> list:
+    """The gated RMSNorm where the compute dtype is float32, of the blocks
+    ``hs`` [..., n_k] of a dim of ``n`` (one block: unsplit) with their
+    blocks of the scale: the float64 sums of squares of every block added
+    by ``total`` (a ``psum``, or the one block's sum) and rounded once to
+    float32, and one rsqrt factor that every block reads in its float64
+    form, so that the gradient's sum over the dim is float64 too.  The
+    products round to float32 as float32 products do."""
+    hw = [shared(h) for h in hs]
+    sq = total([(h ** 2).sum(dim=-1, keepdim=True) for h in hw])
+    r = shared(torch.rsqrt(sq / n + 1e-6))
+    return [(h * r.to(h.device)).to(torch.float32) * s
+            for h, s in zip(hw, scales)]
 
 
 def _gate_out(p, cfg: SSMConfig, y: torch.Tensor, z: torch.Tensor,
               dtype) -> torch.Tensor:
-    """float32 y [B, L, H, P] -> gated, normalised and projected [B, L, D]."""
+    """float32 y [B, L, H, P] -> gated, normalised and projected [B, L, D]
+    (a float32 model normalises as its split does: ``_norm_wide``)."""
     b, l = y.shape[:2]
-    y = y.reshape(b, l, cfg.d_inner).to(dtype)
-    y = rmsnorm(p["norm"], y * silu(z))
-    return y @ p["wo"].to(dtype)
+    y = y.reshape(b, l, cfg.d_inner).to(dtype) * silu(z)
+    if accum_dtype(dtype) == torch.float64:
+        y = _norm_wide([y], [p["norm"]["scale"]], cfg.d_inner,
+                       lambda parts: parts[0].to(torch.float32))[0]
+    else:
+        y = rmsnorm(p["norm"], y)
+    return sum_product(y, p["wo"])
 
 
 def _ssd(cfg: SSMConfig, xs: torch.Tensor, bb: torch.Tensor,
          cc: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
          dt_bias: torch.Tensor, d_skip: torch.Tensor):
     """The chunked SSD of ``h`` heads (all of them, or a position's block):
-    xs [B, L, h P], bb / cc [B, L, N] after the conv, dt [B, L, h] float32
-    before its bias, the heads' a_log / dt_bias / d_skip [h].  Returns (y
-    [B, L, h, P] float32, final state [B, h, P, N] float32).
+    xs [B, L, h P], bb / cc [B, L, N] after the conv (or their ``shared``
+    form), dt [B, L, h] float32 before its bias, the heads' a_log /
+    dt_bias / d_skip [h].  Returns (y [B, L, h, P] float32, final state
+    [B, h, P, N] float32).
+
+    The SSD computes one precision above xs's dtype (``accum_dtype``:
+    float32 under bf16, as the reference, float64 for a float32 model) and
+    rounds y and the state once to float32.  Its gradients with respect to
+    B and C (and C.B's broadcast) sum over the heads, which the split
+    divides among positions, and those of the per-head dt_bias, decay and
+    skip sum over the batch and time with the heads as the innermost dim,
+    in an order that depends on how many heads a position holds: in float64
+    every such sum rounds to the same float32 split or not.
 
     A sequence that is not a multiple of the chunk is padded with no-op
     steps: zero inputs and dt = -1e9, whose softplus is 0 (no decay, no
@@ -115,28 +145,31 @@ def _ssd(cfg: SSMConfig, xs: torch.Tensor, bb: torch.Tensor,
     b, l, h = dt.shape
     q = min(cfg.chunk, l)
     nc, pd, n = -(-l // q), cfg.head_dim, cfg.d_state
-    f32 = torch.float32
+    acc = accum_dtype(xs.dtype)           # the SSD's working precision
     pad = nc * q - l
     if pad:
         xs, bb, cc = (F.pad(t, (0, 0, 0, pad)) for t in (xs, bb, cc))
         dt = F.pad(dt, (0, 0, 0, pad), value=-1e9)
     lpad = l + pad
 
-    dt = softplus(dt + dt_bias)                                    # [B,L,h]
-    a = -torch.exp(a_log)                                          # [h]
+    dt = softplus(dt.to(acc) + dt_bias.to(acc))                    # [B,L,h]
+    a = -torch.exp(a_log.to(acc))                                  # [h]
     la = (dt * a).reshape(b, nc, q, h)                             # log decay
     xh = (xs.reshape(b, lpad, h, pd) * dt[..., None]).reshape(
         b, nc, q, h, pd)                                           # dt * x
-    bc = bb.reshape(b, nc, q, n).to(f32)
-    cg = cc.reshape(b, nc, q, n).to(f32)
+    bc = bb.reshape(b, nc, q, n).to(acc)
+    cg = cc.reshape(b, nc, q, n).to(acc)
 
     cs = torch.cumsum(la, dim=2)                                   # [B,C,Q,h]
     # intra-chunk: decay L[t, s] = exp(cs_t - cs_s) for t >= s; a where,
-    # not a product with the mask: the upper triangle's exp may be inf
+    # not a product with the mask: the upper triangle's exp may be inf.
+    # The exp is float32's, whose overflow (and the NaN it leaves in the
+    # backward pass) the reference's has too
     dmat = cs[:, :, :, None, :] - cs[:, :, None, :, :]             # [B,C,Q,S,h]
     tri = torch.ones((q, q), dtype=torch.bool, device=xs.device).tril()
-    dmat = torch.where(tri[None, None, :, :, None], torch.exp(dmat),
-                       torch.zeros((), dtype=f32, device=xs.device))
+    dmat = torch.where(tri[None, None, :, :, None],
+                       torch.exp(dmat.to(torch.float32)).to(acc),
+                       torch.zeros((), dtype=acc, device=xs.device))
     g = torch.einsum("bcqn,bcsn->bcqs", cg, bc)
     y_intra = torch.einsum("bcqsh,bcshp->bcqhp", g[..., None] * dmat, xh)
 
@@ -145,7 +178,7 @@ def _ssd(cfg: SSMConfig, xs: torch.Tensor, bb: torch.Tensor,
     s_chunk = torch.einsum("bcsn,bcshp->bchpn", bc,
                            decay_to_end[..., None] * xh)           # [B,C,h,P,N]
     lam = torch.exp(cs[:, :, -1, :])                               # [B,C,h]
-    hstate = torch.zeros((b, h, pd, n), dtype=f32, device=xs.device)
+    hstate = torch.zeros((b, h, pd, n), dtype=acc, device=xs.device)
     h_prevs = []
     for c in range(nc):
         h_prevs.append(hstate)
@@ -155,9 +188,9 @@ def _ssd(cfg: SSMConfig, xs: torch.Tensor, bb: torch.Tensor,
         * torch.exp(cs)[..., None]
 
     y = (y_intra + y_inter).reshape(b, lpad, h, pd)[:, :l]
-    y = y + d_skip[None, None, :, None] * xs[:, :l].reshape(
-        b, l, h, pd).to(f32)
-    return y, hstate
+    y = y + d_skip.to(acc)[None, None, :, None] * xs[:, :l].reshape(
+        b, l, h, pd).to(acc)
+    return y.to(torch.float32), hstate.to(torch.float32)
 
 
 def mamba2_block(p, cfg: SSMConfig, x: torch.Tensor):
@@ -238,7 +271,7 @@ def mamba2_decode(p, cfg: SSMConfig, x: torch.Tensor, cache):
 #
 # Position k takes whole heads ("ssm" on "model"): its columns of wz / wx /
 # wdt, its heads' a_log / dt_bias / d_skip, their SSD and state, and its
-# rows of wo (row-parallel: float32 partials, ``psum``).  B and C (ngroups
+# rows of wo (row-parallel: partial products, ``psum``).  B and C (ngroups
 # = 1: every head reads them) are cut over d_state, as GSPMD partitions the
 # reference's SPMD program: each position projects its columns of the whole
 # wB / wC and convolves them, and the group all-gathers the convolved B and
@@ -249,9 +282,13 @@ def mamba2_decode(p, cfg: SSMConfig, x: torch.Tensor, cache):
 # block against 256 xs + 8 + 8): the channels a position needs from
 # another's block, or holds for another's, cross in "collective-permute"s
 # (``_read``, ``_store``).  The gated RMSNorm normalises over the whole
-# d_inner: the positions' float32 sums of squares are all-reduced before
-# each scales its block.  The head-independent C.B product of the chunked
-# SSD is computed whole on every position (replicated work).
+# d_inner: the positions' sums of squares are all-reduced before each
+# scales its block.  The head-independent C.B product of the chunked SSD
+# is computed whole on every position (replicated work).  Where the compute
+# dtype is float32 every sum that crosses the positions, forward or
+# backward, is float64 and rounds once, as the unsplit mixer's is: the
+# projections read x's ``shared`` form, every position's SSD reads the
+# gathered B and C in theirs, and the norm is ``_norm_wide``.
 
 def _split_group(p):
     """The enclosing "model" group where the mixer runs split (its heads
@@ -330,16 +367,17 @@ def _store(g, cfg: SSMConfig, held: list) -> ModelBlocks:
 
 def _split_inputs(g, p, cfg: SSMConfig, x: torch.Tensor):
     """Per active position (z, xs, B block, C block, dt) of x [B, L, D]:
-    column-parallel over its heads, and its d_state columns of wB / wC."""
-    dtype, out = x.dtype, []
+    column-parallel over its heads, and its d_state columns of wB / wC,
+    every product reading x's ``shared`` form."""
+    x, out = shared(x), []
     for j, k in enumerate(g.active):
         xk = g.to(x, k)
         blo, bhi = block_bounds(cfg.d_state, g.size, k)
-        out.append((xk @ p["wz"].parts[j].to(dtype),
-                    xk @ p["wx"].parts[j].to(dtype),
-                    xk @ g.to(p["wB"][:, blo:bhi], k).to(dtype),
-                    xk @ g.to(p["wC"][:, blo:bhi], k).to(dtype),
-                    (xk @ p["wdt"].parts[j].to(dtype)).to(torch.float32)))
+        out.append((product(xk, p["wz"].parts[j]),
+                    product(xk, p["wx"].parts[j]),
+                    product(xk, g.to(p["wB"][:, blo:bhi], k)),
+                    product(xk, g.to(p["wC"][:, blo:bhi], k)),
+                    product(xk, p["wdt"].parts[j]).to(torch.float32)))
     return out
 
 
@@ -362,19 +400,25 @@ def _heads(p, j: int):
 
 def _gate_out_split(g, p, cfg: SSMConfig, ys: list, zs: list, dtype):
     """``_gate_out`` over the positions' heads: the gated RMSNorm's mean of
-    squares from a float32 ``psum`` of their partial sums, each position's
-    slice of the replicated scale, then wo row-parallel."""
+    squares from a ``psum`` of their partial sums (float32 under bf16; a
+    float32 model's as ``_norm_wide`` takes it), each position's slice of
+    the replicated scale, then wo row-parallel."""
     hs = []
     for y, z in zip(ys, zs):
         hs.append(y.reshape(y.shape[:2] + (-1,)).to(dtype) * silu(z))
+    scale = p["norm"]["scale"]
+    scales = [g.to(scale[slice(*block_bounds(cfg.d_inner, g.size, k))], k)
+              for k in g.active]
+    if accum_dtype(dtype) == torch.float64:
+        return row_parallel(_norm_wide(hs, scales, cfg.d_inner, g.psum),
+                            p["wo"], dtype)
     sq = g.psum([(h.to(torch.float32) ** 2).sum(dim=-1, keepdim=True)
                  for h in hs])
-    scale, normed = p["norm"]["scale"], []
-    for j, (k, h) in enumerate(zip(g.active, hs)):
-        lo, hi = block_bounds(cfg.d_inner, g.size, k)
+    normed = []
+    for k, h, sk in zip(g.active, hs, scales):
         var = g.to(sq, k) / cfg.d_inner
         hf = h.to(torch.float32) * torch.rsqrt(var + 1e-6)
-        normed.append((hf * g.to(scale[lo:hi], k)).to(dtype))
+        normed.append((hf * sk).to(dtype))
     return row_parallel(normed, p["wo"], dtype)
 
 
@@ -391,7 +435,8 @@ def _mamba2_split(g, p, cfg: SSMConfig, x: torch.Tensor):
         kernel = _read(g, p["conv"], k, _channels(cfg, g.size, k))
         convolved.append(silu(_causal_conv(xbc, kernel)))
     width = inputs[0][1].shape[-1]
-    bb, cc = _gather_bc(g, cfg, convolved, width)
+    # every position's SSD reads B and C: their gradients add in float64
+    bb, cc = (shared(t) for t in _gather_bc(g, cfg, convolved, width))
     ys, states = [], []
     for j, (k, t, (_, _, _, _, dt)) in enumerate(zip(g.active, convolved,
                                                      inputs)):

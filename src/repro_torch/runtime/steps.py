@@ -24,18 +24,18 @@ leaves) the step is data-parallel over the batch axes, in one process:
     gradients, which are summed in float32 into gradient shards laid out
     as the parameters (a reduce-scatter), and AdamW updates every
     position's slices.
-For the families whose model sets ``model_split`` (every family but the
-hybrid) the "model" axis splits each lane's compute too, as GSPMD splits
-the reference's: the lane's positions along "model" form a
+For the families whose model sets ``model_split`` (every family) the
+"model" axis splits each lane's compute too, as GSPMD splits the
+reference's: the lane's positions along "model" form a
 ``sharding_ctx.ModelGroup`` (``lane_group``); each keeps its own block of
 every leaf the rules put on "model" (gathered over the other axes only)
 and computes its share, and the model's split blocks combine the shares
 (``models/layers``, ``attention``, ``moe``, ``ssm``).  A gradient block of
-such a leaf is reduced over the data lanes only.  The hybrid computes each
-lane whole on its first position (the "model" axis shards its storage
-only; ``models/hybrid.py`` says why).  Each piece is a function of its
-own (``gather_lane_params``, ``lanes_grads``, ``reduce_grads_at``:
-position by position), so the dry run
+such a leaf is reduced over the data lanes only.  In float32 the split
+gives the unsplit lane's bits: every sum it divides accumulates in float64
+on both sides (``models/layers``' module docstring).  Each piece is a
+function of its own (``gather_lane_params``, ``lanes_grads``,
+``reduce_grads_at``: position by position), so the dry run
 (``launch/dryrun.py``) traces one position's program of the same code (a
 group whose ``active`` is that position alone); ``make_lane_prefill_step``
 / ``make_lane_decode_step`` are the serving steps of a lane on sharded

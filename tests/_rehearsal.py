@@ -74,7 +74,11 @@ def cpu_scales(cs) -> dict:
                         cs.DRYRUN["families"],
                         vlm=dict(cs.DRYRUN["families"]["vlm"], seq_len=64),
                         train=dict(cs.DRYRUN["families"]["train"],
-                                   seq_len=16))))
+                                   seq_len=16),
+                        hybrid=dict(cs.DRYRUN["families"]["hybrid"],
+                                    seq_len=64, train=dict(
+                                        cs.DRYRUN["families"]["hybrid"][
+                                            "train"], seq_len=32)))))
 
 
 def rehearse(group: str, capsys, tmp_path, monkeypatch):

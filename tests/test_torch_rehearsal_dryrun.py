@@ -3,9 +3,10 @@ run's prediction of qwen3's train step and decode steps on a (1, 1) mesh
 against the profiler's FLOP count of the same steps run on the CPU (peaks
 and device times are the card's), then two full-size cells of the grid
 and the roofline over their records, then the same train step and decode
-lane split over a (1, 4) mesh's "model" positions, and (f)-(h) the other
+lane split over a (1, 4) mesh's "model" positions, and (f)-(i) the other
 families' split on that mesh: mamba2's and pixtral's decode lanes, whisper's
-train step."""
+train step, zamba2's decode lane and float32 train step (the float32
+split equal to the unsplit run)."""
 import pytest
 
 pytest.importorskip("torch")
@@ -62,4 +63,15 @@ def test_dryrun_group_rehearses_on_cpu(capsys, tmp_path, monkeypatch):
     assert abs(ls["split"] - ls["one"]) <= enc["allowed"]
     assert enc["allowed32"] == 2e-4 + 2e-4 * ls["one float32"]
     assert "(g) FLOPs: the dry run's per position" in text
-    assert text.count("(phase wall") == 9      # and the kernel rows
+    hy = sp["hybrid"]             # (i): zamba2's float32 split is exact
+    assert hy["steps_equal"] + hy["ties"] == 8
+    assert hy["f32_equal"] == 8 and hy["f32_err"] == 0.0
+    assert "(i) 8 steps, the split lane fed the unsplit lane's" in text
+    ht = sp["hybrid_train"]
+    assert ht["record"]["scheme"] == dryrun.SCHEME_SPLIT
+    assert ht["runs"]["split"]["flops"] == 4 * (
+        ht["record"]["flops_per_device"]
+        - ht["record"]["conv_flops_per_device"]) > 0
+    assert ht["runs"]["split"]["loss"] == ht["runs"]["one"]["loss"]
+    assert "(i) FLOPs: the dry run's per position" in text
+    assert text.count("(phase wall") == 11     # and the kernel rows

@@ -1,18 +1,18 @@
 """The dry run of the split over "model" (``launch/dryrun.build_cell``
 tracing one position's program):
 
-  * for the nine smoke archs whose model splits (all but zamba2-7b, whose
-    lanes compute whole: ROADMAP Queue 1 item 7) and each kind of step,
-    the FLOPs of a lane's positions add up to the unsplit lane's within 1%,
-    less the work every position does whole (``_replicated_flops``: MLA's
-    latents, the MoE router, the SSD's head-independent C.B product, the
-    VLM's projector), and no position gets more than its 1 / M share of
-    the rest; a split leaf is gathered over the other axes only, and the
-    positions all-reduce;
+  * for the ten smoke archs and each kind of step, the FLOPs of a lane's
+    positions add up to the unsplit lane's within 1%, less the work every
+    position does whole (``_replicated_flops``: MLA's latents, the MoE
+    router, the SSD's head-independent C.B product, the VLM's projector),
+    and no position gets more than its 1 / M share of the rest; a split
+    leaf is gathered over the other axes only, and the positions
+    all-reduce;
   * the reference's SPMD records of decode_32k on the production mesh
     (``repro.launch.dryrun.run_cell``, run in a subprocess: the module
     sets 512 host devices when it is imported) against the port's: within
-    1% for the dense archs, mamba2-1.3b and pixtral-12b; for llama4-scout
+    1% for the dense archs, mamba2-1.3b, zamba2-7b and pixtral-12b; for
+    llama4-scout
     and whisper-large-v3 the remainder is what the reference's partition
     does differently, term by term (llama4: its ``wo`` kept whole on every
     position, its router split, and its decode routing one group of the
@@ -41,7 +41,7 @@ from repro_torch.runtime import steps
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 ARCHS = ["qwen3-1.7b", "gemma-7b", "granite-8b", "deepseek-67b",
          "deepseek-v2-lite-16b", "llama4-scout-17b-a16e", "mamba2-1.3b",
-         "whisper-large-v3", "pixtral-12b"]
+         "zamba2-7b", "whisper-large-v3", "pixtral-12b"]
 CELLS = {"train": ShapeCell("t", "train", 32, 8),
          "prefill": ShapeCell("p", "prefill", 32, 4),
          "decode": ShapeCell("d", "decode", 64, 4)}
@@ -52,21 +52,26 @@ def _replicated_flops(model, cell, lanes: int) -> float:
     """One position's FLOPs of the work it does whole: MLA's latent
     projections and the MoE router, [tokens, D] @ [D, width]; the SSD's
     C.B product of every chunk, [Q, N] @ [N, Q] (prefill and train: decode
-    runs the recurrence); the VLM's projector, [P, d_vit] @ [d_vit, D] and
+    runs the recurrence), in each of the SSM's layers and the hybrid's
+    Mamba2 blocks; the VLM's projector, [P, d_vit] @ [d_vit, D] and
     [P, D] @ [D, D] a row.  A train step runs a rematerialised layer's
     forward, again in the recompute, and the two products of its
-    backward; the projector runs outside the remat: its forward, and in
-    the backward both products' weight gradients and the second's input
-    gradient."""
+    backward (the hybrid's Mamba2 block, rematerialised inside its
+    rematerialised segment, runs its forward a third time); the projector
+    runs outside the remat: its forward, and in the backward both
+    products' weight gradients and the second's input gradient."""
     c = model.cfg
     rows = cell.global_batch // lanes
     seq = 1 if cell.kind == "decode" else cell.seq_len
     train = cell.kind == "train"
-    if hasattr(c, "d_state"):              # the SSM
+    if hasattr(c, "d_state"):              # the SSM and the hybrid
         q = min(c.ssd_chunk, seq)
         if cell.kind == "decode":
             return 0.0
         ssd = 2 * rows * (-(-seq // q)) * q * q * c.d_state
+        if hasattr(c, "n_blocks"):
+            return ((5 if train else 1) * (c.n_blocks - c.n_shared_uses)
+                    * ssd)
         return (4 if train else 1) * c.n_layers * ssd
     if hasattr(c, "lm"):                   # the VLM
         per = 2 * rows * c.n_patches * c.lm.d_model
@@ -108,7 +113,8 @@ def test_positions_add_up_to_the_unsplit_lane(arch, kind):
     for f in flops:
         assert f <= (whole - repl) / M * 1.01 + repl
     assert (repl > 0) == (arch in ("deepseek-v2-lite-16b", "mamba2-1.3b",
-                                   "pixtral-12b") or "llama4" in arch) \
+                                   "zamba2-7b", "pixtral-12b")
+                          or "llama4" in arch) \
         or kind == "decode"
 
 
@@ -148,8 +154,8 @@ print(json.dumps(out))
 """
 
 REF_ARCHS = ["qwen3-1.7b", "gemma-7b", "granite-8b", "deepseek-67b",
-             "llama4-scout-17b-a16e", "mamba2-1.3b", "pixtral-12b",
-             "whisper-large-v3"]
+             "llama4-scout-17b-a16e", "mamba2-1.3b", "zamba2-7b",
+             "pixtral-12b", "whisper-large-v3"]
 
 
 @pytest.fixture(scope="module")

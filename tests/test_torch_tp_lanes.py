@@ -4,12 +4,12 @@
 lane (the model run whole on the lane's rows), for the ten smoke archs on
 (1, 2), (2, 2) and (1, 4) CPU meshes and whisper on (1, 3) too (its 4
 heads padded to 6, its vocab and kv heads whole), the parameters and cache
-laid out by the dry run's overrides for the smoke config.  zamba2-7b's
-lanes compute whole (``HybridLM.model_split`` is off): its lane gathers the
-cache leaves split over "model" and writes a decode step's rows back.  The
-leaves that stay at their init values (norm scales, the SSM's decay, step
-bias and skip, the LoRA's zero up-projection) are redrawn so that they
-matter.
+laid out by the dry run's overrides for the smoke config.  Every arch's
+lane splits (``model_split``), zamba2-7b's too: its Mamba2 state and conv
+window, its shared block's KV caches split over "model", and a decode
+step writes its rows into the positions' blocks.  The leaves that stay at
+their init values (norm scales, the SSM's decay, step bias and skip, the
+LoRA's zero up-projection) are redrawn so that they matter.
 
 Tolerances, stated once: float32 logits and cache rows within ``TOL`` x
 (1 + |unsplit value|); greedy tokens equal.
@@ -110,7 +110,7 @@ def test_split_lane_equals_the_unsplit_lane(arch, shape):
     ex = {k: v[sl] for k, v in extras.items()} or None
     prefill = steps.make_prefill_step(model, spec.family)
     g = steps.lane_group(model, mesh, lane)
-    assert (g.size if g else 1) == (shape[1] if model.model_split else 1)
+    assert model.model_split and g.size == shape[1]
     with torch.no_grad():
         want, wcache = prefill(plain, toks[sl], ex, MAX + prefix)
         sharding_ctx.set_rules({**rules, "_mesh_sizes": mesh.shape})
@@ -124,9 +124,8 @@ def test_split_lane_equals_the_unsplit_lane(arch, shape):
                 split += sharding_ctx.is_blocks(a)
                 assert _close(_whole(a), b)
             cdefs = model.cache_defs(B, MAX + prefix)
-            assert split == (_n_split(cdefs, rules, shape[1])
-                             if model.model_split else 0)
-            assert split or shape == (1, 3) or not model.model_split
+            assert split == _n_split(cdefs, rules, shape[1])
+            assert split or shape == (1, 3)
 
             # greedy decode from the whole prefill's cache of every row
             _, full = prefill(plain, toks, extras or None, MAX + prefix)
@@ -185,7 +184,7 @@ def test_train_cli_mesh_flag_runs_the_split():
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "zamba2-7b",
                                   "whisper-large-v3", "pixtral-12b"])
 def test_train_cli_mesh_flag_splits_every_family(arch):
-    """The other families on (1, 2), as the docs show for mamba2 (zamba2's
-    lanes compute whole): the first loss (the bf16 smoke models' later
-    steps amplify the float32 sums' other order)."""
+    """The other families on (1, 2), as the docs show for mamba2: the first
+    loss (the bf16 smoke models' later steps amplify the float32 sums'
+    other order)."""
     _cli_split(arch, "1,2", every_step=False)
