@@ -27,7 +27,9 @@ int8 tensor-core MMA on a tile unpacked once per stage.  ``plan_launch``
 makes every choice of a launch on the host from shapes alone (path, tile,
 stage words, K split, shared memory, grid) and the kernel only checks it,
 so the CPU tests reach the plan.  Every launch runs with its tensors'
-device current, and its plan fills that device's SM count.
+device current, and its plan fills that device's SM count.  Every call of
+either entry, on either path, counts in the tracer's ``placed.calls``
+keyed by (entry, rows, K, N); ``launches`` counts the CUDA launches.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import functools
 import torch
 
 from repro_torch import devices
+from repro_torch.runtime import tracing
 
 from . import build
 from .ref import bitplane_gemv_ref, densify
@@ -371,6 +374,13 @@ def _launch(entry, x, words, col_ids, mode, layout, logical_k, window_block,
     return out
 
 
+def _count(entry: str, x: torch.Tensor, col_ids: torch.Tensor) -> None:
+    """Every call of an entry, on either path, keyed by (entry, rows, K,
+    N): the tracer's ``placed.calls``."""
+    tracing.count("placed.calls", key=(entry, x.shape[0], x.shape[-1],
+                                       col_ids.shape[-1]))
+
+
 def gemm_placed(x: torch.Tensor, words: torch.Tensor, col_ids: torch.Tensor,
                 mode: str = "folded", *, layout: str = "bitpack8",
                 logical_k: int | None = None,
@@ -379,6 +389,7 @@ def gemm_placed(x: torch.Tensor, words: torch.Tensor, col_ids: torch.Tensor,
     """Batch-tiled placed GEMM: [B, K] int8 -> [B, N] int32.  ``tile_plan``
     (a ``TunedPlan``) overrides the heuristic launch plan; on the CPU it is
     checked and the plain version runs."""
+    _count("gemm_placed", x, col_ids)
     if not x.is_cuda:
         if tile_plan is not None:
             check_mode(mode, layout)
@@ -400,6 +411,7 @@ def gemv_placed(x: torch.Tensor, words: torch.Tensor, col_ids: torch.Tensor,
                 tile_plan=None) -> torch.Tensor:
     """Single-row placed GEMV: [1, K] int8 -> [1, N] int32; ``tile_plan``
     as ``gemm_placed``'s."""
+    _count("gemv_placed", x, col_ids)
     if not x.is_cuda:
         if tile_plan is not None:
             check_mode(mode, layout)

@@ -23,6 +23,11 @@ Where PyTorch's defaults would differ from the reference:
     shape whatever the batch: a request's prefill through the engine
     (batch 1) equals its row of a batched prefill.
 
+While a profiler records, ``_group`` adds its routed (token, expert) pairs
+and those dropped by capacity to the tracer's ``moe.routed`` and
+``moe.dropped`` counters, on the device (``tracing.count_device``), keyed
+by the engine step index of the span around the call (None outside one).
+
 Routed expert banks stay plain ``einsum`` products (the reference runs
 them outside any Pallas kernel); the shared experts go through
 ``layers.ffn`` and so through the bit-plane GEMM when packed.
@@ -38,6 +43,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from repro_torch.runtime import tracing
 
 from .layers import ffn, ffn_defs, silu
 from .params import ParamDef
@@ -104,6 +111,13 @@ def _group(p, cfg: MoEConfig, x: torch.Tensor):
     # each expert takes its top-C tokens of the group by score
     gate_c, idx_c = _top_k(score.t(), cap)                    # [E, C]
     keep = gate_c > 0
+    if tracing.recording():
+        # routed (token, expert) pairs and those past the capacity, summed
+        # on the device while a profiler records (no host read, no op else)
+        routed = (score > 0).sum()
+        step = tracing.current_step()
+        tracing.count_device("moe.routed", routed, key=step)
+        tracing.count_device("moe.dropped", routed - keep.sum(), key=step)
     # combine: expert e's kept output for token t lands in t's slot j, the
     # rank of e among t's selected experts; dropped entries go to slot k
     ranked = torch.sort(topi, dim=-1).values                  # [S, k]

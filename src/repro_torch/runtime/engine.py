@@ -42,6 +42,15 @@ data-parallel ``FleetServingEngine`` over it (port of
     [B] vector of cache lengths (``models/attention.gqa_decode``); free and
     prefilling slots decode a dummy token at length 0, in their own lane
     only.
+  * **Spans** (``runtime/tracing.py``, always on, host stamps only):
+    ``engine.queue`` per request from ``submit`` to its admission;
+    ``engine.admit`` per admission (children ``model.prefill``, the model
+    call's enqueue, and ``engine.first_token``, the wait for its first
+    token); ``engine.decode`` per wave (child ``model.decode_step``, the
+    enqueue; the rest is the wait for the wave's tokens).  Each carries
+    the step index.  The wave's span times ``decode_wall_s`` and the
+    watchdog's step.  ``scheduler_report()["counters"]`` holds the
+    tracer's counters and its next sequence number.
 
 Every per-row computation (activation quantization, the integer bit-plane
 kernels, attention masks, RMSNorm) is independent of the other rows, so a
@@ -57,12 +66,12 @@ from __future__ import annotations
 
 import collections
 import dataclasses
-import time
 from typing import Any
 
 import numpy as np
 import torch
 
+from . import tracing
 from .prefix_cache import PrefixCache
 from .watchdog import StepWatchdog
 
@@ -193,6 +202,12 @@ def _cache_leaves(cache: dict, path=()):
             yield path + (k,), v
 
 
+def _tracer_snapshot() -> dict:
+    """The tracer's counters and the sequence number of its next span:
+    two reports bracket the spans and counts of the steps between them."""
+    return dict(tracing.counters(), seq=tracing.next_seq())
+
+
 def engine_refusal(model) -> str | None:
     """Why ``ServingEngine`` cannot serve ``model``, or None.
 
@@ -307,6 +322,8 @@ class ServingEngine:
         self._slo = slo
 
         self._queue: collections.deque[Request] = collections.deque()
+        # each queued request's open ``engine.queue`` span, by request id
+        self._queue_spans: dict[int, tracing.span] = {}
         self._slots: list[_Slot | None] = [None] * self.batch_size
         self._cache = None                       # allocated on first admit
         # host-side slot state, copied to the device once per step
@@ -404,6 +421,15 @@ class ServingEngine:
         self._deadlines[request.request_id] = (
             None if deadline is None else self._vtime_ms + float(deadline))
         self._queue.append(request)
+        self._queue_spans[request.request_id] = tracing.span(
+            "engine.queue", request=request.request_id, step=self._step_idx,
+            detached=True).start()
+
+    def _dequeued(self, req: Request, **attrs) -> None:
+        """Close ``req``'s ``engine.queue`` span: it leaves the queue."""
+        q = self._queue_spans.pop(req.request_id, None)
+        if q is not None:
+            q.stop(**attrs)
 
     def submit_all(self, requests) -> None:
         for r in requests:
@@ -554,9 +580,13 @@ class ServingEngine:
                            + self._estimate_steps(req, resume) * self._step_ms)
                     if deadline is not None and eta > deadline:
                         self._slo_stats["shed_on_admit"] += 1
+                        self._dequeued(req, shed=True)
                         self._shed_completion(req)
                         continue
-                self._admit_slot(slot, req)
+                self._dequeued(req)
+                with tracing.span("engine.admit", request=req.request_id,
+                                  step=self._step_idx):
+                    self._admit_slot(slot, req)
                 admitted += 1
                 break
         if taken:
@@ -602,8 +632,9 @@ class ServingEngine:
         # an exact-length prompt's last row is its last token: only a
         # bucketed prefill needs last_idx (which the SSM does not take)
         kw = {"last_idx": s - 1} if self._bucketed else {}
-        logits, cache1 = self.model.prefill(
-            self.params, padded[None], max_len=self.max_len, **kw)
+        with tracing.span("model.prefill"):
+            logits, cache1 = self.model.prefill(
+                self.params, padded[None], max_len=self.max_len, **kw)
         self._prefill_buckets.add(sb)
         self._prefilled_tokens += sb
         row = logits[0]
@@ -622,7 +653,8 @@ class ServingEngine:
         lanes = dict(_cache_leaves(self._cache))
         for path, c in _cache_leaves(cache1):
             lanes[path][:, slot] = c[:, 0]
-        first = int(torch.argmax(logits_row))
+        with tracing.span("engine.first_token"):
+            first = int(torch.argmax(logits_row))
         st = self._slots[slot]
         if st is None:                 # whole-prefill / full-hit admission
             st = _Slot(request=req, admitted_step=self._step_idx,
@@ -723,6 +755,7 @@ class ServingEngine:
             if req.request_id == request_id:
                 self._queue = collections.deque(
                     r for r in self._queue if r is not req)
+                self._dequeued(req, shed=True)
                 self._shed_completion(req)
                 return True
         for slot, st in enumerate(self._slots):
@@ -772,13 +805,19 @@ class ServingEngine:
         if live:
             self._active_slot_steps += len(live)
             self.watchdog.start_step(self._step_idx)
-            t0 = time.time()
-            logits, self._cache = self.model.decode_step(
-                self.params, self._cache, self._tokens.to(self.device),
-                self._lens.to(self.device))
-            nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu()
-            self._decode_wall_s += time.time() - t0
-            self.watchdog.end_step()
+            with tracing.span("engine.decode", step=self._step_idx,
+                              rows=len(live)) as wave:
+                with tracing.span("model.decode_step"):
+                    logits, self._cache = self.model.decode_step(
+                        self.params, self._cache,
+                        self._tokens.to(self.device),
+                        self._lens.to(self.device))
+                nxt = torch.argmax(logits, dim=-1).to(torch.int32).cpu()
+            # one clock for the wave: its span times it for the report
+            # and for the watchdog
+            dt = (wave.end_ns - wave.start_ns) * 1e-9
+            self._decode_wall_s += dt
+            self.watchdog.end_step(dt=dt)
             self._step_idx += 1
             for i in live:
                 st = self._slots[i]
@@ -827,7 +866,9 @@ class ServingEngine:
 
     def scheduler_report(self) -> dict:
         """Scheduler counters: slot occupancy, steps, measured decode rate,
-        watchdog, prefill, prefix-cache and SLO counters."""
+        watchdog, prefill, prefix-cache and SLO counters, and under
+        ``counters`` the tracer's (process-wide) counters with its next
+        sequence number, ``seq``."""
         steps = self._step_idx
         gen_tokens = sum(len(c.tokens) for c in self._completions)
         occ = (self._active_slot_steps / (steps * self.batch_size)
@@ -852,6 +893,7 @@ class ServingEngine:
             "chunk_traces": len(self._chunk_shapes),
             "prefill_chunks": self._prefill_chunks,
             "prefilled_tokens": self._prefilled_tokens,
+            "counters": _tracer_snapshot(),
         }
         if self._prefix_cache is not None:
             pc = self._prefix_cache.stats()
@@ -970,8 +1012,11 @@ class FleetServingEngine:
     # -- reporting -----------------------------------------------------------
 
     def scheduler_report(self) -> dict:
-        """Fleet-merged counters plus the per-lane reports."""
+        """Fleet-merged counters plus the per-lane reports; the tracer's
+        counters once, at the top."""
         reps = [lane.scheduler_report() for lane in self.lanes]
+        for r in reps:
+            del r["counters"]
         rep = {
             "n_lanes": len(self.lanes),
             "batch_size": self.batch_size,
@@ -983,6 +1028,7 @@ class FleetServingEngine:
             "slot_occupancy": (sum(r["slot_occupancy"] for r in reps)
                                / len(reps)),
             "lanes": reps,
+            "counters": _tracer_snapshot(),
         }
         pcs = [r["prefix_cache"] for r in reps if "prefix_cache" in r]
         if pcs:

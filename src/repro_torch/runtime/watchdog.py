@@ -6,6 +6,8 @@
     baseline, where a step slower than ``slow_factor`` x EMA is flagged as
     a straggler.  With ``on_hang`` set, a monitor thread calls it when one
     step runs past ``hang_timeout_s``; without it no thread is started.
+    The hang monitor runs on ``time.monotonic()``; a caller that times the
+    step itself hands ``end_step`` the duration (``dt``).
   * ``Heartbeat``: writes ``heartbeat_<host>.json`` (host, step, a counter
     that only grows, wall time, extras) atomically through a rename, so a
     supervisor can tell a slow host from a dead one.  The file is the
@@ -45,10 +47,11 @@ class StepWatchdog:
             self._monitor = threading.Thread(target=self._watch, daemon=True)
             self._monitor.start()
 
-    def end_step(self) -> dict:
+    def end_step(self, dt: float | None = None) -> dict:
         if self._step_start is None:
             raise RuntimeError("end_step before start_step")
-        dt = time.monotonic() - self._step_start
+        if dt is None:
+            dt = time.monotonic() - self._step_start
         self._step_start = None
         is_straggler = (self.ema_s is not None
                         and dt > self.slow_factor * self.ema_s)
